@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py          # from the repository root
+
+Drives ``deeplocalproteindocking_torch`` (never JAX) through its main
+path and fails (non-zero exit, no final result line) at the first
+phase that does not hold:
+
+1. environment: the card's name and power limit, torch/CUDA versions,
+   and the build of the hand-written kernels from ``csrc/``;
+2. each kernel against its plain PyTorch version on the card, at the
+   main path's shapes with a batch of 8 rotations (K1 float32 and bf16,
+   K2 with a real translation mask, drill-down top-K), plus the time of
+   each kernel and its plain version at the full batch of 128;
+3. the slice: the v9p hybrid model (exported weights, rank-3 coupling
+   folded into the last conv, bf16, grid 128, top-K 64, chunk 128)
+   serves three ``DockingPipeline.dock`` requests, proving through the
+   launch counters that K1 and K2 ran in each;
+4. card against CPU: one request at float32, grid 64, 256 rotations,
+   once on CUDA tensors (kernels) and once on CPU tensors (plain
+   versions); top-K values and the top-1 pose must agree.
+
+Each phase prints one JSON line.  The last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_ROT_SERVE = 2048          # per request; the JAX bench sweeps 13,000
+BENCH_ROTATIONS = 13000
+SEEDS = (0, 1, 2)
+TOL_F32 = 1e-4              # max |kernel - plain| <= TOL * max |plain|
+TOL_BF16 = 2e-2
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def cuda_time_ms(fn, reps=5):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got, want):
+    """(max |got - want| over finite entries, that / max |want|)."""
+    import torch
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)),
+          "kernel and plain version differ in which entries are finite")
+    err = (got[fin] - want[fin]).abs().max().item()
+    return err, err / max(want[fin].abs().max().item(), 1e-30)
+
+
+def main():
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA card")
+    sys.path.insert(0, ROOT)
+    from deeplocalproteindocking_torch import _build, weights
+    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.correlate import fused, invz_topk
+    from deeplocalproteindocking_torch.correlate._contract import mm
+    from deeplocalproteindocking_torch.correlate.dft import get_correlator
+    from deeplocalproteindocking_torch.data import (structure_to_device,
+                                                    synthetic_complex)
+    from deeplocalproteindocking_torch.grids.voxelize import (
+        separable_splat)
+    from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
+                                                        dock_score_mask)
+    from deeplocalproteindocking_torch.structure.so3 import (
+        super_fibonacci_rotations)
+    from deeplocalproteindocking_torch.sweep.resplat import (
+        auto_ligand_grid)
+    from deeplocalproteindocking_torch.sweep.topk import exact_block_topk
+
+    # ---- phase 1: environment and kernel build ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fresh = not os.path.exists(_build.library_path())
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    emit("environment", card=card, torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         device=torch.cuda.get_device_name(0),
+         device_count=torch.cuda.device_count(),
+         kernel_build_seconds=build_s, built_fresh=fresh,
+         library=os.path.relpath(_build.library_path(), ROOT))
+
+    # ---- shared set-up: the v9p model on the bench complex ----
+    params = weights.load_npz(os.path.join(
+        ROOT, "pretrained", "synthetic-v9p", "best_params.npz"))
+    serve_cfg = DockConfig(
+        grid_size=128, resolution=1.25, rep_features=(32, 14),
+        shape_prior=True, compute_dtype="bfloat16", dft_dtype="bfloat16",
+        coupling_rank=3, top_k=64, rotation_chunk=128,
+        num_rotations=N_ROT_SERVE, fft_impl="dft_fused",
+        sweep_mode="resplat")
+    pipe = DockingPipeline(serve_cfg, params=params, device=dev)
+    cplx = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30)
+    rec_c, lig_c, rep_rec, _, coupling = pipe._prepare(cplx.receptor,
+                                                       cplx.ligand)
+    _, H, rep_fn = pipe._engine_parts(rep_rec, coupling)
+    L = serve_cfg.grid_size
+    Ls = auto_ligand_grid(lig_c.typed().coords, serve_cfg.resolution,
+                          serve_cfg.sigma, pipe._receptive_field(), L)
+    lc, lt, lm = structure_to_device(lig_c, bucket=serve_cfg.atom_bucket,
+                                     device=dev)
+    mask = dock_score_mask(serve_cfg, lig_c, device=dev)
+    check(mask is not None, "the bench complex should need a wrap mask")
+    bias = torch.where(mask, 0.0, float("-inf")).to(torch.float32)
+
+    def k1_inputs(b, dtype_name):
+        """K1's arguments as the main path builds them for b rotations."""
+        corr = get_correlator(L, Ls, dtype_name, dev)
+        with torch.inference_mode():
+            R = super_fibonacci_rotations(b, dev)
+            vols = separable_splat(torch.einsum("bij,nj->bni", R, lc), lt,
+                                   lm, grid_size=Ls,
+                                   resolution=serve_cfg.resolution,
+                                   sigma=serve_cfg.sigma, num_types=11)
+            v = rep_fn(vols).to(corr.dtype)
+            are = mm("bxyzc,zk->bkcxy", v, corr.WzRe).to(corr.dtype)
+            aim = mm("bxyzc,zk->bkcxy", v, corr.WzIm).to(corr.dtype)
+        Ht = corr.prep_H(H)
+        return corr, (are.contiguous(), aim.contiguous(), Ht[0], Ht[1],
+                      corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm,
+                      corr.UxRe, corr.UxIm, corr.UyRe, corr.UyIm)
+
+    # ---- phase 2: kernels against their plain versions ----
+    errs = {}
+    with torch.inference_mode():
+        for name in ("float32", "bfloat16"):
+            corr, args = k1_inputs(8, name)
+            got = fused.fused_correlate(*args)
+            torch.cuda.synchronize()
+            want = fused.fused_correlate_reference(*args)
+            e = [rel_err(g, w) for g, w in zip(got, want)]
+            errs["k1_" + name] = (max(a for a, _ in e), max(r for _, r in e))
+            if name == "float32":
+                corr32, D = corr, got
+        bk = invz_topk.invz_blockmax(D[0], D[1], corr32.MzRe, corr32.MzIm,
+                                     bias)
+        torch.cuda.synchronize()
+        br = invz_topk.invz_blockmax_reference(D[0], D[1], corr32.MzRe,
+                                               corr32.MzIm, bias)
+        errs["k2"] = rel_err(bk, br)
+        top_k = serve_cfg.top_k
+        dv, dflat = invz_topk.drill_topk(D[0], D[1], corr32.MzRe,
+                                         corr32.MzIm, bias.reshape(-1), bk,
+                                         top_k)
+        S = (torch.einsum("bkxy,kz->bxyz", D[0], corr32.MzRe)
+             - torch.einsum("bkxy,kz->bxyz", D[1], corr32.MzIm))
+        S = torch.where(mask[None], S, float("-inf"))
+        ev, _ = exact_block_topk(S.reshape(S.shape[0], -1), top_k)
+        drill_err = rel_err(dv.sort(dim=1).values, ev.sort(dim=1).values)
+        looked = torch.gather(S.reshape(S.shape[0], -1), 1, dflat)
+        drill_idx_err = rel_err(looked, dv)
+    emit("kernels_vs_plain", batch=8, L=L, Ls=Ls, C=3, K=L // 2 + 1,
+         k1_float32_max_abs_err=errs["k1_float32"][0],
+         k1_float32_rel_err=errs["k1_float32"][1],
+         k1_bf16_max_abs_err=errs["k1_bfloat16"][0],
+         k1_bf16_rel_err=errs["k1_bfloat16"][1],
+         k2_max_abs_err=errs["k2"][0], k2_rel_err=errs["k2"][1],
+         drill_topk_rel_err=drill_err[1],
+         drill_index_rel_err=drill_idx_err[1],
+         tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
+         masked_fraction=1.0 - mask.float().mean().item())
+    check(errs["k1_float32"][1] <= TOL_F32, f"K1 float32 {errs}")
+    check(errs["k1_bfloat16"][1] <= TOL_BF16, f"K1 bf16 {errs}")
+    check(errs["k2"][1] <= TOL_F32, f"K2 {errs}")
+    check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
+          f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
+
+    # Times at the main path's full chunk: b=128 rotations, bf16.
+    with torch.inference_mode():
+        corr16, args16 = k1_inputs(128, "bfloat16")
+        k1_ms = cuda_time_ms(lambda: fused.fused_correlate(*args16))
+        k1_plain_ms = cuda_time_ms(
+            lambda: fused.fused_correlate_reference(*args16))
+        D16 = fused.fused_correlate(*args16)
+        k2_ms = cuda_time_ms(lambda: invz_topk.invz_blockmax(
+            D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias))
+        k2_plain_ms = cuda_time_ms(lambda: invz_topk.invz_blockmax_reference(
+            D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias))
+        del D16, args16
+    emit("kernel_times", batch=128, dtype="bfloat16", k1_ms=k1_ms,
+         k1_plain_ms=k1_plain_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         timer="cuda events, mean of 5 after 1 warm-up", card=card)
+
+    # ---- phase 3: the slice serves three dock requests ----
+    emit("serve_config", rotations_per_request=N_ROT_SERVE,
+         cut_from=BENCH_ROTATIONS, grid=L, lig_grid=Ls, top_k=top_k,
+         chunk=serve_cfg.rotation_chunk, dtype="bfloat16", coupling_rank=3,
+         model="pretrained/synthetic-v9p/best_params.npz")
+    fused.launches = 0
+    invz_topk.launches = 0
+    requests = []
+    for seed in SEEDS:
+        c = synthetic_complex(seed=seed, n_res_rec=60, n_res_lig=30)
+        k1_0, k2_0 = fused.launches, invz_topk.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = pipe.dock_complex(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = dict(seed=seed, wall_seconds=wall,
+                   rotations_per_second=N_ROT_SERVE / wall,
+                   poses=len(poses), top1_score=float(poses.scores[0]),
+                   top1_rot_idx=int(poses.rot_idx[0]),
+                   top1_shift=[int(v) for v in poses.shifts[0]],
+                   k1_launches=fused.launches - k1_0,
+                   k2_launches=invz_topk.launches - k2_0)
+        emit("dock_request", **rec)
+        requests.append(rec)
+        check(len(poses) > 0, f"request {seed}: no poses")
+        check(bool(np.isfinite(poses.scores).all()),
+              f"request {seed}: non-finite scores")
+        check(rec["k1_launches"] > 0 and rec["k2_launches"] > 0,
+              f"request {seed}: kernels not launched {rec}")
+    main_launches = {"fused_correlate": fused.launches,
+                     "invz_blockmax": invz_topk.launches}
+
+    # ---- phase 4: card against CPU at float32, grid 64 ----
+    cmp_cfg = serve_cfg.replace(grid_size=64, compute_dtype="float32",
+                                dft_dtype="float32", num_rotations=256)
+    results = {}
+    for where in ("cuda", "cpu"):
+        p = DockingPipeline(cmp_cfg, params=params, device=where)
+        t0 = time.perf_counter()
+        results[where] = p.dock_complex(cplx, cluster=False)
+        results[where + "_s"] = time.perf_counter() - t0
+    g, w = results["cuda"], results["cpu"]
+    vals_ok = np.allclose(np.sort(g.scores), np.sort(w.scores), rtol=1e-3,
+                          atol=0)
+    top1_ok = (int(g.rot_idx[0]) == int(w.rot_idx[0])
+               and list(g.shifts[0]) == list(w.shifts[0]))
+    emit("card_vs_cpu", grid=64, rotations=256, dtype="float32",
+         cuda_seconds=results["cuda_s"], cpu_seconds=results["cpu_s"],
+         max_rel_diff=float(np.max(np.abs(np.sort(g.scores)
+                                           - np.sort(w.scores))
+                                    / np.abs(np.sort(w.scores)))),
+         top1_cuda=[int(g.rot_idx[0])] + [int(v) for v in g.shifts[0]],
+         top1_cpu=[int(w.rot_idx[0])] + [int(v) for v in w.shifts[0]])
+    check(vals_ok, "top-K values differ between card and CPU")
+    check(top1_ok, "top-1 pose differs between card and CPU")
+
+    src = "deeplocalproteindocking_torch/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "fused_correlate", "route": "cuda",
+         "source": src + "fused_correlate.cu",
+         "replaces": "deeplocalproteindocking_tpu/correlate/"
+                     "pallas_fused.py:57",
+         "launches": main_launches["fused_correlate"],
+         "max_abs_err": errs["k1_bfloat16"][0],
+         "max_abs_err_float32": errs["k1_float32"][0],
+         "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "invz_blockmax", "route": "cuda",
+         "source": src + "invz_blockmax.cu",
+         "replaces": "deeplocalproteindocking_tpu/correlate/"
+                     "pallas_invz_topk.py:54",
+         "launches": main_launches["invz_blockmax"],
+         "max_abs_err": errs["k2"][0],
+         "tolerance": f"float32 {TOL_F32} x max|plain|",
+         "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,132 @@
+"""K2: fused kz->z inverse + translation mask + block max, and the
+exact top-K drill-down that follows it.
+
+Port of ``deeplocalproteindocking_tpu/correlate/pallas_invz_topk.py``:
+
+    S[x,y,z]  = sum_k D_re[k,x,y] Mz_re[k,z] - D_im[k,x,y] Mz_im[k,z]
+    S        += bias                   (0 / -inf translation mask)
+    bmax      = max over 32-wide y runs at fixed (x, z)
+
+without forming the score volume.  :func:`drill_topk` then selects the
+top-K blocks by their maxima and recomputes the winning blocks' 32
+scores from ``D``.  Exactness: every element outside the selected
+blocks is beaten by at least K block maxima.  Flat indices follow the
+full volume's ``x*L^2 + y*L + z`` convention.
+
+:func:`invz_blockmax` launches the hand-written CUDA kernel
+(``csrc/invz_blockmax.cu``) for CUDA tensors and runs the plain version
+:func:`invz_blockmax_reference` for CPU tensors; a CUDA tensor never
+falls back.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deeplocalproteindocking_torch import _build
+from deeplocalproteindocking_torch.sweep.topk import exact_block_topk
+
+YB = 32         # block width along y
+
+# Kernel launches since the last reset (the main path's proof of use).
+launches = 0
+
+
+def _as_groups(bias: torch.Tensor, b: int) -> torch.Tensor:
+    if bias.ndim == 3:
+        bias = bias[None]
+    if bias.ndim != 4 or b % bias.shape[0]:
+        raise ValueError(f"invz_blockmax: bias must be [X, Y, Z] or "
+                         f"[G, X, Y, Z] with G dividing b={b}, got "
+                         f"{tuple(bias.shape)}")
+    return bias
+
+
+def invz_blockmax_reference(Dre, Dim, MzRe, MzIm, bias):
+    """Plain torch version: the score volume in float32, the bias added
+    per group of ``b // G`` rows, then the max over 32-wide y runs."""
+    f32 = torch.float32
+    b, K, X, Y = Dre.shape
+    Z = MzRe.shape[1]
+    bias = _as_groups(bias, b)
+    G = bias.shape[0]
+    S = (torch.einsum("bkxy,kz->bxyz", Dre.to(f32), MzRe.to(f32))
+         - torch.einsum("bkxy,kz->bxyz", Dim.to(f32), MzIm.to(f32)))
+    S = (S.reshape(G, b // G, X, Y, Z) + bias.to(f32)[:, None])
+    return S.reshape(b, X, Y // YB, YB, Z).amax(dim=3)
+
+
+def invz_blockmax(Dre: torch.Tensor, Dim: torch.Tensor,
+                  MzRe: torch.Tensor, MzIm: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """Block maxima ``[b, X, Y//32, Z]`` float32 of the score volumes.
+
+    ``Dre/Dim [b, K, X, Y]`` from ``fused_correlate``; ``MzRe/MzIm
+    [K, Z]`` Hermitian-weighted inverse twiddles; ``bias`` additive mask
+    (0 valid / -inf masked), ``[X, Y, Z]`` or ``[G, X, Y, Z]`` with G
+    dividing b (each contiguous run of b//G rows shares a group).
+    """
+    b, K, X, Y = Dre.shape
+    if Y % YB:
+        raise ValueError(f"invz_blockmax needs Y % {YB} == 0, got Y={Y}")
+    if Dre.device.type == "cpu":
+        return invz_blockmax_reference(Dre, Dim, MzRe, MzIm, bias)
+    if Dre.device.type != "cuda":
+        raise ValueError(f"invz_blockmax: no kernel for device "
+                         f"{Dre.device}")
+    global launches
+    bias = _as_groups(bias, b)
+    Z = MzRe.shape[1]
+    G = bias.shape[0]
+    _build.check_tensors(
+        "invz_blockmax", Dre.device, torch.float32,
+        (("Dre", Dre, (b, K, X, Y)), ("Dim", Dim, (b, K, X, Y)),
+         ("MzRe", MzRe, (K, Z)), ("MzIm", MzIm, (K, Z)),
+         ("bias", bias, (G, X, Y, Z))))
+    if Z > 1024:
+        raise ValueError(f"invz_blockmax: kernel takes Z <= 1024, got {Z}")
+    out = torch.empty((b, X, Y // YB, Z), dtype=torch.float32,
+                      device=Dre.device)
+    lib = _build.library()
+    with torch.cuda.device(Dre.device):
+        err = lib.dlpd_invz_blockmax(
+            Dre.data_ptr(), Dim.data_ptr(), MzRe.data_ptr(),
+            MzIm.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, K, X, Y, Z, G,
+            torch.cuda.current_stream(Dre.device).cuda_stream)
+    _build.check(err, "invz_blockmax")
+    launches += 1
+    return out
+
+
+def drill_topk(Dre: torch.Tensor, Dim: torch.Tensor,
+               MzRe: torch.Tensor, MzIm: torch.Tensor,
+               bias_flat: Optional[torch.Tensor],
+               bmax: torch.Tensor, top_k: int):
+    """Exact top-K ``(vals [b, k], flat [b, k])`` from block maxima.
+
+    ``bmax [b, X, NBy, Z]`` from :func:`invz_blockmax`; the winning
+    blocks' 32 scores are recomputed from ``D`` with the same
+    contraction (plus ``bias_flat [X*Y*Z]`` when masked).
+    """
+    f32 = torch.float32
+    b, X, NBy, Z = bmax.shape
+    Y = NBy * YB
+    _, bid = exact_block_topk(bmax.reshape(b, X * NBy * Z), top_k)
+    x = bid // (NBy * Z)                                # [b, k]
+    yb = (bid // Z) % NBy
+    z = bid % Z
+    ys = yb[..., None] * YB + torch.arange(YB, device=bmax.device)
+    rows = torch.arange(b, device=bmax.device)[:, None, None]
+    cr = Dre.permute(0, 2, 3, 1)[rows, x[..., None], ys]   # [b, k, 32, K]
+    ci = Dim.permute(0, 2, 3, 1)[rows, x[..., None], ys]
+    mr = MzRe.t()[z]                                    # [b, k, K]
+    mi = MzIm.t()[z]
+    vals = (torch.einsum("bkjK,bkK->bkj", cr.to(f32), mr.to(f32))
+            - torch.einsum("bkjK,bkK->bkj", ci.to(f32), mi.to(f32)))
+    flat = x[..., None] * (Y * Z) + ys * Z + z[..., None]   # [b, k, 32]
+    if bias_flat is not None:
+        vals = vals + bias_flat[flat]
+    best, sel = torch.topk(vals.reshape(b, top_k * YB), top_k)
+    return best, torch.gather(flat.reshape(b, top_k * YB), 1, sel)

@@ -1,0 +1,394 @@
+"""End-to-end docking pipeline: structures in, ranked poses out.
+
+Port of the main path of ``deeplocalproteindocking_tpu/pipeline.py``:
+
+    parse/type (structure/) -> splat (grids/) -> represent (models/)
+    -> resplat sweep (sweep/resplat.py) -> cluster (sweep/cluster.py)
+
+Two scoring modes: **learned** (the 3-D CNN representation + learned
+channel coupling, optionally SVD-truncated to rank r and folded into the
+last conv) and **shape** (``params=None``: analytic surface/core
+channels with the fixed attract/repulse coupling).
+
+Geometry: receptor centered at the origin, ligand centered at its own
+center; a pose is ``x -> R x + shift * resolution``.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deeplocalproteindocking_torch.config import DockConfig
+from deeplocalproteindocking_torch.correlate.fft import (
+    coupled_receptor, resolve_engine, translation_mask)
+from deeplocalproteindocking_torch.data.benchmark import (
+    Complex, structure_to_device)
+from deeplocalproteindocking_torch.grids.voxelize import separable_splat
+from deeplocalproteindocking_torch.models.representation import (
+    conv3d_channels_last, shape_channels)
+from deeplocalproteindocking_torch.models.scoring import ScoringModel
+from deeplocalproteindocking_torch.structure.pdb import Structure
+from deeplocalproteindocking_torch.structure.so3 import (
+    local_rotations, super_fibonacci_rotations)
+from deeplocalproteindocking_torch.sweep.cluster import cluster_pose_set
+from deeplocalproteindocking_torch.sweep.resplat import (
+    auto_ligand_grid, dock_sweep_resplat)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class PoseSet(NamedTuple):
+    """Ranked rigid-body poses of the (centered) ligand, host arrays."""
+    scores: np.ndarray        # [K]
+    rotations: np.ndarray     # [K, 3, 3]
+    translations: np.ndarray  # [K, 3] Angstrom
+    rot_idx: np.ndarray       # [K] into the rotation set
+    shifts: np.ndarray        # [K, 3] voxel shifts
+    rank_scores: Optional[np.ndarray] = None  # [K] ranking statistic
+
+    def __len__(self):
+        return len(self.scores)
+
+    def ligand_coords(self, lig_coords: np.ndarray, i: int) -> np.ndarray:
+        """Posed ligand coordinates (receptor frame) for pose ``i``."""
+        return (np.asarray(lig_coords) @ self.rotations[i].T
+                + self.translations[i])
+
+
+def shape_complementarity_reps(vol: torch.Tensor, *,
+                               core_weight: float = 12.0,
+                               threshold: float = 0.35, shell: int = 2):
+    """Analytic (surface, core) rep ``[..., L, L, L, 2]`` of a density
+    volume and the fixed coupling ``[[1, 0], [0, -core_weight]]``."""
+    return shape_channels(vol, core_weight=core_weight,
+                          threshold=threshold, shell=shell)
+
+
+def dock_score_mask(cfg: DockConfig, lig_c: Structure,
+                    translation_center=None, max_shift=None,
+                    device: torch.device | str = "cpu"):
+    """Translation mask ``[L, L, L]`` bool for one complex, or None.
+
+    Combines the circular-wraparound guard (shifts whose ligand leaves
+    the box alias under circular correlation) with the optional
+    local-docking restriction around ``translation_center``.
+    """
+    lig_half_vox = int(np.ceil(
+        (np.abs(lig_c.typed().coords).max() + 3.0 * cfg.sigma)
+        / cfg.resolution))
+    wrap_cap = max(1, cfg.grid_size // 2 - lig_half_vox)
+    score_mask = None
+    if wrap_cap < cfg.grid_size // 2:
+        score_mask = translation_mask(cfg.grid_size, wrap_cap,
+                                      device=device)
+    if max_shift is not None:
+        center = (None if translation_center is None
+                  else torch.as_tensor(np.asarray(translation_center),
+                                       dtype=torch.int64))
+        local = translation_mask(
+            cfg.grid_size, int(round(max_shift / cfg.resolution)), center,
+            device=device)
+        score_mask = local if score_mask is None else score_mask & local
+    return score_mask
+
+
+def coupling_deviation_capture(coupling, rank: int, *,
+                               shape_prior: bool = False,
+                               core_weight: float = 12.0):
+    """``(kept, dev)``: fraction of the LEARNED coupling deviation
+    ``A - prior`` that a rank-``rank`` SVD truncation keeps, and the
+    deviation norm (prior: ``diag(1, -core_weight)`` on the first two
+    channels for the hybrid model, identity for the plain one)."""
+    A = np.asarray(coupling, np.float64)
+    SB = np.zeros_like(A)
+    if shape_prior:
+        SB[0, 0] = 1.0
+        if min(A.shape) > 1:
+            SB[1, 1] = -core_weight
+    else:
+        np.fill_diagonal(SB, 1.0)
+    U, s, Vt = np.linalg.svd(A)
+    r = min(rank, len(s))
+    Ar = (U[:, :r] * s[:r]) @ Vt[:r]
+    dev = float(np.linalg.norm(A - SB))
+    lost = float(np.linalg.norm(A - Ar))
+    kept = 1.0 if dev <= 0 else 1.0 - lost / dev
+    return kept, dev
+
+
+def min_licensed_rank(coupling, *, shape_prior: bool = False,
+                      core_weight: float = 12.0,
+                      threshold: float = 0.95) -> int:
+    """Smallest truncation rank keeping >= ``threshold`` of the learned
+    coupling deviation."""
+    C = min(np.asarray(coupling).shape)
+    for r in range(1, C + 1):
+        kept, dev = coupling_deviation_capture(
+            coupling, r, shape_prior=shape_prior, core_weight=core_weight)
+        if dev <= 0 or kept >= threshold:
+            return r
+    return C
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class DockingPipeline:
+    """Docking with one model on one device.
+
+    ``params`` is a ``ScoringModel`` state_dict (``weights.load_npz``) or
+    None for shape mode; ``device`` is where every tensor of the sweep
+    lives.
+    """
+
+    def __init__(self, config: DockConfig, params: Optional[dict] = None,
+                 device: torch.device | str = "cpu"):
+        self.config = config
+        self.device = torch.device(device)
+        self.model = ScoringModel(
+            features=config.rep_features, kernel=config.rep_kernel,
+            dtype=_DTYPES[config.compute_dtype],
+            shape_prior=config.shape_prior,
+            in_channels=config.num_atom_types).to(self.device)
+        self.model.eval()
+        self.model.requires_grad_(False)     # inference only
+        self.params = None
+        # Spectral parts memoized per (params, rank): the SVD runs once.
+        self._closure_memo: dict = {}
+        if params is not None:
+            self.load_params(params)
+
+    # ---- building blocks ----
+    def load_params(self, state_dict: dict) -> dict:
+        self.model.load_state_dict(state_dict)
+        self.params = self.model.state_dict()
+        self._closure_memo.clear()
+        return self.params
+
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> dict:
+        """Fresh flax-style weights drawn from ``generator`` (default:
+        a CPU generator seeded with ``config.seed``)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.config.seed)
+        model = ScoringModel(
+            features=self.config.rep_features,
+            kernel=self.config.rep_kernel,
+            shape_prior=self.config.shape_prior,
+            in_channels=self.config.num_atom_types)
+        model.reset_parameters(generator)
+        return self.load_params(model.state_dict())
+
+    def voxelize(self, s: Structure, max_atoms: Optional[int] = None):
+        cfg = self.config
+        coords, types, mask = structure_to_device(
+            s, max_atoms, bucket=cfg.atom_bucket or None,
+            device=self.device)
+        return separable_splat(
+            coords, types, mask, grid_size=cfg.grid_size,
+            resolution=cfg.resolution, sigma=cfg.sigma,
+            num_types=cfg.num_atom_types,
+            atom_chunk=4096 if len(coords) > 4096 else None)
+
+    def representations(self, rec_vol: torch.Tensor,
+                        lig_vol: torch.Tensor):
+        if self.params is None:
+            rep_rec, coupling = shape_complementarity_reps(rec_vol)
+            rep_lig, _ = shape_complementarity_reps(lig_vol)
+            return rep_rec, rep_lig, coupling
+        return self.model(rec_vol, lig_vol)
+
+    def rotation_set(self, native_rotation: Optional[torch.Tensor] = None):
+        cfg = self.config
+        if cfg.local_cone_deg is not None:
+            base = (torch.eye(3, device=self.device)
+                    if native_rotation is None
+                    else torch.as_tensor(native_rotation,
+                                         dtype=torch.float32,
+                                         device=self.device))
+            return local_rotations(base, np.deg2rad(cfg.local_cone_deg),
+                                   cfg.num_rotations)
+        return super_fibonacci_rotations(cfg.num_rotations, self.device)
+
+    def _ligand_rep_fn(self):
+        """Batched density -> representation closure for the sweep."""
+        if self.params is None:
+            return lambda vols: shape_complementarity_reps(vols)[0]
+        return self.model.represent
+
+    def _spectral_parts(self, coupling):
+        """(receptor-side coupling matrix, ligand rep_fn), with the
+        optional rank-r SVD truncation: the receptor side absorbs
+        ``U_r diag(s_r)``, the ligand side projects through ``V_r``."""
+        key = ("spectral", id(self.params), self.config.coupling_rank)
+        if key not in self._closure_memo:
+            self._closure_memo[key] = self._spectral_parts_uncached(
+                coupling)
+        return self._closure_memo[key]
+
+    def _spectral_parts_uncached(self, coupling):
+        rep_fn = self._ligand_rep_fn()
+        r = self.config.coupling_rank
+        if r is None or coupling is None or r >= min(coupling.shape):
+            return coupling, rep_fn
+        coupling_np = _host(coupling)
+        if self.params is not None:
+            kept, dev = coupling_deviation_capture(
+                coupling_np, r, shape_prior=self.config.shape_prior)
+            if dev > 1e-6 and kept < 0.95:
+                lic = min_licensed_rank(
+                    coupling_np, shape_prior=self.config.shape_prior)
+                warnings.warn(
+                    f"coupling_rank={r} keeps only {kept:.0%} of this "
+                    f"model's learned coupling deviation (licensing "
+                    f"criterion >=95%). Use coupling_rank>={lic} or "
+                    f"None.", stacklevel=3)
+        # The numpy float32 SVD, as the JAX package takes it, so both
+        # packages project onto the same rank-r bases.
+        U, s, Vt = np.linalg.svd(np.asarray(coupling_np, np.float32))
+        proj_rec = torch.as_tensor(U[:, :r] * s[None, :r],
+                                   device=self.device)       # [C, r]
+        proj_lig = torch.as_tensor(np.ascontiguousarray(Vt[:r].T),
+                                   device=self.device)       # [C, r]
+        folded = self._folded_rep_fn(proj_lig)
+        if folded is not None:
+            return proj_rec, folded
+
+        def rep_fn_r(vols):
+            reps = rep_fn(vols)
+            return torch.einsum("...c,cr->...r", reps,
+                                proj_lig.to(reps.dtype))
+        return proj_rec, rep_fn_r
+
+    def _folded_rep_fn(self, proj_lig: torch.Tensor):
+        """rep_fn computing ``represent(vols) @ proj_lig`` with the
+        projection folded into the last (linear) conv layer; None in
+        shape mode."""
+        if self.params is None:
+            return None
+        cfg = self.config
+        rep = self.model.representation
+        cnn = rep.cnn if cfg.shape_prior else rep
+        kernels = [c.weight for c in cnn.convs]
+        biases = [c.bias for c in cnn.convs]
+        if cfg.shape_prior:
+            proj_prior, proj_learned = proj_lig[:2], proj_lig[2:]
+        else:
+            proj_prior, proj_learned = None, proj_lig
+        w_last = torch.einsum("oixyz,or->rixyz", kernels[-1],
+                              proj_learned)
+        b_last = None if biases[-1] is None else biases[-1] @ proj_learned
+        dt = _DTYPES[cfg.compute_dtype]
+
+        def conv(x, w, b):
+            return conv3d_channels_last(
+                x, w.to(dt), None if b is None else b.to(dt))
+
+        def rep_fn(vols):
+            lead = vols.shape[:-4]
+            x = vols.reshape((-1,) + vols.shape[-4:]).to(dt)
+            for w, b in zip(kernels[:-1], biases[:-1]):
+                x = F.elu(conv(x, w, b))
+            y = conv(x, w_last, b_last).to(torch.float32)    # [..., r]
+            y = y.reshape(lead + y.shape[1:])
+            if proj_prior is not None:
+                prior = shape_channels(vols)[0]
+                y = y + torch.einsum("...c,cr->...r", prior, proj_prior)
+            return y
+        return rep_fn
+
+    def _engine_parts(self, rep_rec, coupling):
+        """``(impl, H, rep_fn)``: the resolved engine, the receptor-side
+        tensor it consumes, and the ligand density -> rep closure."""
+        cfg = self.config
+        impl = resolve_engine(cfg.fft_impl, cfg.grid_size)
+        cpl_eff, rep_fn = self._spectral_parts(coupling)
+        return impl, coupled_receptor(rep_rec, cpl_eff, impl), rep_fn
+
+    def _receptive_field(self) -> int:
+        if self.params is None:
+            return 3                      # shape mode: 2-voxel dilation + 1
+        cfg = self.config
+        rf = len(cfg.rep_features) * (cfg.rep_kernel // 2) + 1
+        return max(rf, 3) if cfg.shape_prior else rf
+
+    def _prepare(self, rec: Structure, lig: Structure):
+        """Voxelize + represent both structures once."""
+        rec_c = rec.centered()
+        lig_c = lig.centered()
+        if len(lig_c.typed()) == 0:
+            raise ValueError(
+                "no typed atoms in ligand: every atom fell outside the "
+                "11-type table (all-HETATM/unknown-residue input?).")
+        if len(rec_c.typed()) == 0:
+            raise ValueError(
+                "no typed atoms in receptor: every atom fell outside "
+                "the 11-type table.")
+        with torch.inference_mode():
+            rep_rec, rep_lig, coupling = self.representations(
+                self.voxelize(rec_c), self.voxelize(lig_c))
+        return rec_c, lig_c, rep_rec, rep_lig, coupling
+
+    # ---- the full stack ----
+    def dock(self, rec: Structure, lig: Structure,
+             rotations: Optional[torch.Tensor] = None,
+             cluster: bool = True,
+             translation_center: Optional[np.ndarray] = None,
+             max_shift: Optional[float] = None,
+             prep=None, engine=None) -> PoseSet:
+        """Dock centered structures; returns ranked (clustered) poses.
+
+        ``engine`` is an optional precomputed ``_engine_parts`` tuple —
+        the receptor half of the correlator, reusable across ligand
+        queries against one receptor.
+        """
+        cfg = self.config
+        if cfg.sweep_mode != "resplat":
+            raise NotImplementedError(
+                f"sweep_mode={cfg.sweep_mode!r} is not ported yet")
+        if prep is None:
+            prep = self._prepare(rec, lig)
+        rec_c, lig_c, rep_rec, rep_lig, coupling = prep
+        if rotations is None:
+            rotations = self.rotation_set()
+        rotations = torch.as_tensor(rotations, dtype=torch.float32,
+                                    device=self.device)
+        score_mask = dock_score_mask(cfg, lig_c, translation_center,
+                                     max_shift, device=self.device)
+        with torch.inference_mode():
+            if engine is None:
+                engine = self._engine_parts(rep_rec, coupling)
+            impl, H, rep_fn = engine
+            lc, lt, lm = structure_to_device(
+                lig_c, bucket=cfg.atom_bucket or None, device=self.device)
+            lig_grid = cfg.lig_grid_size or auto_ligand_grid(
+                lig_c.typed().coords, cfg.resolution, cfg.sigma,
+                self._receptive_field(), cfg.grid_size)
+            res = dock_sweep_resplat(
+                H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
+                lig_grid=lig_grid, resolution=cfg.resolution,
+                sigma=cfg.sigma, num_types=cfg.num_atom_types,
+                top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+                score_mask=score_mask, fft_impl=impl,
+                dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl)
+        scores = _host(res.scores)
+        rot_idx = _host(res.rot_idx)
+        shifts = _host(res.shifts)
+        Rs = _host(rotations)[rot_idx]
+        poses = PoseSet(scores=scores, rotations=Rs,
+                        translations=shifts.astype(np.float32)
+                        * cfg.resolution,
+                        rot_idx=rot_idx, shifts=shifts)
+        if cluster:
+            poses = cluster_pose_set(lig_c.coords, poses, cfg.nms_rmsd)
+        return poses
+
+    def dock_complex(self, cplx: Complex, **kw) -> PoseSet:
+        return self.dock(cplx.receptor, cplx.ligand, **kw)

@@ -1,0 +1,199 @@
+"""Resplat sweep: rotate ligand coordinates, re-splat, re-run the CNN.
+
+Port of ``deeplocalproteindocking_tpu/sweep/resplat.py``.  Per chunk of
+rotations:
+
+    coords_R = R @ lig_coords                  exact rotation
+    vol_R    = separable_splat(coords_R)       small ligand box Ls^3
+    rep_R    = rep_fn(vol_R)                   CNN (or shape channels)
+    D        = z-forward DFT, then K1          correlate/fused.py
+    bmax     = K2                              correlate/invz_topk.py
+    top-K    = drill_topk, streaming merge
+
+The JAX ``lax.scan`` is a Python loop over chunks whose top-K carry stays
+on the device: no per-chunk host synchronization.  Padding rotations are
+identities, masked out by ``num_valid``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deeplocalproteindocking_torch.correlate.dft import get_correlator
+from deeplocalproteindocking_torch.correlate.fft import (
+    correlate_scores, flat_index_to_shift)
+from deeplocalproteindocking_torch.grids.voxelize import separable_splat
+from deeplocalproteindocking_torch.sweep.topk import (
+    DockResult, exact_block_topk)
+
+ENGINES = ("dft_fused", "dft", "xla")
+
+
+def fused_topk_engaged(fused_topk: Optional[bool], fft_impl: str,
+                       topk_impl: str, L: int,
+                       device: torch.device) -> bool:
+    """The engage rule of the fused inverse-z + block-max top-K tail.
+
+    Eligible: the ``dft_fused`` engine, exact top-K and ``L % 32 == 0``.
+    ``fused_topk=None`` engages an eligible sweep on CUDA tensors;
+    ``True`` engages any eligible sweep (on CPU tensors through the
+    plain versions); ``False`` never engages.
+    """
+    eligible = (fft_impl == "dft_fused" and topk_impl == "exact"
+                and L % 32 == 0)
+    if fused_topk is None:
+        return eligible and device.type == "cuda"
+    return bool(fused_topk) and eligible
+
+
+def auto_ligand_grid(lig_coords: np.ndarray, resolution: float,
+                     sigma: float, receptive_field: int,
+                     grid_size: int) -> int:
+    """Smallest ligand box (multiple of 8, at least 16) covering atoms +
+    splat tails + CNN receptive field, and the rotation-invariant L2
+    radius.  The radius term omits the receptive field, exactly as the
+    JAX package's does."""
+    xyz = np.asarray(lig_coords)
+    extent = 2.0 * (np.abs(xyz).max() + 3.0 * sigma)
+    ls = int(np.ceil(extent / resolution)) + 2 * receptive_field
+    radius = float(np.sqrt((xyz * xyz).sum(axis=1).max()))
+    ls_contain = int(np.ceil(2.0 * (radius + 3.0 * sigma) / resolution))
+    ls = min(grid_size, ((max(ls, ls_contain) + 7) // 8) * 8)
+    return max(ls, 16)
+
+
+def embed_small(rep_small: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """Center a ``[..., Ls, Ls, Ls, C]`` rep in the ``grid_size`` box."""
+    Ls = rep_small.shape[-2]
+    off = (grid_size - Ls) // 2
+    side = (off, grid_size - Ls - off)
+    return F.pad(rep_small, (0, 0) + side * 3)
+
+
+def _correlate_fused(Ht, reps, grid_size, lig_grid, dft_dtype):
+    """Score volumes ``[b, L, L, L]`` via K1 and the kz -> z einsum."""
+    corr = get_correlator(grid_size, lig_grid, dft_dtype, reps.device)
+    return corr.scores_fused(Ht[0], Ht[1], reps)
+
+
+def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
+                          score_mask, top_k):
+    """Per-rotation ``(vals, flat)`` top-K without forming the score
+    volume: K1, then K2, then the drill-down."""
+    from deeplocalproteindocking_torch.correlate.invz_topk import (
+        drill_topk, invz_blockmax)
+    L = grid_size
+    corr = get_correlator(L, lig_grid, dft_dtype, reps.device)
+    Dre, Dim = corr.fused_D(Ht[0], Ht[1], reps)
+    if score_mask is not None:
+        bias = torch.where(score_mask, 0.0, float("-inf")).to(torch.float32)
+        bias_flat = bias.reshape(-1)
+    else:
+        bias = torch.zeros((L, L, L), dtype=torch.float32,
+                           device=reps.device)
+        bias_flat = None
+    bmax = invz_blockmax(Dre, Dim, corr.MzRe, corr.MzIm, bias)
+    return drill_topk(Dre, Dim, corr.MzRe, corr.MzIm, bias_flat, bmax,
+                      top_k)
+
+
+def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype):
+    """Score volumes ``[B, L, L, L]`` for small-box reps (``dft`` or
+    ``xla`` engine)."""
+    if fft_impl == "dft":
+        corr = get_correlator(grid_size, reps.shape[-2], dft_dtype,
+                              reps.device)
+        return corr.scores(H.real.to(torch.float32),
+                           H.imag.to(torch.float32), reps)
+    if fft_impl == "xla":
+        return correlate_scores(H, embed_small(reps, grid_size))
+    raise NotImplementedError(f"fft_impl={fft_impl!r} is not ported yet")
+
+
+def dock_sweep_resplat(H: torch.Tensor,
+                       lig_coords: torch.Tensor,
+                       lig_types: torch.Tensor,
+                       lig_mask: torch.Tensor,
+                       rotations: torch.Tensor,
+                       rep_fn: Callable[[torch.Tensor], torch.Tensor],
+                       *,
+                       grid_size: int,
+                       lig_grid: int,
+                       resolution: float,
+                       sigma: float,
+                       num_types: int,
+                       top_k: int = 32,
+                       chunk: int = 8,
+                       score_mask: Optional[torch.Tensor] = None,
+                       num_valid: Optional[int] = None,
+                       fft_impl: str = "dft",
+                       dft_dtype: str = "float32",
+                       topk_impl: str = "exact",
+                       fused_topk: Optional[bool] = None) -> DockResult:
+    """Full rotation sweep with per-rotation coordinate re-splatting.
+
+    ``H`` is the coupled receptor spectrum (``correlate/fft.py``) on the
+    sweep's device; ``rep_fn`` maps density volumes ``[B, Ls, Ls, Ls, T]``
+    to representations ``[B, Ls, Ls, Ls, C]``.
+    """
+    if fft_impl not in ENGINES:
+        raise NotImplementedError(
+            f"fft_impl={fft_impl!r} is not ported yet (ported: {ENGINES})")
+    if topk_impl != "exact":
+        raise NotImplementedError(
+            f"topk_impl={topk_impl!r} is not ported yet (exact is)")
+    L = grid_size
+    device = H.device
+    n_rot = rotations.shape[0]
+    if num_valid is None:
+        num_valid = n_rot
+    rotations = rotations.to(device, torch.float32)
+    Ht = None
+    if fft_impl == "dft_fused":
+        Ht = get_correlator(L, lig_grid, dft_dtype, device).prep_H(H)
+    pad = (-n_rot) % chunk
+    if pad:
+        eye = torch.eye(3, dtype=rotations.dtype, device=device)
+        rotations = torch.cat([rotations, eye.expand(pad, 3, 3)])
+    fused = fused_topk_engaged(fused_topk, fft_impl, topk_impl, L, device)
+    neg_inf = torch.tensor(float("-inf"), device=device)
+
+    best = torch.full((top_k,), float("-inf"), device=device)
+    best_rot = torch.zeros((top_k,), dtype=torch.int32, device=device)
+    best_flat = torch.zeros((top_k,), dtype=torch.int64, device=device)
+    with torch.inference_mode():
+        for base in range(0, rotations.shape[0], chunk):
+            Rc = rotations[base:base + chunk]
+            coords_r = torch.einsum("bij,nj->bni", Rc, lig_coords)
+            vols = separable_splat(coords_r, lig_types, lig_mask,
+                                   grid_size=lig_grid,
+                                   resolution=resolution, sigma=sigma,
+                                   num_types=num_types)
+            reps = rep_fn(vols)
+            if fused:
+                vals, flat = _fused_correlate_topk(
+                    Ht, reps, L, lig_grid, dft_dtype, score_mask, top_k)
+            else:
+                if fft_impl == "dft_fused":
+                    S = _correlate_fused(Ht, reps, L, lig_grid, dft_dtype)
+                else:
+                    S = _correlate_batch(H, reps, L, fft_impl, dft_dtype)
+                if score_mask is not None:
+                    S = torch.where(score_mask[None], S, neg_inf)
+                vals, flat = exact_block_topk(S.reshape(chunk, L * L * L),
+                                              top_k)
+            rot_ids = torch.arange(base, base + chunk, dtype=torch.int32,
+                                   device=device)
+            vals = torch.where((rot_ids < num_valid)[:, None], vals,
+                               neg_inf)
+            all_scores = torch.cat([best, vals.reshape(-1)])
+            all_rot = torch.cat([best_rot, rot_ids.repeat_interleave(
+                vals.shape[1])])
+            all_flat = torch.cat([best_flat, flat.reshape(-1)])
+            best, sel = torch.topk(all_scores, top_k)
+            best_rot, best_flat = all_rot[sel], all_flat[sel]
+    return DockResult(scores=best, rot_idx=best_rot,
+                      shifts=flat_index_to_shift(best_flat, L))

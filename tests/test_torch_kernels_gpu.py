@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here needs a CUDA card (marker ``gpu``) and skips without
+one.  The file imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
+another order), 2e-2 in bf16 (the same rounding points, where one bf16
+ulp is 2^-8 relative).
+"""
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import cuda_device  # noqa: F401
+
+from deeplocalproteindocking_torch.correlate import fused, invz_topk
+from deeplocalproteindocking_torch.correlate._contract import mm
+from deeplocalproteindocking_torch.correlate.dft import get_correlator
+from deeplocalproteindocking_torch.correlate.fft import receptor_transform
+from deeplocalproteindocking_torch.structure.so3 import (
+    super_fibonacci_rotations)
+from deeplocalproteindocking_torch.sweep.resplat import dock_sweep_resplat
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    mm_flag = torch.backends.cuda.matmul.allow_tf32
+    conv_flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = mm_flag
+    torch.backends.cudnn.allow_tf32 = conv_flag
+
+
+def _k1_args(dev, L, Ls, C, b, dtype_name, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    corr = get_correlator(L, Ls, dtype_name, dev)
+    H = receptor_transform(torch.randn(L, L, L, C, generator=g).to(dev))
+    v = torch.randn(b, Ls, Ls, Ls, C, generator=g).to(dev, corr.dtype)
+    are = mm("bxyzc,zk->bkcxy", v, corr.WzRe).to(corr.dtype).contiguous()
+    aim = mm("bxyzc,zk->bkcxy", v, corr.WzIm).to(corr.dtype).contiguous()
+    Ht = corr.prep_H(H)
+    return corr, (are, aim, Ht[0], Ht[1], corr.WyRe, corr.WyIm, corr.WxRe,
+                  corr.WxIm, corr.UxRe, corr.UxIm, corr.UyRe, corr.UyIm)
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("L,Ls,C,b,dtype_name,tol", [
+    (128, 32, 3, 4, "float32", 1e-4),
+    (128, 32, 3, 4, "bfloat16", 2e-2),
+    (64, 40, 16, 3, "float32", 1e-4),     # full-rank channels, odd box
+    (32, 16, 2, 5, "bfloat16", 2e-2)])
+def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
+    _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
+    n0 = fused.launches
+    got = fused.fused_correlate(*args)
+    torch.cuda.synchronize()
+    assert fused.launches == n0 + 1
+    want = fused.fused_correlate_reference(*args)
+    for gt, wt in zip(got, want):
+        assert _rel(gt, wt) <= tol
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_k2_matches_plain(cuda_device, groups):
+    L, b = 64, 4
+    corr, args = _k1_args(cuda_device, L, 16, 3, b, "float32", seed=1)
+    Dre, Dim = fused.fused_correlate(*args)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    keep = torch.rand((groups, L, L, L), generator=g,
+                      device=cuda_device) < 0.6
+    bias = torch.where(keep, 0.0, float("-inf"))
+    bias[0, 3, 0:32, 5] = float("-inf")      # one fully masked y run
+    n0 = invz_topk.launches
+    got = invz_topk.invz_blockmax(Dre, Dim, corr.MzRe, corr.MzIm, bias)
+    torch.cuda.synchronize()
+    assert invz_topk.launches == n0 + 1
+    want = invz_topk.invz_blockmax_reference(Dre, Dim, corr.MzRe,
+                                             corr.MzIm, bias)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert not torch.isnan(got).any()
+    assert got[0, 3, 0, 5].item() == float("-inf")
+    assert _rel(got[fin], want[fin]) <= 1e-4
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    _, args = _k1_args(cuda_device, 32, 16, 2, 2, "float32")
+    with pytest.raises(TypeError):
+        fused.fused_correlate(*(a.to(torch.float64) for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_correlate(args[0].transpose(3, 4), *args[1:])
+    with pytest.raises(ValueError, match="L <= 128"):
+        _, big = _k1_args(cuda_device, 192, 16, 1, 1, "float32")
+        fused.fused_correlate(*big)
+
+
+def test_sweep_card_matches_cpu(cuda_device):
+    """The resplat sweep with the fused K1 -> K2 tail on the card gives
+    the CPU sweep's top-K (plain versions, score-volume path)."""
+    rng = np.random.default_rng(3)
+    L, Ls, C = 64, 16, 3
+    rec = torch.as_tensor(rng.normal(size=(L, L, L, C)), dtype=torch.float32)
+    coords = torch.as_tensor(rng.normal(size=(20, 3)) * 3.0,
+                             dtype=torch.float32)
+    types = torch.as_tensor(rng.integers(0, 11, size=20), dtype=torch.int32)
+    mask = torch.ones(20)
+    w = torch.as_tensor(rng.normal(size=(11, C)), dtype=torch.float32)
+    kw = dict(grid_size=L, lig_grid=Ls, resolution=1.25, sigma=1.0,
+              num_types=11, top_k=16, chunk=8, fft_impl="dft_fused")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        H = receptor_transform(rec.to(dev))
+        out[str(dev)] = dock_sweep_resplat(
+            H, coords.to(dev), types.to(dev), mask.to(dev),
+            super_fibonacci_rotations(20, dev), lambda v: v @ w.to(v.device),
+            **kw)
+    a, c = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(c.scores.cpu().numpy(), a.scores.numpy(),
+                               rtol=1e-4, atol=1e-3)
+    assert c.rot_idx[0].item() == a.rot_idx[0].item()
+    assert c.shifts[0].tolist() == a.shifts[0].tolist()
