@@ -11,7 +11,8 @@ phase that does not hold:
    and the build of the hand-written kernels from ``csrc/``;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes with a batch of 8 rotations (K1 float32 and bf16,
-   K2 with a real translation mask, drill-down top-K), plus the time of
+   K2 with a real translation mask, drill-down top-K, K3 on the summed
+   spectrum of the ``dft`` engine's forward half), plus the time of
    each kernel and its plain version at the full batch of 128;
 3. the slice: the v9p hybrid model (exported weights, rank-3 coupling
    folded into the last conv, bf16, grid 128, top-K 64, chunk 128)
@@ -19,7 +20,15 @@ phase that does not hold:
    launch counters that K1 and K2 ran in each;
 4. card against CPU: one request at float32, grid 64, 256 rotations,
    once on CUDA tensors (kernels) and once on CPU tensors (plain
-   versions); top-K values and the top-1 pose must agree.
+   versions); top-K values and the top-1 pose must agree;
+5. the screening slice: one ``DockingService`` on the same model with
+   ``fft_impl="dft_pallas"`` docks the receptor of seed 0 against the
+   ligands of seeds 0-2 (``dock`` then ``rescore(top=16, nrot=48)``
+   each; the first also ``refine(steps=30)`` through the cached
+   engine), proving that K3 ran in every stage; then one ``rescore`` on
+   the main-path ``dft_fused`` engine, whose K2 must see 16 bias groups;
+6. card against CPU for that path: dock -> rescore -> refine at
+   float32, grid 64, 256 rotations, ``dft_pallas``.
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -85,7 +94,7 @@ def main():
     sys.path.insert(0, ROOT)
     from deeplocalproteindocking_torch import _build, weights
     from deeplocalproteindocking_torch.config import DockConfig
-    from deeplocalproteindocking_torch.correlate import fused, invz_topk
+    from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
     from deeplocalproteindocking_torch.correlate._contract import mm
     from deeplocalproteindocking_torch.correlate.dft import get_correlator
     from deeplocalproteindocking_torch.data import (structure_to_device,
@@ -93,7 +102,9 @@ def main():
     from deeplocalproteindocking_torch.grids.voxelize import (
         separable_splat)
     from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
+                                                        PoseSet,
                                                         dock_score_mask)
+    from deeplocalproteindocking_torch.serving import DockingService
     from deeplocalproteindocking_torch.structure.so3 import (
         super_fibonacci_rotations)
     from deeplocalproteindocking_torch.sweep.resplat import (
@@ -162,6 +173,28 @@ def main():
                       corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm,
                       corr.UxRe, corr.UxIm, corr.UyRe, corr.UyIm)
 
+    def k3_inputs(b):
+        """K3's arguments as the ``dft_pallas`` sweep builds them for b
+        rotations: the bf16 forward half and coupling of the ``dft``
+        engine, the float32 summed spectrum G, then pass A."""
+        corr = get_correlator(L, Ls, serve_cfg.dft_dtype, dev)
+        with torch.inference_mode():
+            R = super_fibonacci_rotations(b, dev)
+            vols = separable_splat(torch.einsum("bij,nj->bni", R, lc), lt,
+                                   lm, grid_size=Ls,
+                                   resolution=serve_cfg.resolution,
+                                   sigma=serve_cfg.sigma, num_types=11)
+            fre, fim = corr._cast(*corr.ligand_spectrum(rep_fn(vols)))
+            hre, him = corr._cast(H.real, H.imag)
+            gre = (mm("ijkc,bijkc->bijk", hre, fre)
+                   + mm("ijkc,bijkc->bijk", him, fim))
+            gim = (mm("ijkc,bijkc->bijk", him, fre)
+                   - mm("ijkc,bijkc->bijk", hre, fim))
+            del fre, fim
+            ere, eim = idft._pass_a(gre, gim, corr.MzRe, corr.MzIm)
+        return (ere, eim, corr.UxRe32, corr.UxIm32, corr.UxRe32,
+                corr.UxIm32)
+
     # ---- phase 2: kernels against their plain versions ----
     errs = {}
     with torch.inference_mode():
@@ -191,6 +224,11 @@ def main():
         drill_err = rel_err(dv.sort(dim=1).values, ev.sort(dim=1).values)
         looked = torch.gather(S.reshape(S.shape[0], -1), 1, dflat)
         drill_idx_err = rel_err(looked, dv)
+        k3_args = k3_inputs(8)
+        k3_got = idft.idft_bc(*k3_args)
+        torch.cuda.synchronize()
+        errs["k3"] = rel_err(k3_got, idft.idft_bc_reference(*k3_args))
+        del k3_args, k3_got
     emit("kernels_vs_plain", batch=8, L=L, Ls=Ls, C=3, K=L // 2 + 1,
          k1_float32_max_abs_err=errs["k1_float32"][0],
          k1_float32_rel_err=errs["k1_float32"][1],
@@ -199,11 +237,13 @@ def main():
          k2_max_abs_err=errs["k2"][0], k2_rel_err=errs["k2"][1],
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
+         k3_max_abs_err=errs["k3"][0], k3_rel_err=errs["k3"][1],
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
     check(errs["k1_float32"][1] <= TOL_F32, f"K1 float32 {errs}")
     check(errs["k1_bfloat16"][1] <= TOL_BF16, f"K1 bf16 {errs}")
     check(errs["k2"][1] <= TOL_F32, f"K2 {errs}")
+    check(errs["k3"][1] <= TOL_F32, f"K3 {errs}")
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
           f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
 
@@ -219,8 +259,13 @@ def main():
         k2_plain_ms = cuda_time_ms(lambda: invz_topk.invz_blockmax_reference(
             D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias))
         del D16, args16
+        k3_args = k3_inputs(128)
+        k3_ms = cuda_time_ms(lambda: idft.idft_bc(*k3_args))
+        k3_plain_ms = cuda_time_ms(lambda: idft.idft_bc_reference(*k3_args))
+        del k3_args
     emit("kernel_times", batch=128, dtype="bfloat16", k1_ms=k1_ms,
          k1_plain_ms=k1_plain_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+         k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_dtype="float32",
          timer="cuda events, mean of 5 after 1 warm-up", card=card)
 
     # ---- phase 3: the slice serves three dock requests ----
@@ -280,6 +325,138 @@ def main():
     check(vals_ok, "top-K values differ between card and CPU")
     check(top1_ok, "top-1 pose differs between card and CPU")
 
+    # ---- phase 5: the screening slice (DockingService, dft_pallas) ----
+    screen_cfg = serve_cfg.replace(fft_impl="dft_pallas")
+    svc = DockingService(screen_cfg, params, device=dev)
+    receptor = cplx.receptor
+    emit("screen_config", engine="dft_pallas", receptor_seed=0,
+         ligand_seeds=list(SEEDS), rotations_per_query=N_ROT_SERVE,
+         rescore={"top": 16, "nrot": 48}, refine_steps=30, grid=L,
+         top_k=top_k, chunk=serve_cfg.rotation_chunk, dtype="bfloat16")
+
+    def stage(fn):
+        """(result, wall seconds, K3 launches) of one stage."""
+        n0 = idft.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, idft.launches - n0
+
+    def bf16_tol(scores):
+        return TOL_BF16 * float(np.abs(scores).max())
+
+    idft.launches = 0
+    dock_stats = {"hits": 0, "misses": 0}
+    lig0 = None
+    for seed in SEEDS:
+        lig = synthetic_complex(seed=seed, n_res_rec=60,
+                                n_res_lig=30).ligand
+        h0, m0 = svc.hits, svc.misses
+        poses, dock_s, dock_k3 = stage(lambda: svc.dock(receptor, lig))
+        dock_stats["hits"] += svc.hits - h0
+        dock_stats["misses"] += svc.misses - m0
+        resc, resc_s, resc_k3 = stage(lambda: svc.rescore(
+            receptor, lig, poses, top=16, nrot=48))
+        n = min(16, len(poses))
+        rec = dict(ligand_seed=seed, poses=len(poses), heads=n,
+                   dock_seconds=dock_s, dock_k3_launches=dock_k3,
+                   rescore_seconds=resc_s, rescore_k3_launches=resc_k3,
+                   top1_before=float(poses.scores[0]),
+                   top1_after=float(resc.scores[0]))
+        check(np.isfinite(poses.scores).all()
+              and np.isfinite(resc.scores).all(),
+              f"query {seed}: non-finite scores")
+        check(dock_k3 > 0 and resc_k3 > 0, f"query {seed}: K3 idle {rec}")
+        # Each head's cone holds the head, so sorted rescored heads sit
+        # at or above the sorted coarse heads (up to bf16 rounding).
+        check(np.all(np.sort(resc.scores[:n]) >= np.sort(poses.scores[:n])
+                     - bf16_tol(poses.scores)),
+              f"query {seed}: a rescored head fell below the coarse scores")
+        if lig0 is None:
+            lig0 = lig
+            prep, engine = svc.cached(receptor, lig)
+            heads = PoseSet(*(f[:n] for f in resc[:5]))
+            ref, ref_s, ref_k3 = stage(lambda: svc.pipeline.refine(
+                receptor, lig, heads, steps=30, prep=prep, engine=engine))
+            rec.update(refine_seconds=ref_s, refine_poses=n,
+                       top1_refined=float(ref.scores[0]))
+            check(np.isfinite(ref.scores).all(), "refine: non-finite")
+            check(np.all(np.sort(ref.scores) >= np.sort(heads.scores)
+                         - bf16_tol(heads.scores)),
+                  "refine: a refined score fell below the initial ones")
+        emit("screen_query", **rec)
+    screen_launches = idft.launches
+    emit("screen_service", dock_stats=dock_stats, stats=svc.stats,
+         k3_launches=screen_launches)
+    check(dock_stats == {"hits": 2, "misses": 1} and svc.misses == 1
+          and svc.stats["entries"] == 1,
+          f"service cache: docks {dock_stats}, all {svc.stats}")
+
+    # One rescore on the main-path dft_fused engine: K2 takes the 16 head
+    # masks as bias groups.
+    groups = []
+    blockmax = invz_topk.invz_blockmax
+
+    def spy(Dre, Dim, MzRe, MzIm, bias):
+        groups.append(1 if bias.ndim == 3 else int(bias.shape[0]))
+        return blockmax(Dre, Dim, MzRe, MzIm, bias)
+
+    # Its coarse poses unclustered, so that 16 heads exist.
+    svc_fused = DockingService(serve_cfg, params, device=dev)
+    coarse = svc_fused.dock(receptor, lig0, cluster=False)
+    fused.launches = invz_topk.launches = 0
+    invz_topk.invz_blockmax = spy
+    try:
+        fres, fres_s, _ = stage(lambda: svc_fused.rescore(
+            receptor, lig0, coarse, top=16, nrot=48))
+    finally:
+        invz_topk.invz_blockmax = blockmax
+    emit("fused_rescore", seconds=fres_s, k1_launches=fused.launches,
+         k2_launches=invz_topk.launches, k2_bias_groups=sorted(set(groups)),
+         top1_after=float(fres.scores[0]))
+    check(fused.launches > 0 and invz_topk.launches > 0,
+          "dft_fused rescore did not launch K1/K2")
+    check(set(groups) == {16}, f"K2 bias groups {groups}, expected 16")
+
+    # ---- phase 6: card against CPU on the dft_pallas path ----
+    cmp6_cfg = cmp_cfg.replace(fft_impl="dft_pallas")
+    out6 = {}
+    for where in ("cuda", "cpu"):
+        p = DockingPipeline(cmp6_cfg, params=params, device=where)
+        t0 = time.perf_counter()
+        d = p.dock(receptor, cplx.ligand, cluster=False)
+        r = p.rescore(receptor, cplx.ligand, d, top=4, nrot=16)
+        f = p.refine(receptor, cplx.ligand, PoseSet(*(x[:4] for x in r[:5])),
+                     steps=5)
+        out6[where] = (d, r, f, time.perf_counter() - t0)
+    (gd, gr, gf, gs), (wd, wr, wf, ws) = out6["cuda"], out6["cpu"]
+
+    def max_rel(a, b):
+        return float(np.max(np.abs(np.sort(a) - np.sort(b))
+                            / np.abs(np.sort(b))))
+
+    emit("card_vs_cpu_screen", grid=64, rotations=256, dtype="float32",
+         engine="dft_pallas", cuda_seconds=gs, cpu_seconds=ws,
+         dock_max_rel_diff=max_rel(gd.scores, wd.scores),
+         rescore_max_rel_diff=max_rel(gr.scores, wr.scores),
+         refine_max_rel_diff=max_rel(gf.scores, wf.scores),
+         top1_cuda=[int(gd.rot_idx[0])] + [int(v) for v in gd.shifts[0]],
+         top1_cpu=[int(wd.rot_idx[0])] + [int(v) for v in wd.shifts[0]],
+         rescored_top1_cuda=[int(v) for v in gr.shifts[0]],
+         rescored_top1_cpu=[int(v) for v in wr.shifts[0]])
+    check(np.allclose(np.sort(gd.scores), np.sort(wd.scores), rtol=1e-3,
+                      atol=0), "dft_pallas dock: top-K differs card vs CPU")
+    check(int(gd.rot_idx[0]) == int(wd.rot_idx[0])
+          and list(gd.shifts[0]) == list(wd.shifts[0]),
+          "dft_pallas dock: top-1 pose differs card vs CPU")
+    check(np.allclose(gr.rotations[0], wr.rotations[0], atol=1e-5)
+          and list(gr.shifts[0]) == list(wr.shifts[0])
+          and np.allclose(gr.scores, wr.scores, rtol=1e-3, atol=0),
+          "rescore differs card vs CPU")
+    check(np.allclose(gf.scores, wf.scores, rtol=1e-3, atol=0),
+          "refine differs card vs CPU")
+
     src = "deeplocalproteindocking_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "fused_correlate", "route": "cuda",
@@ -298,7 +475,15 @@ def main():
          "launches": main_launches["invz_blockmax"],
          "max_abs_err": errs["k2"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "idft_bc", "route": "cuda",
+         "source": src + "idft_bc.cu",
+         "replaces": "deeplocalproteindocking_tpu/correlate/"
+                     "pallas_idft.py:34",
+         "launches": screen_launches,
+         "max_abs_err": errs["k3"][0],
+         "tolerance": f"float32 {TOL_F32} x max|plain|",
+         "ms": k3_ms, "plain_ms": k3_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

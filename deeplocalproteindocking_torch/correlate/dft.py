@@ -23,6 +23,7 @@ import torch
 from deeplocalproteindocking_torch.correlate._contract import cmm as _cmm
 from deeplocalproteindocking_torch.correlate._contract import mm as _mm
 from deeplocalproteindocking_torch.correlate.fused import fused_correlate
+from deeplocalproteindocking_torch.correlate.idft import pallas_inverse
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -72,6 +73,10 @@ class DFTCorrelator:
         self.WzRe, self.WzIm = dev(WzRe), dev(WzIm)
         self.UxRe, self.UxIm = dev(UxRe), dev(UxIm)
         self.UyRe, self.UyIm = self.UxRe, self.UxIm
+        # K3 takes its x/y twiddles in float32 whatever the operand dtype,
+        # as the TPU kernel does.
+        self.UxRe32 = dev(UxRe, torch.float32)
+        self.UxIm32 = dev(UxIm, torch.float32)
         # Hermitian-weighted kz -> z inverse: float32 for the fused
         # top-K tail, which reads it at full precision, and in the
         # operand dtype (Op) for the einsum inverses, as the JAX module
@@ -95,15 +100,25 @@ class DFTCorrelator:
         return _cmm("bxjkc,xi->bijkc", bre, bim, self.WxRe, self.WxIm)
 
     def scores(self, Hre: torch.Tensor, Him: torch.Tensor,
-               vols: torch.Tensor) -> torch.Tensor:
+               vols: torch.Tensor, inverse_impl: str = "einsum"
+               ) -> torch.Tensor:
         """Score volumes ``[B, L, L, L]`` from the coupled receptor
-        spectrum ``Hre/Him [L, L, L//2+1, C]`` (the ``dft`` engine)."""
+        spectrum ``Hre/Him [L, L, L//2+1, C]``.
+
+        ``inverse_impl="einsum"`` is the ``dft`` engine; ``"pallas"``
+        (the ``dft_pallas`` engine) hands the float32 summed spectrum,
+        never cast to the operand dtype, to K3 (``correlate/idft.py``).
+        """
         fre, fim = self._cast(*self.ligand_spectrum(vols))
         Hre_, Him_ = self._cast(Hre, Him)
         gre = (_mm("ijkc,bijkc->bijk", Hre_, fre)
                + _mm("ijkc,bijkc->bijk", Him_, fim))
         gim = (_mm("ijkc,bijkc->bijk", Him_, fre)
                - _mm("ijkc,bijkc->bijk", Hre_, fim))
+        if inverse_impl == "pallas":
+            return pallas_inverse(gre, gim, self.UxRe32, self.UxIm32,
+                                  self.UxRe32, self.UxIm32, self.MzRe,
+                                  self.MzIm)
         return self.inverse(gre, gim)
 
     # ---- fused-kernel path (correlate/fused.py) ----
@@ -154,7 +169,11 @@ class DFTCorrelator:
 @functools.lru_cache(maxsize=8)
 def _correlator(grid_size: int, lig_grid: int, dtype_name: str,
                 device: str) -> DFTCorrelator:
-    return DFTCorrelator(grid_size, lig_grid, _DTYPES[dtype_name], device)
+    # Built as normal tensors even when first asked for inside a sweep's
+    # inference_mode: refine saves these twiddles for backward.
+    with torch.inference_mode(False):
+        return DFTCorrelator(grid_size, lig_grid, _DTYPES[dtype_name],
+                             device)
 
 
 def get_correlator(grid_size: int, lig_grid: int,

@@ -46,10 +46,10 @@ def coupled_receptor(rep_rec: torch.Tensor,
                      coupling: Optional[torch.Tensor],
                      fft_impl: str) -> torch.Tensor:
     """The receptor-side tensor ``H`` a spectral engine consumes."""
-    if fft_impl in ("block", "dft_pallas"):
+    if fft_impl == "block":
         raise NotImplementedError(
-            f"fft_impl={fft_impl!r} is not ported yet (dft_fused, dft "
-            f"and xla are)")
+            "fft_impl='block' is not ported yet (dft_fused, dft, "
+            "dft_pallas and xla are)")
     return receptor_transform(rep_rec, coupling)
 
 

@@ -108,7 +108,9 @@ def drill_topk(Dre: torch.Tensor, Dim: torch.Tensor,
 
     ``bmax [b, X, NBy, Z]`` from :func:`invz_blockmax`; the winning
     blocks' 32 scores are recomputed from ``D`` with the same
-    contraction (plus ``bias_flat [X*Y*Z]`` when masked).
+    contraction, plus the mask when given: ``bias_flat [X*Y*Z]`` for all
+    rows, or ``[G, X*Y*Z]`` grouped as :func:`invz_blockmax` groups its
+    bias (each contiguous run of b//G rows shares a group).
     """
     f32 = torch.float32
     b, X, NBy, Z = bmax.shape
@@ -127,6 +129,11 @@ def drill_topk(Dre: torch.Tensor, Dim: torch.Tensor,
             - torch.einsum("bkjK,bkK->bkj", ci.to(f32), mi.to(f32)))
     flat = x[..., None] * (Y * Z) + ys * Z + z[..., None]   # [b, k, 32]
     if bias_flat is not None:
-        vals = vals + bias_flat[flat]
+        groups = bias_flat.reshape(-1, X * Y * Z)
+        if b % groups.shape[0]:
+            raise ValueError(f"drill_topk: {groups.shape[0]} bias groups do "
+                             f"not divide b={b}")
+        g = rows // (b // groups.shape[0])
+        vals = vals + groups[g, flat]
     best, sel = torch.topk(vals.reshape(b, top_k * YB), top_k)
     return best, torch.gather(flat.reshape(b, top_k * YB), 1, sel)

@@ -1,9 +1,19 @@
 """End-to-end docking pipeline: structures in, ranked poses out.
 
-Port of the main path of ``deeplocalproteindocking_tpu/pipeline.py``:
+Port of ``deeplocalproteindocking_tpu/pipeline.py``'s docking stages:
 
     parse/type (structure/) -> splat (grids/) -> represent (models/)
     -> resplat sweep (sweep/resplat.py) -> cluster (sweep/cluster.py)
+
+then, as the two-stage protocol, ``rescore`` (a dense local cone sweep
+around each top head, all heads in one head-batched sweep) and
+``refine`` (gradient ascent in continuous pose space,
+``sweep/refine.py``).
+
+Receptor-side tensors (representations, the engine tuple) are built
+under ``torch.no_grad``, never ``inference_mode``: ``refine`` reuses
+them and saves them for backward.  Only the sweep loop runs in
+``inference_mode``.
 
 Two scoring modes: **learned** (the 3-D CNN representation + learned
 channel coupling, optionally SVD-truncated to rank r and folded into the
@@ -35,6 +45,7 @@ from deeplocalproteindocking_torch.structure.pdb import Structure
 from deeplocalproteindocking_torch.structure.so3 import (
     local_rotations, super_fibonacci_rotations)
 from deeplocalproteindocking_torch.sweep.cluster import cluster_pose_set
+from deeplocalproteindocking_torch.sweep.refine import refine_poses
 from deeplocalproteindocking_torch.sweep.resplat import (
     auto_ligand_grid, dock_sweep_resplat)
 
@@ -306,11 +317,13 @@ class DockingPipeline:
 
     def _engine_parts(self, rep_rec, coupling):
         """``(impl, H, rep_fn)``: the resolved engine, the receptor-side
-        tensor it consumes, and the ligand density -> rep closure."""
+        tensor it consumes, and the ligand density -> rep closure; built
+        (and memoized) under ``no_grad``, never ``inference_mode``."""
         cfg = self.config
         impl = resolve_engine(cfg.fft_impl, cfg.grid_size)
-        cpl_eff, rep_fn = self._spectral_parts(coupling)
-        return impl, coupled_receptor(rep_rec, cpl_eff, impl), rep_fn
+        with torch.no_grad():
+            cpl_eff, rep_fn = self._spectral_parts(coupling)
+            return impl, coupled_receptor(rep_rec, cpl_eff, impl), rep_fn
 
     def _receptive_field(self) -> int:
         if self.params is None:
@@ -331,10 +344,43 @@ class DockingPipeline:
             raise ValueError(
                 "no typed atoms in receptor: every atom fell outside "
                 "the 11-type table.")
-        with torch.inference_mode():
+        with torch.no_grad():
             rep_rec, rep_lig, coupling = self.representations(
                 self.voxelize(rec_c), self.voxelize(lig_c))
         return rec_c, lig_c, rep_rec, rep_lig, coupling
+
+    def _receptor_half(self, rec: Structure):
+        """Centered receptor, its representation and the coupling, with
+        no ligand: the half the serving cache amortizes over queries."""
+        rec_c = rec.centered()
+        if len(rec_c.typed()) == 0:
+            raise ValueError(
+                "no typed atoms in receptor: every atom fell outside "
+                "the 11-type table.")
+        with torch.no_grad():
+            rec_vol = self.voxelize(rec_c)
+            if self.params is None:
+                rep_rec, coupling = shape_complementarity_reps(rec_vol)
+            else:
+                rep_rec = self.model.represent(rec_vol)
+                coupling = self.model.coupling
+        return rec_c, rep_rec, coupling
+
+    def _stage_inputs(self, rec, lig, prep, engine):
+        """``(lig_c, engine, (lc, lt, lm), lig_grid)`` for a sweep or
+        refinement stage, reusing ``prep``/``engine`` when given."""
+        cfg = self.config
+        if prep is None:
+            prep = self._prepare(rec, lig)
+        rec_c, lig_c, rep_rec, rep_lig, coupling = prep
+        if engine is None:
+            engine = self._engine_parts(rep_rec, coupling)
+        lig_dev = structure_to_device(
+            lig_c, bucket=cfg.atom_bucket or None, device=self.device)
+        lig_grid = cfg.lig_grid_size or auto_ligand_grid(
+            lig_c.typed().coords, cfg.resolution, cfg.sigma,
+            self._receptive_field(), cfg.grid_size)
+        return lig_c, engine, lig_dev, lig_grid
 
     # ---- the full stack ----
     def dock(self, rec: Structure, lig: Structure,
@@ -353,31 +399,22 @@ class DockingPipeline:
         if cfg.sweep_mode != "resplat":
             raise NotImplementedError(
                 f"sweep_mode={cfg.sweep_mode!r} is not ported yet")
-        if prep is None:
-            prep = self._prepare(rec, lig)
-        rec_c, lig_c, rep_rec, rep_lig, coupling = prep
+        lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+            rec, lig, prep, engine)
+        impl, H, rep_fn = engine
         if rotations is None:
             rotations = self.rotation_set()
         rotations = torch.as_tensor(rotations, dtype=torch.float32,
                                     device=self.device)
         score_mask = dock_score_mask(cfg, lig_c, translation_center,
                                      max_shift, device=self.device)
-        with torch.inference_mode():
-            if engine is None:
-                engine = self._engine_parts(rep_rec, coupling)
-            impl, H, rep_fn = engine
-            lc, lt, lm = structure_to_device(
-                lig_c, bucket=cfg.atom_bucket or None, device=self.device)
-            lig_grid = cfg.lig_grid_size or auto_ligand_grid(
-                lig_c.typed().coords, cfg.resolution, cfg.sigma,
-                self._receptive_field(), cfg.grid_size)
-            res = dock_sweep_resplat(
-                H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
-                lig_grid=lig_grid, resolution=cfg.resolution,
-                sigma=cfg.sigma, num_types=cfg.num_atom_types,
-                top_k=cfg.top_k, chunk=cfg.rotation_chunk,
-                score_mask=score_mask, fft_impl=impl,
-                dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl)
+        res = dock_sweep_resplat(
+            H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
+            lig_grid=lig_grid, resolution=cfg.resolution,
+            sigma=cfg.sigma, num_types=cfg.num_atom_types,
+            top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+            score_mask=score_mask, fft_impl=impl,
+            dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl)
         scores = _host(res.scores)
         rot_idx = _host(res.rot_idx)
         shifts = _host(res.shifts)
@@ -392,3 +429,124 @@ class DockingPipeline:
 
     def dock_complex(self, cplx: Complex, **kw) -> PoseSet:
         return self.dock(cplx.receptor, cplx.ligand, **kw)
+
+    # ---- hierarchical focused rescoring ----
+    def rescore(self, rec: Structure, lig: Structure, poses: PoseSet,
+                top: int = 16, nrot: int = 48,
+                cone_deg: float = 15.0, shift_vox: int = 3,
+                aggregate: str = "max", agg_top: int = 8,
+                prep=None, engine=None) -> PoseSet:
+        """Re-rank the top ``top`` heads by a dense local sweep each.
+
+        Each head sweeps ``nrot`` rotations in a ``cone_deg`` cone around
+        its rotation (the head itself first, so its rescored score is >=
+        its coarse score) with translations confined to ``+-shift_vox``
+        voxels of its shift and the wrap-around guard, and heads re-rank
+        by their basin maxima (``aggregate="max"``) or by the mean of
+        their best ``agg_top`` scores (``"topmean"``).  All heads run as
+        one head-batched sweep.  Poses beyond ``top`` follow unrescored;
+        under ``"topmean"`` the whole set is re-sorted on
+        ``rank_scores``.
+        """
+        cfg = self.config
+        n = min(top, len(poses))
+        if n == 0:
+            return poses
+        lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+            rec, lig, prep, engine)
+        impl, H, rep_fn = engine
+        dev = self.device
+        head_rots = []
+        for i in range(n):
+            base = torch.tensor(poses.rotations[i], dtype=torch.float32,
+                                device=dev)
+            cone = local_rotations(base, np.deg2rad(cone_deg), nrot)
+            head_rots.append(torch.cat([base[None], cone[:-1]]))
+        head_rots = torch.stack(head_rots)              # [n, nrot, 3, 3]
+        guard = dock_score_mask(cfg, lig_c, device=dev)
+        masks = []
+        for i in range(n):
+            m = translation_mask(cfg.grid_size, int(shift_vox),
+                                 torch.tensor(poses.shifts[i]),
+                                 device=dev)
+            masks.append(m if guard is None else m & guard)
+        head_masks = torch.stack(masks)                 # [n, L, L, L]
+        K = max(agg_top if aggregate == "topmean" else 1, 1)
+        # The head axis multiplies every per-step activation by n, so the
+        # per-head rotation chunk shrinks by the same factor.
+        chunk = max(1, min(cfg.rotation_chunk, nrot) // max(n, 1))
+        res = dock_sweep_resplat(
+            H, lc, lt, lm, head_rots, rep_fn, grid_size=cfg.grid_size,
+            lig_grid=lig_grid, resolution=cfg.resolution, sigma=cfg.sigma,
+            num_types=cfg.num_atom_types, top_k=K, chunk=chunk,
+            score_mask=head_masks, fft_impl=impl, dft_dtype=cfg.dft_dtype,
+            topk_impl=cfg.topk_impl)
+        scores = _host(res.scores)                      # [n, K]
+        rot_idx = _host(res.rot_idx)
+        shifts = _host(res.shifts)                      # [n, K, 3]
+        best = scores[:, 0]
+        rank = (scores[:, :agg_top].mean(axis=1)
+                if aggregate == "topmean" else best)
+        Rs = _host(head_rots)[np.arange(n), rot_idx[:, 0]]
+        ts = shifts[:, 0].astype(np.float32) * cfg.resolution
+        order = np.argsort(-rank)
+        # Under "max" every rescored head is >= its coarse score, which
+        # was >= every tail score, so heads-then-tail stays sorted; a
+        # "topmean" head can fall below a tail pose, so that set is
+        # re-sorted jointly.
+        tail = slice(n, len(poses))
+        out = PoseSet(
+            scores=np.concatenate([best[order],
+                                   poses.scores[tail]]).astype(np.float32),
+            rotations=np.concatenate([Rs[order], poses.rotations[tail]]),
+            translations=np.concatenate([ts[order],
+                                         poses.translations[tail]]),
+            rot_idx=np.concatenate([np.full(n, -1, np.int32),
+                                    poses.rot_idx[tail]]),
+            shifts=np.concatenate([shifts[order, 0], poses.shifts[tail]]),
+            rank_scores=np.concatenate([rank[order],
+                                        poses.scores[tail]]).astype(
+                                            np.float32),
+        )
+        if aggregate == "topmean" and len(poses) > n:
+            joint = np.argsort(-out.rank_scores, kind="stable")
+            out = PoseSet(*(np.asarray(f)[joint] for f in out[:5]),
+                          rank_scores=out.rank_scores[joint])
+        return out
+
+    # ---- continuous refinement (sweep/refine.py) ----
+    def refine(self, rec: Structure, lig: Structure, poses: PoseSet,
+               steps: int = 30, lr: float = 0.02,
+               prep=None, engine=None) -> PoseSet:
+        """Polish poses by gradient ascent in continuous pose space.
+
+        Returns a re-ranked PoseSet with continuous translations
+        (``shifts`` hold the nearest lattice point).  Shares the engine
+        dispatch with ``dock``/``rescore``: ``H`` is the engine's coupled
+        spectrum, made complex.
+        """
+        cfg = self.config
+        lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+            rec, lig, prep, engine)
+        impl, H, rep_fn = engine
+        if impl != "block" and not H.is_complex():
+            H = H.to(torch.complex64)
+        out = refine_poses(
+            H, lc, lt, lm,
+            torch.tensor(poses.rotations, dtype=torch.float32,
+                         device=self.device),
+            torch.tensor(poses.shifts, device=self.device), rep_fn,
+            grid_size=cfg.grid_size, lig_grid=lig_grid,
+            resolution=cfg.resolution, sigma=cfg.sigma,
+            num_types=cfg.num_atom_types, steps=steps, lr=lr,
+            fft_impl=impl)
+        scores = _host(out.scores)
+        order = np.argsort(-scores)
+        translations = _host(out.translations)[order]
+        return PoseSet(
+            scores=scores[order],
+            rotations=_host(out.rotations)[order],
+            translations=translations,
+            rot_idx=poses.rot_idx[order],
+            shifts=np.round(translations / cfg.resolution).astype(np.int32),
+        )

@@ -10,7 +10,9 @@ rotations:
     bmax     = K2                              correlate/invz_topk.py
     top-K    = drill_topk, streaming merge
 
-The JAX ``lax.scan`` is a Python loop over chunks whose top-K carry stays
+on the ``dft_fused`` engine; the ``dft_pallas`` engine forms the score
+volume with the forward DFT einsums and K3 (``correlate/idft.py``) and
+takes ``exact_block_topk`` of it.  The JAX ``lax.scan`` is a Python loop over chunks whose top-K carry stays
 on the device: no per-chunk host synchronization.  Padding rotations are
 identities, masked out by ``num_valid``.
 """
@@ -29,7 +31,7 @@ from deeplocalproteindocking_torch.grids.voxelize import separable_splat
 from deeplocalproteindocking_torch.sweep.topk import (
     DockResult, exact_block_topk)
 
-ENGINES = ("dft_fused", "dft", "xla")
+ENGINES = ("dft_fused", "dft", "dft_pallas", "xla")
 
 
 def fused_topk_engaged(fused_topk: Optional[bool], fft_impl: str,
@@ -82,7 +84,9 @@ def _correlate_fused(Ht, reps, grid_size, lig_grid, dft_dtype):
 def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
                           score_mask, top_k):
     """Per-rotation ``(vals, flat)`` top-K without forming the score
-    volume: K1, then K2, then the drill-down."""
+    volume: K1, then K2, then the drill-down.  ``score_mask`` is None,
+    ``[L, L, L]``, or ``[G, L, L, L]`` for G groups of consecutive rows
+    (the heads of a head-batched sweep)."""
     from deeplocalproteindocking_torch.correlate.invz_topk import (
         drill_topk, invz_blockmax)
     L = grid_size
@@ -90,7 +94,7 @@ def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
     Dre, Dim = corr.fused_D(Ht[0], Ht[1], reps)
     if score_mask is not None:
         bias = torch.where(score_mask, 0.0, float("-inf")).to(torch.float32)
-        bias_flat = bias.reshape(-1)
+        bias_flat = bias.reshape(-1, L * L * L)
     else:
         bias = torch.zeros((L, L, L), dtype=torch.float32,
                            device=reps.device)
@@ -101,13 +105,15 @@ def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
 
 
 def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype):
-    """Score volumes ``[B, L, L, L]`` for small-box reps (``dft`` or
-    ``xla`` engine)."""
-    if fft_impl == "dft":
+    """Score volumes ``[B, L, L, L]`` for small-box reps (``dft``,
+    ``dft_pallas`` or ``xla`` engine)."""
+    if fft_impl in ("dft", "dft_pallas"):
         corr = get_correlator(grid_size, reps.shape[-2], dft_dtype,
                               reps.device)
+        inverse_impl = "pallas" if fft_impl == "dft_pallas" else "einsum"
         return corr.scores(H.real.to(torch.float32),
-                           H.imag.to(torch.float32), reps)
+                           H.imag.to(torch.float32), reps,
+                           inverse_impl=inverse_impl)
     if fft_impl == "xla":
         return correlate_scores(H, embed_small(reps, grid_size))
     raise NotImplementedError(f"fft_impl={fft_impl!r} is not ported yet")
@@ -138,6 +144,12 @@ def dock_sweep_resplat(H: torch.Tensor,
     ``H`` is the coupled receptor spectrum (``correlate/fft.py``) on the
     sweep's device; ``rep_fn`` maps density volumes ``[B, Ls, Ls, Ls, T]``
     to representations ``[B, Ls, Ls, Ls, C]``.
+
+    Head-batched form (``pipeline.rescore``; the JAX package vmaps this
+    function instead): ``rotations [n, R, 3, 3]`` and ``score_mask``
+    None or ``[n, L, L, L]`` sweep n independent rotation sets, each
+    with its own mask, as one loop whose steps hold ``chunk`` rotations
+    of every head; the result's fields gain a leading ``n`` axis.
     """
     if fft_impl not in ENGINES:
         raise NotImplementedError(
@@ -147,7 +159,12 @@ def dock_sweep_resplat(H: torch.Tensor,
             f"topk_impl={topk_impl!r} is not ported yet (exact is)")
     L = grid_size
     device = H.device
-    n_rot = rotations.shape[0]
+    heads = rotations.ndim == 4
+    if not heads:
+        rotations = rotations[None]
+        if score_mask is not None:
+            score_mask = score_mask[None]
+    n, n_rot = rotations.shape[:2]
     if num_valid is None:
         num_valid = n_rot
     rotations = rotations.to(device, torch.float32)
@@ -157,16 +174,16 @@ def dock_sweep_resplat(H: torch.Tensor,
     pad = (-n_rot) % chunk
     if pad:
         eye = torch.eye(3, dtype=rotations.dtype, device=device)
-        rotations = torch.cat([rotations, eye.expand(pad, 3, 3)])
+        rotations = torch.cat([rotations, eye.expand(n, pad, 3, 3)], dim=1)
     fused = fused_topk_engaged(fused_topk, fft_impl, topk_impl, L, device)
     neg_inf = torch.tensor(float("-inf"), device=device)
 
-    best = torch.full((top_k,), float("-inf"), device=device)
-    best_rot = torch.zeros((top_k,), dtype=torch.int32, device=device)
-    best_flat = torch.zeros((top_k,), dtype=torch.int64, device=device)
+    best = torch.full((n, top_k), float("-inf"), device=device)
+    best_rot = torch.zeros((n, top_k), dtype=torch.int32, device=device)
+    best_flat = torch.zeros((n, top_k), dtype=torch.int64, device=device)
     with torch.inference_mode():
-        for base in range(0, rotations.shape[0], chunk):
-            Rc = rotations[base:base + chunk]
+        for base in range(0, rotations.shape[1], chunk):
+            Rc = rotations[:, base:base + chunk].reshape(n * chunk, 3, 3)
             coords_r = torch.einsum("bij,nj->bni", Rc, lig_coords)
             vols = separable_splat(coords_r, lig_types, lig_mask,
                                    grid_size=lig_grid,
@@ -181,19 +198,23 @@ def dock_sweep_resplat(H: torch.Tensor,
                     S = _correlate_fused(Ht, reps, L, lig_grid, dft_dtype)
                 else:
                     S = _correlate_batch(H, reps, L, fft_impl, dft_dtype)
+                S = S.reshape(n, chunk, L * L * L)
                 if score_mask is not None:
-                    S = torch.where(score_mask[None], S, neg_inf)
-                vals, flat = exact_block_topk(S.reshape(chunk, L * L * L),
-                                              top_k)
+                    S = torch.where(score_mask.reshape(n, 1, -1), S,
+                                    neg_inf)
+                vals, flat = exact_block_topk(
+                    S.reshape(n * chunk, L * L * L), top_k)
             rot_ids = torch.arange(base, base + chunk, dtype=torch.int32,
                                    device=device)
-            vals = torch.where((rot_ids < num_valid)[:, None], vals,
-                               neg_inf)
-            all_scores = torch.cat([best, vals.reshape(-1)])
+            vals = torch.where((rot_ids < num_valid)[:, None],
+                               vals.reshape(n, chunk, top_k), neg_inf)
+            all_scores = torch.cat([best, vals.reshape(n, -1)], dim=1)
             all_rot = torch.cat([best_rot, rot_ids.repeat_interleave(
-                vals.shape[1])])
-            all_flat = torch.cat([best_flat, flat.reshape(-1)])
-            best, sel = torch.topk(all_scores, top_k)
-            best_rot, best_flat = all_rot[sel], all_flat[sel]
-    return DockResult(scores=best, rot_idx=best_rot,
-                      shifts=flat_index_to_shift(best_flat, L))
+                top_k).expand(n, -1)], dim=1)
+            all_flat = torch.cat([best_flat, flat.reshape(n, -1)], dim=1)
+            best, sel = torch.topk(all_scores, top_k, dim=1)
+            best_rot = torch.gather(all_rot, 1, sel)
+            best_flat = torch.gather(all_flat, 1, sel)
+    res = DockResult(scores=best, rot_idx=best_rot,
+                     shifts=flat_index_to_shift(best_flat, L))
+    return res if heads else DockResult(*(f[0] for f in res))

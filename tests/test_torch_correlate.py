@@ -193,6 +193,35 @@ def test_k2_drill_topk_matches_jax(masked):
     assert np.all(np.isfinite(looked))
 
 
+def test_drill_topk_per_group_bias():
+    """Bias ``[G, X*Y*Z]``: each run of b//G rows is masked by its own
+    group, as K2 groups rows, and the drill-down equals exact_block_topk
+    on each row's own masked score volume."""
+    rec, reps, cpl = _inputs(12, b=4)
+    _, tH = _spectra(rec, cpl)
+    tc = tdft.get_correlator(L, LS)
+    Dre, Dim = tc.fused_D(*tc.prep_H(tH), t_(reps))
+    S = (torch.einsum("bkxy,kz->bxyz", Dre, tc.MzRe)
+         - torch.einsum("bkxy,kz->bxyz", Dim, tc.MzIm))
+    rng = np.random.default_rng(13)
+    G = 2
+    mask = t_(rng.random((G, L, L, L)) < 0.5)
+    bias = torch.where(mask, 0.0, float("-inf"))
+    bmax = tinvz.invz_blockmax(Dre, Dim, tc.MzRe, tc.MzIm, bias)
+    got_v, got_f = tinvz.drill_topk(Dre, Dim, tc.MzRe, tc.MzIm,
+                                    bias.reshape(G, -1), bmax, K)
+    rows_mask = mask.repeat_interleave(4 // G, dim=0)       # [b, L, L, L]
+    Sm = torch.where(rows_mask, S, float("-inf")).reshape(4, -1)
+    want_v, _ = ttopk.exact_block_topk(Sm, K)
+    assert_same_multiset(got_v, want_v, **TOL)
+    looked = torch.gather(Sm, 1, got_f)
+    np.testing.assert_allclose(np_(looked), np_(got_v), **TOL)
+    assert torch.isfinite(looked).all()
+    with pytest.raises(ValueError, match="bias groups"):
+        tinvz.drill_topk(Dre, Dim, tc.MzRe, tc.MzIm,
+                         torch.zeros(3, L ** 3), bmax, K)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_fused_correlate_topk_matches_jax_score_volume(masked):
     rec, reps, cpl = _inputs(8)

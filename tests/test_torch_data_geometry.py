@@ -175,8 +175,9 @@ def test_pose_rmsd_and_nms():
 
 
 def test_port_imports_without_jax():
-    """The port's whole main path imports where jax, flax, optax and
-    orbax are absent, and never loads the JAX package itself."""
+    """The port's docking, screening and refinement paths import where
+    jax, flax, optax and orbax are absent, and never load the JAX
+    package itself."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
@@ -184,6 +185,9 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.pipeline\n"
         "import deeplocalproteindocking_torch.weights\n"
         "import deeplocalproteindocking_torch.correlate.invz_topk\n"
+        "import deeplocalproteindocking_torch.correlate.idft\n"
+        "import deeplocalproteindocking_torch.sweep.refine\n"
+        "import deeplocalproteindocking_torch.serving\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('deeplocalproteindocking_tpu')]\n"
         "assert not bad, bad\n")

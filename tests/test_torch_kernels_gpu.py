@@ -7,7 +7,7 @@ one.  The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order), 2e-2 in bf16 (the same rounding points, where one bf16
-ulp is 2^-8 relative).
+ulp is 2^-8 relative).  K3 is float32 only.
 """
 import numpy as np
 import pytest
@@ -15,7 +15,7 @@ import torch
 
 from torch_parity import cuda_device  # noqa: F401
 
-from deeplocalproteindocking_torch.correlate import fused, invz_topk
+from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
 from deeplocalproteindocking_torch.correlate._contract import mm
 from deeplocalproteindocking_torch.correlate.dft import get_correlator
 from deeplocalproteindocking_torch.correlate.fft import receptor_transform
@@ -92,6 +92,38 @@ def test_k2_matches_plain(cuda_device, groups):
     assert _rel(got[fin], want[fin]) <= 1e-4
 
 
+def _k3_args(dev, L, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    corr = get_correlator(L, 16, "float32", dev)
+    e = [torch.randn(b, L, L, L, generator=g).to(dev) for _ in range(2)]
+    return (*e, corr.UxRe32, corr.UxIm32, corr.UxRe32, corr.UxIm32)
+
+
+@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("b", [2, 8])
+def test_k3_matches_plain(cuda_device, L, b):
+    args = _k3_args(cuda_device, L, b)
+    n0 = idft.launches
+    got = idft.idft_bc(*args)
+    torch.cuda.synchronize()
+    assert idft.launches == n0 + 1
+    want = idft.idft_bc_reference(*args)
+    assert got.shape == (b, L, L, L) and got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-4
+
+
+def test_k3_refuses_what_it_does_not_take(cuda_device):
+    args = _k3_args(cuda_device, 32, 2)
+    with pytest.raises(TypeError):
+        idft.idft_bc(*(a.to(torch.float64) for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        idft.idft_bc(args[0].transpose(2, 3), *args[1:])
+    with pytest.raises(ValueError, match="divisible by 8 and 16"):
+        idft.idft_bc(*_k3_args(cuda_device, 24, 1))
+    with pytest.raises(ValueError, match="L <= 128"):
+        idft.idft_bc(*_k3_args(cuda_device, 144, 1))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     _, args = _k1_args(cuda_device, 32, 16, 2, 2, "float32")
     with pytest.raises(TypeError):
@@ -103,9 +135,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         fused.fused_correlate(*big)
 
 
-def test_sweep_card_matches_cpu(cuda_device):
-    """The resplat sweep with the fused K1 -> K2 tail on the card gives
-    the CPU sweep's top-K (plain versions, score-volume path)."""
+@pytest.mark.parametrize("fft_impl", ["dft_fused", "dft_pallas"])
+def test_sweep_card_matches_cpu(cuda_device, fft_impl):
+    """The resplat sweep on the card (K1 -> K2 tail, or K3) gives the
+    CPU sweep's top-K (plain versions, score-volume path)."""
     rng = np.random.default_rng(3)
     L, Ls, C = 64, 16, 3
     rec = torch.as_tensor(rng.normal(size=(L, L, L, C)), dtype=torch.float32)
@@ -115,7 +148,7 @@ def test_sweep_card_matches_cpu(cuda_device):
     mask = torch.ones(20)
     w = torch.as_tensor(rng.normal(size=(11, C)), dtype=torch.float32)
     kw = dict(grid_size=L, lig_grid=Ls, resolution=1.25, sigma=1.0,
-              num_types=11, top_k=16, chunk=8, fft_impl="dft_fused")
+              num_types=11, top_k=16, chunk=8, fft_impl=fft_impl)
     out = {}
     for dev in ("cpu", cuda_device):
         H = receptor_transform(rec.to(dev))

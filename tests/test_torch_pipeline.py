@@ -19,7 +19,8 @@ from torch_parity import (ROOT, jax_config, np_, t_, v9p_config, v9p_flat,
 
 from deeplocalproteindocking_torch import weights
 from deeplocalproteindocking_torch.config import DockConfig
-from deeplocalproteindocking_torch.correlate.fft import receptor_transform
+from deeplocalproteindocking_torch.correlate.fft import (
+    receptor_transform, shift_to_flat_index)
 from deeplocalproteindocking_torch.data import (structure_to_device,
                                                 synthetic_complex)
 from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
@@ -134,7 +135,7 @@ def test_engine_reuse_and_fused_topk_tail(learned_pair):
                                rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("fft_impl", ["dft", "xla"])
+@pytest.mark.parametrize("fft_impl", ["dft", "dft_pallas", "xla"])
 def test_sweep_engines_match_jax(fft_impl):
     """Sweeps on the non-fused engines equal the JAX sweep on the same
     inputs (num_valid masks the identity padding)."""
@@ -165,6 +166,48 @@ def test_sweep_engines_match_jax(fft_impl):
             == _pose_groups(np_(want.scores), np_(want.rot_idx),
                             np_(want.shifts), 3))
     assert np_(got.rot_idx).max() < 7
+
+
+def _sweep_inputs(L=32, Ls=16, C=2, seed=17):
+    rng = np.random.default_rng(seed)
+    rec = rng.normal(size=(L, L, L, C)).astype(np.float32)
+    coords = (rng.normal(size=(10, 3)) * 2.5).astype(np.float32)
+    types = rng.integers(0, 11, size=10).astype(np.int32)
+    w = rng.normal(size=(11, C)).astype(np.float32)
+    masks = rng.random((3, L, L, L)) < 0.4
+    return (receptor_transform(t_(rec)), t_(coords), t_(types),
+            t_(np.ones(10, np.float32)), lambda v: v @ t_(w), t_(masks))
+
+
+@pytest.mark.parametrize("fft_impl", ["dft_fused", "dft_pallas"])
+def test_head_batched_sweep_matches_per_head(fft_impl):
+    """Heads as a leading batch axis (rescore's form): each head's top-K
+    equals its own sweep with its own mask, through the score-volume
+    path and, on dft_fused, through the K1 -> K2 -> drill tail with the
+    masks as per-head bias groups (forced on CPU tensors)."""
+    H, lc, lt, lm, rep_fn, masks = _sweep_inputs()
+    n = masks.shape[0]
+    rots = super_fibonacci_rotations(5 * n).reshape(n, 5, 3, 3)
+    kw = dict(grid_size=32, lig_grid=16, resolution=1.25, sigma=1.0,
+              num_types=11, top_k=6, chunk=2, fft_impl=fft_impl)
+    tails = [False, True] if fft_impl == "dft_fused" else [False]
+    for fused in tails:
+        got = dock_sweep_resplat(H, lc, lt, lm, rots, rep_fn,
+                                 score_mask=masks, fused_topk=fused, **kw)
+        assert got.scores.shape == (n, 6) and got.shifts.shape == (n, 6, 3)
+        for i in range(n):
+            want = dock_sweep_resplat(H, lc, lt, lm, rots[i], rep_fn,
+                                      score_mask=masks[i], fused_topk=False,
+                                      **kw)
+            np.testing.assert_allclose(np_(got.scores[i]),
+                                       np_(want.scores), rtol=1e-5,
+                                       atol=1e-4)
+            assert (_pose_groups(np_(got.scores[i]), np_(got.rot_idx[i]),
+                                 np_(got.shifts[i]), 3)
+                    == _pose_groups(np_(want.scores), np_(want.rot_idx),
+                                    np_(want.shifts), 3))
+            flat = np_(shift_to_flat_index(got.shifts[i], 32))
+            assert np_(masks[i]).reshape(-1)[flat].all()
 
 
 def test_bench_complex_ligand_box_and_masks():
