@@ -10,17 +10,22 @@ phase that does not hold:
 1. environment: the card's name and power limit, torch/CUDA versions,
    and the build of the hand-written kernels from ``csrc/``;
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes with a batch of 8 rotations (K1 float32 and bf16,
+   main path's shapes with a batch of 8 rotations (K1 on both routes:
+   bf16 on the tensor-core kernel at the bench complex's box, at box 40
+   and at box 64, and the SIMT kernel in float32 and in bf16 at box 72;
    K2 with a real translation mask, drill-down top-K, K3 on the summed
    spectrum of the ``dft`` engine's forward half), plus the time of
-   each kernel and its plain version at the full batch of 128;
+   each kernel and its plain version at the full batch of 128 (K1 also
+   on its SIMT kernel in bf16);
 3. the slice: the v9p hybrid model (exported weights, rank-3 coupling
    folded into the last conv, bf16, grid 128, top-K 64, chunk 128)
    serves three ``DockingPipeline.dock`` requests, proving through the
-   launch counters that K1 and K2 ran in each;
-4. card against CPU: one request at float32, grid 64, 256 rotations,
-   once on CUDA tensors (kernels) and once on CPU tensors (plain
-   versions); top-K values and the top-1 pose must agree;
+   launch counters that K1 (every launch on the tensor-core kernel) and
+   K2 ran in each;
+4. card against CPU: one request at grid 64, 256 rotations, once on CUDA
+   tensors (kernels) and once on CPU tensors (plain versions), in
+   float32 (top-K values within rtol 1e-3 and the same top-1 pose) and
+   in bf16 (top-K values within rtol 2e-2);
 5. the screening slice: one ``DockingService`` on the same model with
    ``fft_impl="dft_pallas"`` docks the receptor of seed 0 against the
    ligands of seeds 0-2 (``dock`` then ``rescore(top=16, nrot=48)``
@@ -97,6 +102,8 @@ def main():
     from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
     from deeplocalproteindocking_torch.correlate._contract import mm
     from deeplocalproteindocking_torch.correlate.dft import get_correlator
+    from deeplocalproteindocking_torch.correlate.fft import (
+        receptor_transform)
     from deeplocalproteindocking_torch.data import (structure_to_device,
                                                     synthetic_complex)
     from deeplocalproteindocking_torch.grids.voxelize import (
@@ -156,13 +163,14 @@ def main():
     check(mask is not None, "the bench complex should need a wrap mask")
     bias = torch.where(mask, 0.0, float("-inf")).to(torch.float32)
 
-    def k1_inputs(b, dtype_name):
-        """K1's arguments as the main path builds them for b rotations."""
-        corr = get_correlator(L, Ls, dtype_name, dev)
+    def k1_inputs(b, dtype_name, box=Ls):
+        """K1's arguments as the main path builds them for b rotations
+        (the bench complex's ligand splatted into a ``box`` grid)."""
+        corr = get_correlator(L, box, dtype_name, dev)
         with torch.inference_mode():
             R = super_fibonacci_rotations(b, dev)
             vols = separable_splat(torch.einsum("bij,nj->bni", R, lc), lt,
-                                   lm, grid_size=Ls,
+                                   lm, grid_size=box,
                                    resolution=serve_cfg.resolution,
                                    sigma=serve_cfg.sigma, num_types=11)
             v = rep_fn(vols).to(corr.dtype)
@@ -172,6 +180,36 @@ def main():
         return corr, (are.contiguous(), aim.contiguous(), Ht[0], Ht[1],
                       corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm,
                       corr.UxRe, corr.UxIm, corr.UyRe, corr.UyIm)
+
+    def k1_random_inputs(b, box, C=3, seed=0):
+        """K1's bf16 arguments from random volumes and receptor grid."""
+        g = torch.Generator().manual_seed(seed)
+        corr = get_correlator(L, box, "bfloat16", dev)
+        with torch.inference_mode():
+            Hr = receptor_transform(torch.randn(L, L, L, C,
+                                                generator=g).to(dev))
+            v = torch.randn(b, box, box, box, C, generator=g).to(
+                dev, corr.dtype)
+            are = mm("bxyzc,zk->bkcxy", v, corr.WzRe).to(corr.dtype)
+            aim = mm("bxyzc,zk->bkcxy", v, corr.WzIm).to(corr.dtype)
+            Ht = corr.prep_H(Hr)
+        return (are.contiguous(), aim.contiguous(), Ht[0], Ht[1],
+                corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm, corr.UxRe,
+                corr.UxIm, corr.UyRe, corr.UyIm)
+
+    def k1_check(args):
+        """((max abs err, rel err), route, D) of one K1 launch, held
+        against the plain version."""
+        X, Y = args[0].shape[-2:]
+        route = fused.k1_route(args[0].dtype, X, Y, L, L, L, L)
+        tc0 = fused.launches_tc
+        got = fused.fused_correlate(*args)
+        torch.cuda.synchronize()
+        check(fused.launches_tc - tc0 == int(route == "tc"),
+              f"K1 at box {X} did not launch its {route} kernel")
+        want = fused.fused_correlate_reference(*args)
+        e = [rel_err(g, w) for g, w in zip(got, want)]
+        return (max(a for a, _ in e), max(r for _, r in e)), route, got
 
     def k3_inputs(b):
         """K3's arguments as the ``dft_pallas`` sweep builds them for b
@@ -196,17 +234,18 @@ def main():
                 corr.UxIm32)
 
     # ---- phase 2: kernels against their plain versions ----
-    errs = {}
+    errs, routes = {}, {}
     with torch.inference_mode():
         for name in ("float32", "bfloat16"):
             corr, args = k1_inputs(8, name)
-            got = fused.fused_correlate(*args)
-            torch.cuda.synchronize()
-            want = fused.fused_correlate_reference(*args)
-            e = [rel_err(g, w) for g, w in zip(got, want)]
-            errs["k1_" + name] = (max(a for a, _ in e), max(r for _, r in e))
+            errs["k1_" + name], routes["k1_" + name], got = k1_check(args)
             if name == "float32":
                 corr32, D = corr, got
+        errs["k1_bf16_box40"], routes["k1_bf16_box40"], _ = k1_check(
+            k1_inputs(2, "bfloat16", box=40)[1])
+        for box in (64, 72):
+            key = f"k1_bf16_box{box}_random"
+            errs[key], routes[key], _ = k1_check(k1_random_inputs(2, box))
         bk = invz_topk.invz_blockmax(D[0], D[1], corr32.MzRe, corr32.MzIm,
                                      bias)
         torch.cuda.synchronize()
@@ -234,6 +273,9 @@ def main():
          k1_float32_rel_err=errs["k1_float32"][1],
          k1_bf16_max_abs_err=errs["k1_bfloat16"][0],
          k1_bf16_rel_err=errs["k1_bfloat16"][1],
+         k1_more={k: dict(rel_err=v[1], max_abs_err=v[0], batch=2)
+                  for k, v in errs.items() if k.startswith("k1_bf16_")},
+         k1_routes=routes,
          k2_max_abs_err=errs["k2"][0], k2_rel_err=errs["k2"][1],
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
@@ -241,7 +283,12 @@ def main():
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
     check(errs["k1_float32"][1] <= TOL_F32, f"K1 float32 {errs}")
-    check(errs["k1_bfloat16"][1] <= TOL_BF16, f"K1 bf16 {errs}")
+    for key in ("k1_bfloat16", "k1_bf16_box40", "k1_bf16_box64_random",
+                "k1_bf16_box72_random"):
+        check(errs[key][1] <= TOL_BF16, f"K1 {key} {errs}")
+    check(routes == {"k1_float32": "simt", "k1_bfloat16": "tc",
+                     "k1_bf16_box40": "tc", "k1_bf16_box64_random": "tc",
+                     "k1_bf16_box72_random": "simt"}, f"K1 routes {routes}")
     check(errs["k2"][1] <= TOL_F32, f"K2 {errs}")
     check(errs["k3"][1] <= TOL_F32, f"K3 {errs}")
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
@@ -250,10 +297,13 @@ def main():
     # Times at the main path's full chunk: b=128 rotations, bf16.
     with torch.inference_mode():
         corr16, args16 = k1_inputs(128, "bfloat16")
+        D16 = fused.fused_correlate(*args16)
+        dims = tuple(args16[0].shape) + (L, L, L, L)
         k1_ms = cuda_time_ms(lambda: fused.fused_correlate(*args16))
+        k1_simt_ms = cuda_time_ms(
+            lambda: fused._launch_simt(args16, dims, *D16))
         k1_plain_ms = cuda_time_ms(
             lambda: fused.fused_correlate_reference(*args16))
-        D16 = fused.fused_correlate(*args16)
         k2_ms = cuda_time_ms(lambda: invz_topk.invz_blockmax(
             D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias))
         k2_plain_ms = cuda_time_ms(lambda: invz_topk.invz_blockmax_reference(
@@ -263,8 +313,9 @@ def main():
         k3_ms = cuda_time_ms(lambda: idft.idft_bc(*k3_args))
         k3_plain_ms = cuda_time_ms(lambda: idft.idft_bc_reference(*k3_args))
         del k3_args
-    emit("kernel_times", batch=128, dtype="bfloat16", k1_ms=k1_ms,
-         k1_plain_ms=k1_plain_ms, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+    emit("kernel_times", batch=128, dtype="bfloat16", Ls=Ls, k1_ms=k1_ms,
+         k1_simt_ms=k1_simt_ms, k1_plain_ms=k1_plain_ms, k2_ms=k2_ms,
+         k2_plain_ms=k2_plain_ms,
          k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_dtype="float32",
          timer="cuda events, mean of 5 after 1 warm-up", card=card)
 
@@ -273,12 +324,13 @@ def main():
          cut_from=BENCH_ROTATIONS, grid=L, lig_grid=Ls, top_k=top_k,
          chunk=serve_cfg.rotation_chunk, dtype="bfloat16", coupling_rank=3,
          model="pretrained/synthetic-v9p/best_params.npz")
-    fused.launches = 0
+    fused.launches = fused.launches_tc = 0
     invz_topk.launches = 0
     requests = []
     for seed in SEEDS:
         c = synthetic_complex(seed=seed, n_res_rec=60, n_res_lig=30)
-        k1_0, k2_0 = fused.launches, invz_topk.launches
+        k1_0, tc_0, k2_0 = (fused.launches, fused.launches_tc,
+                            invz_topk.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         poses = pipe.dock_complex(c)
@@ -290,6 +342,7 @@ def main():
                    top1_rot_idx=int(poses.rot_idx[0]),
                    top1_shift=[int(v) for v in poses.shifts[0]],
                    k1_launches=fused.launches - k1_0,
+                   k1_tc_launches=fused.launches_tc - tc_0,
                    k2_launches=invz_topk.launches - k2_0)
         emit("dock_request", **rec)
         requests.append(rec)
@@ -298,32 +351,47 @@ def main():
               f"request {seed}: non-finite scores")
         check(rec["k1_launches"] > 0 and rec["k2_launches"] > 0,
               f"request {seed}: kernels not launched {rec}")
+        check(rec["k1_tc_launches"] == rec["k1_launches"],
+              f"request {seed}: a K1 launch missed the tensor cores {rec}")
     main_launches = {"fused_correlate": fused.launches,
+                     "fused_correlate_tc": fused.launches_tc,
                      "invz_blockmax": invz_topk.launches}
 
-    # ---- phase 4: card against CPU at float32, grid 64 ----
+    # ---- phase 4: card against CPU at grid 64, float32 and bf16 ----
     cmp_cfg = serve_cfg.replace(grid_size=64, compute_dtype="float32",
                                 dft_dtype="float32", num_rotations=256)
-    results = {}
-    for where in ("cuda", "cpu"):
-        p = DockingPipeline(cmp_cfg, params=params, device=where)
-        t0 = time.perf_counter()
-        results[where] = p.dock_complex(cplx, cluster=False)
-        results[where + "_s"] = time.perf_counter() - t0
-    g, w = results["cuda"], results["cpu"]
-    vals_ok = np.allclose(np.sort(g.scores), np.sort(w.scores), rtol=1e-3,
-                          atol=0)
-    top1_ok = (int(g.rot_idx[0]) == int(w.rot_idx[0])
-               and list(g.shifts[0]) == list(w.shifts[0]))
-    emit("card_vs_cpu", grid=64, rotations=256, dtype="float32",
-         cuda_seconds=results["cuda_s"], cpu_seconds=results["cpu_s"],
-         max_rel_diff=float(np.max(np.abs(np.sort(g.scores)
-                                           - np.sort(w.scores))
-                                    / np.abs(np.sort(w.scores)))),
-         top1_cuda=[int(g.rot_idx[0])] + [int(v) for v in g.shifts[0]],
-         top1_cpu=[int(w.rot_idx[0])] + [int(v) for v in w.shifts[0]])
-    check(vals_ok, "top-K values differ between card and CPU")
-    check(top1_ok, "top-1 pose differs between card and CPU")
+    for dtype, rtol in (("float32", 1e-3), ("bfloat16", TOL_BF16)):
+        cfg = cmp_cfg.replace(compute_dtype=dtype, dft_dtype=dtype)
+        results = {}
+        for where in ("cuda", "cpu"):
+            p = DockingPipeline(cfg, params=params, device=where)
+            n0, tc0 = fused.launches, fused.launches_tc
+            t0 = time.perf_counter()
+            results[where] = p.dock_complex(cplx, cluster=False)
+            results[where + "_s"] = time.perf_counter() - t0
+            results[where + "_k1"] = (fused.launches - n0,
+                                      fused.launches_tc - tc0)
+        g, w = results["cuda"], results["cpu"]
+        vals_ok = np.allclose(np.sort(g.scores), np.sort(w.scores),
+                              rtol=rtol, atol=0)
+        top1_ok = (int(g.rot_idx[0]) == int(w.rot_idx[0])
+                   and list(g.shifts[0]) == list(w.shifts[0]))
+        emit("card_vs_cpu", grid=64, rotations=256, dtype=dtype, rtol=rtol,
+             cuda_seconds=results["cuda_s"], cpu_seconds=results["cpu_s"],
+             max_rel_diff=float(np.max(np.abs(np.sort(g.scores)
+                                               - np.sort(w.scores))
+                                        / np.abs(np.sort(w.scores)))),
+             k1_launches=results["cuda_k1"][0],
+             k1_tc_launches=results["cuda_k1"][1], top1_same=top1_ok,
+             top1_cuda=[int(g.rot_idx[0])] + [int(v) for v in g.shifts[0]],
+             top1_cpu=[int(w.rot_idx[0])] + [int(v) for v in w.shifts[0]])
+        check(vals_ok, f"{dtype}: top-K values differ between card and CPU")
+        check(results["cuda_k1"][0] > 0
+              and results["cuda_k1"][1] == (results["cuda_k1"][0]
+                                            if dtype == "bfloat16" else 0),
+              f"{dtype}: K1 routes on the card {results['cuda_k1']}")
+        if dtype == "float32":
+            check(top1_ok, "top-1 pose differs between card and CPU")
 
     # ---- phase 5: the screening slice (DockingService, dft_pallas) ----
     screen_cfg = serve_cfg.replace(fft_impl="dft_pallas")
@@ -405,7 +473,7 @@ def main():
     # Its coarse poses unclustered, so that 16 heads exist.
     svc_fused = DockingService(serve_cfg, params, device=dev)
     coarse = svc_fused.dock(receptor, lig0, cluster=False)
-    fused.launches = invz_topk.launches = 0
+    fused.launches = fused.launches_tc = invz_topk.launches = 0
     invz_topk.invz_blockmax = spy
     try:
         fres, fres_s, _ = stage(lambda: svc_fused.rescore(
@@ -413,7 +481,8 @@ def main():
     finally:
         invz_topk.invz_blockmax = blockmax
     emit("fused_rescore", seconds=fres_s, k1_launches=fused.launches,
-         k2_launches=invz_topk.launches, k2_bias_groups=sorted(set(groups)),
+         k1_tc_launches=fused.launches_tc, k2_launches=invz_topk.launches,
+         k2_bias_groups=sorted(set(groups)),
          top1_after=float(fres.scores[0]))
     check(fused.launches > 0 and invz_topk.launches > 0,
           "dft_fused rescore did not launch K1/K2")
@@ -460,14 +529,20 @@ def main():
     src = "deeplocalproteindocking_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "fused_correlate", "route": "cuda",
-         "source": src + "fused_correlate.cu",
+         "source": src + "fused_correlate_tc.cu",
+         "sources": {"tc": src + "fused_correlate_tc.cu",
+                     "simt": src + "fused_correlate.cu"},
          "replaces": "deeplocalproteindocking_tpu/correlate/"
                      "pallas_fused.py:57",
          "launches": main_launches["fused_correlate"],
+         "launches_by_route": {
+             "tc": main_launches["fused_correlate_tc"],
+             "simt": main_launches["fused_correlate"]
+             - main_launches["fused_correlate_tc"]},
          "max_abs_err": errs["k1_bfloat16"][0],
          "max_abs_err_float32": errs["k1_float32"][0],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "simt_ms": k1_simt_ms, "plain_ms": k1_plain_ms},
         {"name": "invz_blockmax", "route": "cuda",
          "source": src + "invz_blockmax.cu",
          "replaces": "deeplocalproteindocking_tpu/correlate/"

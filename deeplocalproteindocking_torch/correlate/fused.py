@@ -10,10 +10,20 @@ Port of ``deeplocalproteindocking_tpu/correlate/pallas_fused.py``.  Per
     D[x',y']  = sum_j C[j,x']  Uy[j,y']         inverse y   (float32)
 
 "rounded" = cast back to the operand dtype, as the TPU kernel casts.
-:func:`fused_correlate` launches the hand-written CUDA kernel
-(``csrc/fused_correlate.cu``) for CUDA tensors and runs the plain
-version :func:`fused_correlate_reference` for CPU tensors.  A CUDA
-tensor never falls back: the kernel launches or the call raises.
+:func:`fused_correlate` runs the plain version
+:func:`fused_correlate_reference` for CPU tensors and launches one of two
+hand-written CUDA kernels for CUDA tensors, chosen by :func:`k1_route`
+from dtype and shapes alone:
+
+- ``"tc"`` (``csrc/fused_correlate_tc.cu``): bf16 on the tensor cores
+  (``mma.sync``), for ligand boxes X, Y <= 64 and I, J, X', Y' multiples
+  of 16 up to 128 -- the main path.  Its twiddles go in the layouts of
+  :func:`tc_operands`.
+- ``"simt"`` (``csrc/fused_correlate.cu``): float32 FMA loops, for
+  float32 and every other shape up to L = 128.
+
+A CUDA tensor never falls back: the routed kernel launches or the call
+raises.
 """
 from __future__ import annotations
 
@@ -24,9 +34,12 @@ from deeplocalproteindocking_torch.correlate._contract import cmm
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_L = 128
+_TC_MAX_BOX = 64
 
-# Kernel launches since the last reset (the main path's proof of use).
+# Kernel launches since the last reset (the main path's proof of use):
+# every K1 launch, and those of the tensor-core kernel alone.
 launches = 0
+launches_tc = 0
 
 
 def fused_correlate_reference(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
@@ -45,6 +58,63 @@ def fused_correlate_reference(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     return cmm("bkjx,jy->bkxy", Cre, Cim, UyRe, UyIm)
 
 
+def k1_route(dtype, X, Y, I, J, Xp, Yp) -> str:
+    """``"tc"`` or ``"simt"``: the kernel K1 launches for CUDA tensors.
+
+    ``"tc"`` iff the operands are bf16, the ligand box has X, Y <= 64,
+    and I, J, X', Y' are multiples of 16 no larger than 128.
+    """
+    if (dtype == torch.bfloat16 and max(X, Y) <= _TC_MAX_BOX
+            and all(n > 0 and n % 16 == 0 and n <= _MAX_L
+                    for n in (I, J, Xp, Yp))):
+        return "tc"
+    return "simt"
+
+
+def tc_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
+    """The tensor-core kernel's twiddles: ``Wy^T [J, P]`` and
+    ``Wx^T [I, P]`` zero-padded to ``P`` = the larger of X and Y rounded
+    up to 16, ``Ux^T [X', I]`` and ``Uy^T [Y', J]``, all contiguous.
+    Each is an MMA operand stored with its contraction axis innermost."""
+    P = -(-max(WyRe.shape[0], WxRe.shape[0]) // 16) * 16
+
+    def pad_t(w):
+        return torch.nn.functional.pad(w.T, (0, P - w.shape[0])).contiguous()
+
+    return (pad_t(WyRe), pad_t(WyIm), pad_t(WxRe), pad_t(WxIm),
+            UxRe.T.contiguous(), UxIm.T.contiguous(), UyRe.T.contiguous(),
+            UyIm.T.contiguous())
+
+
+def _launch_simt(args, dims, Dre, Dim):
+    """``csrc/fused_correlate.cu`` on ``args`` as :func:`fused_correlate`
+    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``."""
+    global launches
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        err = _build.library().dlpd_fused_correlate(
+            _KERNEL_DTYPES[args[0].dtype], *(t.data_ptr() for t in args),
+            Dre.data_ptr(), Dim.data_ptr(), *dims,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_correlate")
+    launches += 1
+
+
+def _launch_tc(args, dims, Dre, Dim):
+    """``csrc/fused_correlate_tc.cu`` on the same ``args`` (bf16), with
+    the twiddles put in :func:`tc_operands`' layouts."""
+    global launches, launches_tc
+    dev = args[0].device
+    ops = args[:4] + tc_operands(*args[4:])
+    with torch.cuda.device(dev):
+        err = _build.library().dlpd_fused_correlate_tc(
+            *(t.data_ptr() for t in ops), Dre.data_ptr(), Dim.data_ptr(),
+            *dims, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_correlate_tc")
+    launches += 1
+    launches_tc += 1
+
+
 def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
                     UxRe, UxIm, UyRe, UyIm):
     """``(Dre, Dim) [b, K, X', Y']`` float32.
@@ -55,14 +125,13 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     ``Ux [I, X']``, ``Uy [J, Y']``; all of one dtype (float32 or
     bfloat16) and device.
     """
+    args = (Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe,
+            UyIm)
     if Are.device.type == "cpu":
-        return fused_correlate_reference(Are, Aim, Hre, Him, WyRe, WyIm,
-                                         WxRe, WxIm, UxRe, UxIm, UyRe,
-                                         UyIm)
+        return fused_correlate_reference(*args)
     if Are.device.type != "cuda":
         raise ValueError(f"fused_correlate: no kernel for device "
                          f"{Are.device}")
-    global launches
     b, K, C, X, Y = Are.shape
     J, I = WyRe.shape[1], WxRe.shape[1]
     Xp, Yp = UxRe.shape[1], UyRe.shape[1]
@@ -72,8 +141,6 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     if max(I, Xp, Yp, J) > _MAX_L:
         raise ValueError(f"fused_correlate: kernel takes L <= {_MAX_L}, "
                          f"got J={J}, I={I}, X'={Xp}, Y'={Yp}")
-    args = (Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe,
-            UyIm)
     names = ("Are", "Aim", "Hre", "Him", "WyRe", "WyIm", "WxRe", "WxIm",
              "UxRe", "UxIm", "UyRe", "UyIm")
     shapes = ((b, K, C, X, Y),) * 2 + ((K, C, J, I),) * 2 + (
@@ -83,12 +150,7 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     Dre = torch.empty((b, K, Xp, Yp), dtype=torch.float32,
                       device=Are.device)
     Dim = torch.empty_like(Dre)
-    lib = _build.library()
-    with torch.cuda.device(Are.device):
-        err = lib.dlpd_fused_correlate(
-            _KERNEL_DTYPES[Are.dtype], *(t.data_ptr() for t in args),
-            Dre.data_ptr(), Dim.data_ptr(), b, K, C, X, Y, J, I, Xp, Yp,
-            torch.cuda.current_stream(Are.device).cuda_stream)
-    _build.check(err, "fused_correlate")
-    launches += 1
+    launch = (_launch_tc if k1_route(Are.dtype, X, Y, I, J, Xp, Yp) == "tc"
+              else _launch_simt)
+    launch(args, (b, K, C, X, Y, J, I, Xp, Yp), Dre, Dim)
     return Dre, Dim

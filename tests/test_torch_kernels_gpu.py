@@ -7,7 +7,9 @@ one.  The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order), 2e-2 in bf16 (the same rounding points, where one bf16
-ulp is 2^-8 relative).  K3 is float32 only.
+ulp is 2^-8 relative).  K1 runs bf16 boxes up to 64 on its tensor-core
+kernel and the rest on its SIMT kernel (``fused.k1_route``); both are
+held here.  K3 is float32 only.
 """
 import numpy as np
 import pytest
@@ -57,13 +59,21 @@ def _rel(got, want):
     (128, 32, 3, 4, "float32", 1e-4),
     (128, 32, 3, 4, "bfloat16", 2e-2),
     (64, 40, 16, 3, "float32", 1e-4),     # full-rank channels, odd box
-    (32, 16, 2, 5, "bfloat16", 2e-2)])
+    (32, 16, 2, 5, "bfloat16", 2e-2),
+    (128, 16, 3, 2, "bfloat16", 2e-2),
+    (128, 40, 3, 2, "bfloat16", 2e-2),
+    (128, 64, 3, 2, "bfloat16", 2e-2),    # the largest tensor-core box
+    (64, 40, 16, 3, "bfloat16", 2e-2),
+    (128, 72, 3, 2, "bfloat16", 2e-2)])   # bf16 on the SIMT kernel
 def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
-    n0 = fused.launches
+    tc = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L) == "tc"
+    assert tc == (dtype_name == "bfloat16" and Ls <= 64)
+    n0, tc0 = fused.launches, fused.launches_tc
     got = fused.fused_correlate(*args)
     torch.cuda.synchronize()
     assert fused.launches == n0 + 1
+    assert fused.launches_tc == tc0 + int(tc)
     want = fused.fused_correlate_reference(*args)
     for gt, wt in zip(got, want):
         assert _rel(gt, wt) <= tol
