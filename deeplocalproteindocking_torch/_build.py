@@ -33,6 +33,7 @@ _SIGNATURES = {
     "dlpd_fused_correlate": [_I] + [_P] * 14 + [_I] * 9 + [_P],
     "dlpd_fused_correlate_tc": [_P] * 14 + [_I] * 9 + [_P],
     "dlpd_invz_blockmax": [_P] * 6 + [_I] * 6 + [_P],
+    "dlpd_invz_blockmax_fft": [_P] * 4 + [_I] * 5 + [_P],
     "dlpd_idft_bc": [_P] * 7 + [_I] * 2 + [_P],
 }
 

@@ -37,6 +37,18 @@ def _twiddle(pos: np.ndarray, freqs: np.ndarray, L: int, sign: float,
     return re, im
 
 
+def hermitian_inverse_z(L: int):
+    """``Mz (re, im) [L//2+1, L]`` float32: the c2r inverse along kz
+    (``irfft`` with its 1/L) as a matrix, Hermitian weights 1, 2, ..., 2,
+    1 folded in."""
+    kh = np.arange(L // 2 + 1)
+    w = np.full(L // 2 + 1, 2.0)
+    w[0] = w[-1] = 1.0
+    re, im = _twiddle(kh, np.arange(L), L, +1.0, scale=1.0 / L)
+    return ((re * w[:, None]).astype(np.float32),
+            (im * w[:, None]).astype(np.float32))
+
+
 class DFTCorrelator:
     """Twiddle matrices for a (grid_size, lig_grid) pair on one device."""
 
@@ -53,14 +65,10 @@ class DFTCorrelator:
         pos = np.arange(Ls) + off               # ligand voxel -> big grid
         kf = np.arange(L)
         kh = np.arange(L // 2 + 1)
-        xs = np.arange(L)
         WxRe, WxIm = _twiddle(pos, kf, L, -1.0)
         WzRe, WzIm = _twiddle(pos, kh, L, -1.0)
-        UxRe, UxIm = _twiddle(kf, xs, L, +1.0, scale=1.0 / L)
-        w = np.full(L // 2 + 1, 2.0)
-        w[0] = 1.0
-        w[-1] = 1.0
-        mzre, mzim = _twiddle(kh, xs, L, +1.0, scale=1.0 / L)
+        UxRe, UxIm = _twiddle(kf, kf, L, +1.0, scale=1.0 / L)
+        mzre, mzim = hermitian_inverse_z(L)
 
         def dev(a, dt=dtype):
             return torch.as_tensor(np.asarray(a, np.float32)).to(
@@ -81,10 +89,10 @@ class DFTCorrelator:
         # top-K tail, which reads it at full precision, and in the
         # operand dtype (Op) for the einsum inverses, as the JAX module
         # casts it.
-        self.MzRe = dev(mzre * w[:, None], torch.float32)
-        self.MzIm = dev(mzim * w[:, None], torch.float32)
-        self.MzReOp = dev(mzre * w[:, None])
-        self.MzImOp = dev(mzim * w[:, None])
+        self.MzRe = dev(mzre, torch.float32)
+        self.MzIm = dev(mzim, torch.float32)
+        self.MzReOp = dev(mzre)
+        self.MzImOp = dev(mzim)
 
     def _cast(self, *xs):
         return tuple(x.to(self.dtype) for x in xs)

@@ -13,24 +13,43 @@ scores from ``D``.  Exactness: every element outside the selected
 blocks is beaten by at least K block maxima.  Flat indices follow the
 full volume's ``x*L^2 + y*L + z`` convention.
 
-:func:`invz_blockmax` launches the hand-written CUDA kernel
-(``csrc/invz_blockmax.cu``) for CUDA tensors and runs the plain version
-:func:`invz_blockmax_reference` for CPU tensors; a CUDA tensor never
-falls back.
+:func:`invz_blockmax` runs the plain version
+:func:`invz_blockmax_reference` for CPU tensors and launches one of two
+hand-written CUDA kernels for CUDA tensors, chosen by :func:`k2_route`
+from the grid size L = Z alone:
+
+- ``"fft"`` (``csrc/invz_blockmax_fft.cu``), L = 64 or 128 -- the main
+  path: ``Mz`` is the c2r inverse along kz
+  (:func:`~deeplocalproteindocking_torch.correlate.dft.hermitian_inverse_z`),
+  so the kernel computes it as a real FFT and never reads ``Mz``; the
+  wrapper checks once per tensor that ``Mz`` is that matrix.
+- ``"dense"`` (``csrc/invz_blockmax.cu``), every other L: the
+  contraction as float32 FMA loops.
+
+A CUDA tensor never falls back: the routed kernel launches or the call
+raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from deeplocalproteindocking_torch import _build
+from deeplocalproteindocking_torch.correlate.dft import hermitian_inverse_z
 from deeplocalproteindocking_torch.sweep.topk import exact_block_topk
 
 YB = 32         # block width along y
+FFT_GRIDS = (64, 128)
 
-# Kernel launches since the last reset (the main path's proof of use).
+# Kernel launches since the last reset (the main path's proof of use):
+# every K2 launch, and those of the FFT kernel alone.
 launches = 0
+launches_fft = 0
+
+# Mz tensors found to be the c2r matrix ("Re" or "Im"), checked once each.
+_c2r_checked = WeakIdKeyDictionary()
 
 
 def _as_groups(bias: torch.Tensor, b: int) -> torch.Tensor:
@@ -57,6 +76,78 @@ def invz_blockmax_reference(Dre, Dim, MzRe, MzIm, bias):
     return S.reshape(b, X, Y // YB, YB, Z).amax(dim=3)
 
 
+def k2_route(L: int) -> str:
+    """``"fft"`` or ``"dense"``: the kernel K2 launches for CUDA tensors
+    at grid size ``L`` (``Mz [L//2+1, L]``)."""
+    return "fft" if L in FFT_GRIDS else "dense"
+
+
+def require_c2r(MzRe: torch.Tensor, MzIm: torch.Tensor) -> None:
+    """Raise unless ``Mz`` is :func:`hermitian_inverse_z` of its L, the
+    function the FFT kernel computes.  Each tensor is compared once."""
+    if _c2r_checked.get(MzRe) == "Re" and _c2r_checked.get(MzIm) == "Im":
+        return
+    L = MzRe.shape[-1]
+    for part, t, want in zip(("Re", "Im"), (MzRe, MzIm),
+                             hermitian_inverse_z(L)):
+        want = torch.as_tensor(want).to(t.device)
+        if t.shape != want.shape or not torch.allclose(t, want, rtol=0,
+                                                       atol=1e-7):
+            raise ValueError(
+                f"invz_blockmax: the FFT route computes the c2r inverse "
+                f"along kz, and Mz{part} is not its matrix at L={L}")
+        _c2r_checked[t] = part
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_dense(Dre, Dim, MzRe, MzIm, bias):
+    """``csrc/invz_blockmax.cu`` on checked tensors, ``bias [G, X, Y,
+    Z]``."""
+    global launches
+    b, K, X, Y = Dre.shape
+    Z, G = MzRe.shape[1], bias.shape[0]
+    if Z > 1024:
+        raise ValueError(f"invz_blockmax: kernel takes Z <= 1024, got {Z}")
+    out = torch.empty((b, X, Y // YB, Z), dtype=torch.float32,
+                      device=Dre.device)
+    with torch.cuda.device(Dre.device):
+        err = _build.library().dlpd_invz_blockmax(
+            Dre.data_ptr(), Dim.data_ptr(), MzRe.data_ptr(),
+            MzIm.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, K, X, Y, Z, G, _stream(Dre))
+    _build.check(err, "invz_blockmax")
+    launches += 1
+    return out
+
+
+def _launch_fft(Dre, Dim, MzRe, MzIm, bias):
+    """``csrc/invz_blockmax_fft.cu`` on checked tensors, ``bias [G, X, Y,
+    L]``; ``Mz`` must be the c2r matrix (it is not read)."""
+    global launches, launches_fft
+    b, K, X, Y = Dre.shape
+    L, G = MzRe.shape[1], bias.shape[0]
+    if L not in FFT_GRIDS or K != L // 2 + 1:
+        raise ValueError(f"invz_blockmax: the FFT kernel takes L in "
+                         f"{FFT_GRIDS} with K = L/2 + 1, got L={L}, K={K}")
+    if Dre.data_ptr() % 16 or Dim.data_ptr() % 16:
+        raise ValueError("invz_blockmax: the FFT kernel needs D 16-byte "
+                         "aligned")
+    require_c2r(MzRe, MzIm)
+    out = torch.empty((b, X, Y // YB, L), dtype=torch.float32,
+                      device=Dre.device)
+    with torch.cuda.device(Dre.device):
+        err = _build.library().dlpd_invz_blockmax_fft(
+            Dre.data_ptr(), Dim.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, X, Y, L, G, _stream(Dre))
+    _build.check(err, "invz_blockmax_fft")
+    launches += 1
+    launches_fft += 1
+    return out
+
+
 def invz_blockmax(Dre: torch.Tensor, Dim: torch.Tensor,
                   MzRe: torch.Tensor, MzIm: torch.Tensor,
                   bias: torch.Tensor) -> torch.Tensor:
@@ -75,7 +166,6 @@ def invz_blockmax(Dre: torch.Tensor, Dim: torch.Tensor,
     if Dre.device.type != "cuda":
         raise ValueError(f"invz_blockmax: no kernel for device "
                          f"{Dre.device}")
-    global launches
     bias = _as_groups(bias, b)
     Z = MzRe.shape[1]
     G = bias.shape[0]
@@ -84,20 +174,8 @@ def invz_blockmax(Dre: torch.Tensor, Dim: torch.Tensor,
         (("Dre", Dre, (b, K, X, Y)), ("Dim", Dim, (b, K, X, Y)),
          ("MzRe", MzRe, (K, Z)), ("MzIm", MzIm, (K, Z)),
          ("bias", bias, (G, X, Y, Z))))
-    if Z > 1024:
-        raise ValueError(f"invz_blockmax: kernel takes Z <= 1024, got {Z}")
-    out = torch.empty((b, X, Y // YB, Z), dtype=torch.float32,
-                      device=Dre.device)
-    lib = _build.library()
-    with torch.cuda.device(Dre.device):
-        err = lib.dlpd_invz_blockmax(
-            Dre.data_ptr(), Dim.data_ptr(), MzRe.data_ptr(),
-            MzIm.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, K, X, Y, Z, G,
-            torch.cuda.current_stream(Dre.device).cuda_stream)
-    _build.check(err, "invz_blockmax")
-    launches += 1
-    return out
+    launch = _launch_fft if k2_route(Z) == "fft" else _launch_dense
+    return launch(Dre, Dim, MzRe, MzIm, bias)
 
 
 def drill_topk(Dre: torch.Tensor, Dim: torch.Tensor,

@@ -81,7 +81,7 @@ def shape_complementarity_reps(vol: torch.Tensor, *,
 
 def dock_score_mask(cfg: DockConfig, lig_c: Structure,
                     translation_center=None, max_shift=None,
-                    device: torch.device | str = "cpu"):
+                    device: torch.device | str = "cuda"):
     """Translation mask ``[L, L, L]`` bool for one complex, or None.
 
     Combines the circular-wraparound guard (shifts whose ligand leaves
@@ -160,7 +160,7 @@ class DockingPipeline:
     """
 
     def __init__(self, config: DockConfig, params: Optional[dict] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.config = config
         self.device = torch.device(device)
         self.model = ScoringModel(

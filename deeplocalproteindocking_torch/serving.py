@@ -51,7 +51,7 @@ class DockingService:
     """
 
     def __init__(self, config: DockConfig, params: Optional[dict] = None,
-                 device: torch.device | str = "cpu", capacity: int = 8):
+                 device: torch.device | str = "cuda", capacity: int = 8):
         self.pipeline = DockingPipeline(config=config, params=params,
                                         device=device)
         self.capacity = capacity

@@ -9,7 +9,8 @@ Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order), 2e-2 in bf16 (the same rounding points, where one bf16
 ulp is 2^-8 relative).  K1 runs bf16 boxes up to 64 on its tensor-core
 kernel and the rest on its SIMT kernel (``fused.k1_route``); both are
-held here.  K3 is float32 only.
+held here, as are K2's FFT kernel (L = 64, 128) and dense kernel (other
+L; ``invz_topk.k2_route``).  K2 and K3 are float32 only.
 """
 import numpy as np
 import pytest
@@ -79,27 +80,60 @@ def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
         assert _rel(gt, wt) <= tol
 
 
-@pytest.mark.parametrize("groups", [1, 2, 4])
-def test_k2_matches_plain(cuda_device, groups):
-    L, b = 64, 4
-    corr, args = _k1_args(cuda_device, L, 16, 3, b, "float32", seed=1)
-    Dre, Dim = fused.fused_correlate(*args)
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    keep = torch.rand((groups, L, L, L), generator=g,
-                      device=cuda_device) < 0.6
+def _k2_inputs(dev, L, b, groups, source, seed=3):
+    """D [b, L/2+1, X, L] (``source`` "k1": from the float32 K1, X = L;
+    "random": X = 16), the correlator's Mz, and a bias of ``groups``
+    groups masking ~40% of the cells and one whole y run."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if source == "k1":
+        corr, args = _k1_args(dev, L, 16, 3, b, "float32", seed=1)
+        D, X = fused.fused_correlate(*args), L
+    else:
+        corr, X = get_correlator(L, 16, "float32", dev), 16
+        D = [torch.randn((b, L // 2 + 1, X, L), generator=g, device=dev)
+             for _ in range(2)]
+    keep = torch.rand((groups, X, L, L), generator=g, device=dev) < 0.6
     bias = torch.where(keep, 0.0, float("-inf"))
-    bias[0, 3, 0:32, 5] = float("-inf")      # one fully masked y run
-    n0 = invz_topk.launches
+    bias[0, 3, 0:32, 5] = float("-inf")
+    return D, corr, bias
+
+
+@pytest.mark.parametrize("L,b,groups,source,route", [
+    (64, 4, 1, "k1", "fft"), (64, 4, 2, "k1", "fft"),
+    (64, 4, 4, "k1", "fft"), (128, 4, 1, "random", "fft"), (128, 3, 1, "random", "fft"),
+    (128, 6, 3, "random", "fft"), (128, 5, 5, "random", "fft"),
+    (64, 4, 2, "random", "fft"), (64, 7, 1, "random", "fft"),
+    (96, 4, 2, "random", "dense")])
+def test_k2_matches_plain(cuda_device, L, b, groups, source, route):
+    """Both K2 kernels against the plain version: the FFT kernel at
+    L = 64 and 128 (odd b: a block's second rotation missing; G = b:
+    every rotation its own group), the dense kernel at L = 96."""
+    (Dre, Dim), corr, bias = _k2_inputs(cuda_device, L, b, groups, source)
+    assert invz_topk.k2_route(L) == route
+    n0, f0 = invz_topk.launches, invz_topk.launches_fft
     got = invz_topk.invz_blockmax(Dre, Dim, corr.MzRe, corr.MzIm, bias)
     torch.cuda.synchronize()
     assert invz_topk.launches == n0 + 1
+    assert invz_topk.launches_fft == f0 + int(route == "fft")
     want = invz_topk.invz_blockmax_reference(Dre, Dim, corr.MzRe,
                                              corr.MzIm, bias)
+    assert got.shape == want.shape == (b, Dre.shape[2], L // 32, L)
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(got))
     assert not torch.isnan(got).any()
     assert got[0, 3, 0, 5].item() == float("-inf")
     assert _rel(got[fin], want[fin]) <= 1e-4
+
+
+def test_k2_fft_refuses_what_it_does_not_take(cuda_device):
+    (Dre, Dim), corr, bias = _k2_inputs(cuda_device, 64, 2, 1, "random")
+    with pytest.raises(ValueError, match="not its matrix"):
+        invz_topk.invz_blockmax(Dre, Dim, corr.MzIm.clone(), corr.MzIm,
+                                bias)
+    flat = torch.empty(Dre.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(Dre.shape)            # 4-byte aligned only
+    with pytest.raises(ValueError, match="16-byte"):
+        invz_topk.invz_blockmax(shifted, Dim, corr.MzRe, corr.MzIm, bias)
 
 
 def _k3_args(dev, L, b, seed=0):

@@ -116,7 +116,7 @@ def test_represent_plain_biased_model_matches_flax():
 def test_folded_rank3_rep_fn_matches_jax():
     cfg = v9p_config().replace(coupling_rank=3, grid_size=32)
     sd = weights.params_from_numpy(v9p_flat())
-    pipe = DockingPipeline(cfg, params=sd)
+    pipe = DockingPipeline(cfg, params=sd, device="cpu")
     proj_rec, rep_fn = pipe._spectral_parts(pipe.params["coupling"])
     jp = jpipe.DockingPipeline(config=jax_config(cfg))
     jp.params = v9p_flax_params()
@@ -136,15 +136,18 @@ def test_rank_license_matches_jax():
                 == jpipe.coupling_deviation_capture(A, r, shape_prior=True))
     assert min_licensed_rank(A, shape_prior=True) == 3
     pipe = DockingPipeline(v9p_config().replace(coupling_rank=2),
-                           params=weights.params_from_numpy(v9p_flat()))
+                           params=weights.params_from_numpy(v9p_flat()),
+                           device="cpu")
     with pytest.warns(UserWarning, match="coupling_rank=2"):
         pipe._spectral_parts_uncached(pipe.params["coupling"])
 
 
 def test_init_params_seeded_and_shape_block():
     cfg = v9p_config()
-    a = DockingPipeline(cfg).init_params(torch.Generator().manual_seed(1))
-    b = DockingPipeline(cfg).init_params(torch.Generator().manual_seed(1))
+    a = DockingPipeline(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(1))
+    b = DockingPipeline(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(1))
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     # The untrained hybrid scores exactly shape complementarity.

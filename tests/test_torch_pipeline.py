@@ -49,7 +49,7 @@ def test_golden_shape_mode():
                      rotation_chunk=4, top_k=8, rep_features=(8,),
                      sweep_mode="resplat")
     cplx = synthetic_complex(seed=42, n_res_rec=10, n_res_lig=5)
-    poses = DockingPipeline(cfg).dock_complex(
+    poses = DockingPipeline(cfg, device="cpu").dock_complex(
         cplx, rotations=super_fibonacci_rotations(12), cluster=False)
     with open(os.path.join(ROOT, "tests", "golden_sweep_resplat.json")) as f:
         want = json.load(f)
@@ -69,7 +69,8 @@ def _learned_cfg(**kw):
 @pytest.fixture(scope="module")
 def learned_pair():
     cfg = _learned_cfg()
-    port = DockingPipeline(cfg, params=weights.params_from_numpy(v9p_flat()))
+    port = DockingPipeline(cfg, params=weights.params_from_numpy(v9p_flat()),
+                           device="cpu")
     ref = jpipe.DockingPipeline(config=jax_config(cfg))
     ref.params = v9p_flax_params()
     cplx = jbench.synthetic_complex(seed=5, n_res_rec=20, n_res_lig=8,
@@ -112,7 +113,8 @@ def test_engine_reuse_and_fused_topk_tail(learned_pair):
                                 cfg.sigma, port._receptive_field(),
                                 cfg.grid_size)
     mask = dock_score_mask(cfg, lig_c, max_shift=6.0,
-                           translation_center=np.array([2, -1, 0]))
+                           translation_center=np.array([2, -1, 0]),
+                           device="cpu")
     kw = dict(grid_size=cfg.grid_size, lig_grid=lig_grid,
               resolution=cfg.resolution, sigma=cfg.sigma, num_types=11,
               top_k=cfg.top_k, chunk=4, score_mask=mask,
@@ -224,7 +226,7 @@ def test_bench_complex_ligand_box_and_masks():
                                        128) == 32
     small = cfg.replace(grid_size=48)
     for kw in ({}, dict(max_shift=7.5, translation_center=[3, -2, 5])):
-        got = dock_score_mask(small, lig_c, **kw)
+        got = dock_score_mask(small, lig_c, device="cpu", **kw)
         want = jpipe.dock_score_mask(jax_config(small), j_lig, **kw)
         np.testing.assert_array_equal(np_(got), np_(want))
 
@@ -233,10 +235,12 @@ def test_unported_options_raise():
     cfg = DockConfig(grid_size=32, fft_impl="block")
     cplx = synthetic_complex(1, 10, 5)
     with pytest.raises(NotImplementedError):
-        DockingPipeline(cfg).dock_complex(cplx)
+        DockingPipeline(cfg, device="cpu").dock_complex(cplx)
     with pytest.raises(NotImplementedError):
         DockingPipeline(cfg.replace(fft_impl="dft_fused",
-                                    sweep_mode="resample")).dock_complex(cplx)
+                                    sweep_mode="resample"),
+                        device="cpu").dock_complex(cplx)
     with pytest.raises(NotImplementedError):
         DockingPipeline(cfg.replace(fft_impl="dft_fused", topk_impl="approx",
-                                    num_rotations=4)).dock_complex(cplx)
+                                    num_rotations=4),
+                        device="cpu").dock_complex(cplx)

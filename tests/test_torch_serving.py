@@ -42,7 +42,8 @@ def pair():
     cfg = v9p_config().replace(
         grid_size=32, num_rotations=14, rotation_chunk=4, top_k=8,
         coupling_rank=3, lig_grid_size=None)
-    port = DockingPipeline(cfg, params=weights.params_from_numpy(v9p_flat()))
+    port = DockingPipeline(cfg, params=weights.params_from_numpy(v9p_flat()),
+                           device="cpu")
     ref = jpipe.DockingPipeline(config=jax_config(cfg))
     ref.params = v9p_flax_params()
     cplx = jbench.synthetic_complex(seed=5, n_res_rec=20, n_res_lig=8,
@@ -180,7 +181,7 @@ def test_refine_reuses_docked_engine(pair):
     out = port.refine(cplx.receptor, cplx.ligand,
                       PoseSet(*(f[:2] for f in poses[:5])), steps=2)
     assert np.all(np.isfinite(out.scores))
-    svc = DockingService(port.config, port.params)
+    svc = DockingService(port.config, port.params, device="cpu")
     poses = svc.dock(cplx.receptor, cplx.ligand)
     prep, engine = svc.cached(cplx.receptor, cplx.ligand)
     assert not any(t.is_inference() for t in (engine[1], prep[2]))
@@ -212,9 +213,10 @@ def test_service_parity_with_pipeline():
     cplx = synthetic_complex(seed=8, n_res_rec=8, n_res_lig=4)
     for impl in ("dft_fused", "dft_pallas"):
         cfg = _cfg(fft_impl=impl)
-        a = DockingService(cfg).dock(cplx.receptor, cplx.ligand,
-                                     cluster=False)
-        b = DockingPipeline(cfg).dock_complex(cplx, cluster=False)
+        a = DockingService(cfg, device="cpu").dock(
+            cplx.receptor, cplx.ligand, cluster=False)
+        b = DockingPipeline(cfg, device="cpu").dock_complex(cplx,
+                                                           cluster=False)
         np.testing.assert_allclose(a.scores, b.scores, rtol=1e-5)
         np.testing.assert_array_equal(a.rot_idx, b.rot_idx)
 
@@ -222,7 +224,7 @@ def test_service_parity_with_pipeline():
 def test_service_receptor_cache_hits():
     c1 = synthetic_complex(seed=8, n_res_rec=8, n_res_lig=4)
     c2 = synthetic_complex(seed=9, n_res_rec=8, n_res_lig=4)
-    svc = DockingService(_cfg())
+    svc = DockingService(_cfg(), device="cpu")
     svc.dock(c1.receptor, c1.ligand, cluster=False)
     svc.dock(c1.receptor, c2.ligand, cluster=False)     # same receptor
     assert svc.stats == dict(entries=1, hits=1, misses=1)
@@ -233,14 +235,15 @@ def test_service_receptor_cache_hits():
 def test_service_key_sensitivity():
     """The key changes with structure, geometry and parameters."""
     c = synthetic_complex(seed=8, n_res_rec=8, n_res_lig=4)
-    svc = DockingService(_cfg())
+    svc = DockingService(_cfg(), device="cpu")
     k0 = svc.receptor_key(c.receptor)
-    assert DockingService(_cfg()).receptor_key(c.receptor) == k0
+    assert DockingService(_cfg(), device="cpu").receptor_key(
+        c.receptor) == k0
     moved = dataclasses.replace(c.receptor, coords=c.receptor.coords + 0.5)
     assert svc.receptor_key(moved) != k0
-    assert DockingService(_cfg(resolution=1.5)).receptor_key(
+    assert DockingService(_cfg(resolution=1.5), device="cpu").receptor_key(
         c.receptor) != k0
-    learned = DockingService(_cfg(rep_features=(8, 8)))
+    learned = DockingService(_cfg(rep_features=(8, 8)), device="cpu")
     learned.pipeline.init_params(torch.Generator().manual_seed(0))
     k1 = learned.receptor_key(c.receptor)
     assert k1 != k0
@@ -249,7 +252,7 @@ def test_service_key_sensitivity():
 
 
 def test_service_lru_eviction():
-    svc = DockingService(_cfg(), capacity=2)
+    svc = DockingService(_cfg(), device="cpu", capacity=2)
     cs = [synthetic_complex(seed=10 + s, n_res_rec=6, n_res_lig=3)
           for s in range(3)]
     for c in cs:
@@ -263,12 +266,12 @@ def test_service_lru_eviction():
 
 def test_service_rescore_through_cache():
     cplx = synthetic_complex(seed=8, n_res_rec=8, n_res_lig=4)
-    svc = DockingService(_cfg(fft_impl="dft_pallas"))
+    svc = DockingService(_cfg(fft_impl="dft_pallas"), device="cpu")
     poses = svc.dock(cplx.receptor, cplx.ligand)
     res = svc.rescore(cplx.receptor, cplx.ligand, poses, top=2, nrot=8)
     assert len(res) == len(poses)
     assert res.scores[0] >= poses.scores[0] - 1e-4
     assert svc.stats == dict(entries=1, hits=1, misses=1)
-    want = DockingPipeline(svc.pipeline.config).rescore(
+    want = DockingPipeline(svc.pipeline.config, device="cpu").rescore(
         cplx.receptor, cplx.ligand, poses, top=2, nrot=8)
     np.testing.assert_allclose(res.scores, want.scores, rtol=1e-5)
