@@ -12,14 +12,17 @@ phase that does not hold:
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes with a batch of 8 rotations (K1 on both routes:
    bf16 on the tensor-core kernel at the bench complex's box, at box 40
-   and at box 64, and the SIMT kernel in float32 and in bf16 at box 72;
-   K2 with a real translation mask, drill-down top-K, K3 on the summed
-   spectrum of the ``dft`` engine's forward half), plus the time of
-   each kernel and its plain version at the full batch of 128 (K1 also
-   on its SIMT kernel in bf16; K2 on its FFT kernel at L = 128 on the
-   bench complex's D and at L = 64, and on its dense kernel at L = 96;
-   both K2 kernels, timed in turns, held against plain at b = 128 and at
-   the rescore's b = 48 with 16 bias groups; the library call
+   and at box 64, and the SIMT kernel in float32, in bf16 at box 72 and
+   in float32 at box 96; K2 with a real translation mask, drill-down
+   top-K; K3 on the summed spectrum of the ``dft`` engine's forward
+   half, on its FFT kernel, and on random spectra at L = 64 (FFT) and
+   L = 96 (dense)), plus the time of each kernel and its plain version
+   at the full batch of 128 (K1 also on its SIMT kernel in bf16 and in
+   float32 at box 96; K2 on its FFT kernel at L = 128 on the bench
+   complex's D and at L = 64, and on its dense kernel at L = 96; both K2
+   kernels, timed in turns, held against plain at b = 128 and at the
+   rescore's b = 48 with 16 bias groups; both K3 kernels, timed in turns
+   and held against plain at b = 128, beside the library call
    ``torch.fft.ifft2`` that computes K3's function), with each kernel's
    bound at those shapes: the bytes its function must move or the
    operations of that function done as FFTs, whichever takes longer;
@@ -28,19 +31,24 @@ phase that does not hold:
    serves three ``DockingPipeline.dock`` requests, proving through the
    launch counters that K1 (every launch on the tensor-core kernel) and
    K2 (every launch on the FFT kernel) ran in each; then one request at
-   grid 96 runs K2's dense kernel;
+   grid 96 runs K2's dense kernel, and one float32 request at grid 128
+   with a ligand box of 96 runs K1's SIMT kernel;
 4. card against CPU: one request at grid 64, 256 rotations, once on CUDA
    tensors (kernels) and once on CPU tensors (plain versions), in
    float32 (top-K values within rtol 1e-3 and the same top-1 pose) and
-   in bf16 (top-K values within rtol 2e-2);
+   in bf16 (top-K values within rtol 2e-2); and the float32 box-96
+   request of phase 3 on the CPU (top-K within rtol 1e-3, same top-1);
 5. the screening slice: one ``DockingService`` on the same model with
    ``fft_impl="dft_pallas"`` docks the receptor of seed 0 against the
    ligands of seeds 0-2 (``dock`` then ``rescore(top=16, nrot=48)``
    each; the first also ``refine(steps=30)`` through the cached
-   engine), proving that K3 ran in every stage; then one ``rescore`` on
-   the main-path ``dft_fused`` engine, whose K2 must see 16 bias groups;
+   engine), proving that K3 ran in every stage, every launch on its FFT
+   kernel; then one ``dft_pallas`` dock at grid 96 on K3's dense kernel,
+   and one ``rescore`` on the main-path ``dft_fused`` engine, whose K2
+   must see 16 bias groups;
 6. card against CPU for that path: dock -> rescore -> refine at
-   float32, grid 64, 256 rotations, ``dft_pallas``.
+   float32, grid 64, 256 rotations, ``dft_pallas`` (K3 on its FFT
+   kernel).
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -54,6 +62,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROT_SERVE = 2048          # per request; the JAX bench sweeps 13,000
+N_ROT_BOX96 = 64            # the float32 box-96 request, also run on the CPU
 BENCH_ROTATIONS = 13000
 SEEDS = (0, 1, 2)
 TOL_F32 = 1e-4              # max |kernel - plain| <= TOL * max |plain|
@@ -217,10 +226,10 @@ def main():
                       corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm,
                       corr.UxRe, corr.UxIm, corr.UyRe, corr.UyIm)
 
-    def k1_random_inputs(b, box, C=3, seed=0):
-        """K1's bf16 arguments from random volumes and receptor grid."""
+    def k1_random_inputs(b, box, C=3, seed=0, dtype_name="bfloat16"):
+        """K1's arguments from random volumes and receptor grid."""
         g = torch.Generator().manual_seed(seed)
-        corr = get_correlator(L, box, "bfloat16", dev)
+        corr = get_correlator(L, box, dtype_name, dev)
         with torch.inference_mode():
             Hr = receptor_transform(torch.randn(L, L, L, C,
                                                 generator=g).to(dev))
@@ -290,6 +299,19 @@ def main():
         return (ere, eim, corr.UxRe32, corr.UxIm32, corr.UxRe32,
                 corr.UxIm32)
 
+    def k3_random_check(Lk, b=8, seed=0):
+        """((max abs err, rel err), route) of one K3 launch at grid Lk on
+        a random E, held against the plain version."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        corr = get_correlator(Lk, 16, "float32", dev)
+        args = [torch.randn((b, Lk, Lk, Lk), generator=g, device=dev)
+                for _ in range(2)] + [corr.UxRe32, corr.UxIm32] * 2
+        f0 = idft.launches_fft
+        got = idft.idft_bc(*args)
+        torch.cuda.synchronize()
+        route = "fft" if idft.launches_fft > f0 else "dense"
+        return rel_err(got, idft.idft_bc_reference(*args)), route
+
     # ---- phase 2: kernels against their plain versions ----
     errs, routes = {}, {}
     with torch.inference_mode():
@@ -303,6 +325,8 @@ def main():
         for box in (64, 72):
             key = f"k1_bf16_box{box}_random"
             errs[key], routes[key], _ = k1_check(k1_random_inputs(2, box))
+        errs["k1_f32_box96_random"], routes["k1_f32_box96_random"], _ = (
+            k1_check(k1_random_inputs(2, 96, dtype_name="float32")))
         f0 = invz_topk.launches_fft
         bk = invz_topk.invz_blockmax(D[0], D[1], corr32.MzRe, corr32.MzIm,
                                      bias)
@@ -327,17 +351,24 @@ def main():
         looked = torch.gather(S.reshape(S.shape[0], -1), 1, dflat)
         drill_idx_err = rel_err(looked, dv)
         k3_args = k3_inputs(8)
+        f0 = idft.launches_fft
         k3_got = idft.idft_bc(*k3_args)
         torch.cuda.synchronize()
+        check(idft.launches_fft == f0 + 1,
+              "K3 at L=128 did not launch its FFT kernel")
         errs["k3"] = rel_err(k3_got, idft.idft_bc_reference(*k3_args))
         del k3_args, k3_got
+        k3_routes = {}
+        for key, Lk in (("k3_fft_L64", 64), ("k3_dense_L96", 96)):
+            errs[key], k3_routes[key] = k3_random_check(Lk)
     emit("kernels_vs_plain", batch=8, L=L, Ls=Ls, C=3, K=L // 2 + 1,
          k1_float32_max_abs_err=errs["k1_float32"][0],
          k1_float32_rel_err=errs["k1_float32"][1],
          k1_bf16_max_abs_err=errs["k1_bfloat16"][0],
          k1_bf16_rel_err=errs["k1_bfloat16"][1],
          k1_more={k: dict(rel_err=v[1], max_abs_err=v[0], batch=2)
-                  for k, v in errs.items() if k.startswith("k1_bf16_")},
+                  for k, v in errs.items()
+                  if k.startswith(("k1_bf16_", "k1_f32_"))},
          k1_routes=routes,
          k2_fft_max_abs_err=errs["k2_fft"][0],
          k2_fft_rel_err=errs["k2_fft"][1],
@@ -346,37 +377,49 @@ def main():
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
          k3_max_abs_err=errs["k3"][0], k3_rel_err=errs["k3"][1],
+         k3_fft_L64_rel_err=errs["k3_fft_L64"][1],
+         k3_dense_L96_rel_err=errs["k3_dense_L96"][1], k3_routes=k3_routes,
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
-    check(errs["k1_float32"][1] <= TOL_F32, f"K1 float32 {errs}")
+    for key in ("k1_float32", "k1_f32_box96_random"):
+        check(errs[key][1] <= TOL_F32, f"K1 {key} {errs}")
     for key in ("k1_bfloat16", "k1_bf16_box40", "k1_bf16_box64_random",
                 "k1_bf16_box72_random"):
         check(errs[key][1] <= TOL_BF16, f"K1 {key} {errs}")
     check(routes == {"k1_float32": "simt", "k1_bfloat16": "tc",
                      "k1_bf16_box40": "tc", "k1_bf16_box64_random": "tc",
-                     "k1_bf16_box72_random": "simt"}, f"K1 routes {routes}")
+                     "k1_bf16_box72_random": "simt",
+                     "k1_f32_box96_random": "simt"}, f"K1 routes {routes}")
     for key in ("k2_fft", "k2_fft_L64", "k2_dense_L96"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
     check(k2_routes == {"k2_fft_L64": "fft", "k2_dense_L96": "dense"},
           f"K2 routes {k2_routes}")
-    check(errs["k3"][1] <= TOL_F32, f"K3 {errs}")
+    for key in ("k3", "k3_fft_L64", "k3_dense_L96"):
+        check(errs[key][1] <= TOL_F32, f"K3 {key} {errs}")
+    check(k3_routes == {"k3_fft_L64": "fft", "k3_dense_L96": "dense"},
+          f"K3 routes {k3_routes}")
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
           f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
 
-    def k2_both_routes(args):
-        """Both K2 kernels on ``args`` (bias ``[G, X, Y, Z]``), timed in
-        turns (dense, FFT, FFT, dense) on the same inputs, then each
-        output held against the plain version.  Returns (turns, plain ms,
-        {route: (max abs err, rel err)}, bound)."""
-        launch = {"dense": invz_topk._launch_dense,
-                  "fft": invz_topk._launch_fft}
+    def both_routes(launch, plain, args):
+        """A kernel's two routes (``launch``: route -> function) on
+        ``args``, timed in turns (dense, FFT, FFT, dense) on the same
+        inputs, then each output held against ``plain``.  Returns (turns,
+        plain ms, {route: (max abs err, rel err)}, plain's output)."""
         turns = {"dense": [], "fft": []}
         for route in ("dense", "fft", "fft", "dense"):
             turns[route].append(cuda_time_ms(lambda: launch[route](*args)))
-        plain_ms = cuda_time_ms(
-            lambda: invz_topk.invz_blockmax_reference(*args))
-        want = invz_topk.invz_blockmax_reference(*args)
+        plain_ms = cuda_time_ms(lambda: plain(*args))
+        want = plain(*args)
         route_errs = {r: rel_err(launch[r](*args), want) for r in launch}
+        return turns, plain_ms, route_errs, want
+
+    def k2_both_routes(args):
+        """Both K2 kernels on ``args`` (bias ``[G, X, Y, Z]``), as
+        ``both_routes``; returns (turns, plain ms, errors, bound)."""
+        turns, plain_ms, route_errs, _ = both_routes(
+            {"dense": invz_topk._launch_dense, "fft": invz_topk._launch_fft},
+            invz_topk.invz_blockmax_reference, args)
         # Both routes compute one function; its least work is the FFT's.
         Dre, bk = args[0], args[4]
         bb = Dre.shape[0]
@@ -414,9 +457,13 @@ def main():
         k2g_turns, k2g_plain_ms, k2g_errs, k2g_bound = k2_both_routes(
             (D16[0][:48], D16[1][:48], corr16.MzRe, corr16.MzIm, bias16))
         del D16, args16, bias16
+        # Both K3 kernels on the dft_pallas path's chunk.
         k3_args = k3_inputs(128)
-        k3_ms = cuda_time_ms(lambda: idft.idft_bc(*k3_args))
-        k3_plain_ms = cuda_time_ms(lambda: idft.idft_bc_reference(*k3_args))
+        k3_turns, k3_plain_ms, k3_errs, k3_want = both_routes(
+            {"dense": idft._launch_dense, "fft": idft._launch_fft},
+            idft.idft_bc_reference, k3_args)
+        k3_fft_ms = sum(k3_turns["fft"]) / 2
+        k3_dense_ms = sum(k3_turns["dense"]) / 2
 
         # The one PyTorch call that computes K3's function; never used by
         # the port, only its yardstick.
@@ -425,12 +472,21 @@ def main():
                                    dim=(1, 2)).real
 
         k3_library_ms = cuda_time_ms(k3_library)
-        k3_library_err = rel_err(k3_library(), idft.idft_bc(*k3_args))
-        # K3's function as FFTs: one along kx and one along ky per line.
+        k3_library_err = rel_err(k3_library(), k3_want)
+        # K3's function as FFTs: one along kx and one along ky per line;
+        # both routes share this bound.
         nvol = k3_args[0].numel()
         bounds["k3"] = bound((3 * nvol + 4 * L * L) * 4,
                              2 * (nvol // L) * fft_flops(L), "float32")
-        del k3_args
+        del k3_args, k3_want
+        # The SIMT K1 in float32 at box 96 (boxes it refused before its
+        # A slab left shared memory).
+        a96 = k1_random_inputs(128, 96, dtype_name="float32")
+        D96 = [torch.empty((128, L // 2 + 1, L, L), device=dev)
+               for _ in range(2)]
+        k1_simt_f32_box96_ms = cuda_time_ms(lambda: fused._launch_simt(
+            a96, tuple(a96[0].shape) + (L, L, L, L), *D96), reps=2)
+        del a96, D96
     emit("kernel_times", batch=128, dtype="bfloat16", Ls=Ls, k1_ms=k1_ms,
          k1_simt_ms=k1_simt_ms, k1_plain_ms=k1_plain_ms,
          k2_fft_ms=k2_fft_ms, k2_dense_ms=k2_dense_ms, k2_turns=k2_turns,
@@ -439,18 +495,24 @@ def main():
          k2_rescore=dict(batch=48, groups=16, turns=k2g_turns,
                          plain_ms=k2g_plain_ms, bound=k2g_bound,
                          rel_err={r: e[1] for r, e in k2g_errs.items()}),
-         k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_library_ms=k3_library_ms,
+         k1_simt_float32_box96_ms=k1_simt_f32_box96_ms,
+         k3_fft_ms=k3_fft_ms, k3_dense_ms=k3_dense_ms, k3_turns=k3_turns,
+         k3_rel_err={r: e[1] for r, e in k3_errs.items()},
+         k3_plain_ms=k3_plain_ms, k3_library_ms=k3_library_ms,
          k3_library_rel_err=k3_library_err[1], k3_dtype="float32",
          k3_library="torch.fft.ifft2(torch.complex(Ere, Eim), "
                     "dim=(1, 2)).real",
          bounds=bounds, peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                                "flops_per_s": PEAK_FLOPS},
-         timer="cuda events, mean of 5 after 1 warm-up", card=card)
+         timer="cuda events, mean of 5 after 1 warm-up (2 for the box-96 "
+               "SIMT K1)", card=card)
     check(k3_library_err[1] <= TOL_F32,
           f"torch.fft.ifft2 is not K3's function: {k3_library_err}")
     for shape, route_errs in (("b=128", k2_errs), ("b=48, G=16", k2g_errs)):
         for route, e in route_errs.items():
             check(e[1] <= TOL_F32, f"K2 {route} at {shape}: {e}")
+    for route, e in k3_errs.items():
+        check(e[1] <= TOL_F32, f"K3 {route} at b=128: {e}")
 
     # ---- phase 3: the slice serves three dock requests ----
     emit("serve_config", rotations_per_request=N_ROT_SERVE,
@@ -513,6 +575,30 @@ def main():
     check(dense_path["k2_launches"] > 0 and dense_path["k2_fft_launches"] == 0,
           f"grid-96 request: K2 did not run its dense kernel {dense_path}")
 
+    # One float32 request at grid 128 with a ligand box of 96, where K1
+    # runs its SIMT kernel; phase 4 runs the same request on the CPU.
+    cfg_box96 = serve_cfg.replace(compute_dtype="float32", dft_dtype="float32",
+                                  lig_grid_size=96, num_rotations=N_ROT_BOX96,
+                                  rotation_chunk=16)
+    pipe_box96 = DockingPipeline(cfg_box96, params=params, device=dev)
+    fused.launches = fused.launches_tc = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses_box96 = pipe_box96.dock_complex(cplx, cluster=False)
+    torch.cuda.synchronize()
+    box96 = dict(grid=L, lig_grid=96, dtype="float32",
+                 rotations=N_ROT_BOX96, chunk=16,
+                 wall_seconds=time.perf_counter() - t0,
+                 poses=len(poses_box96),
+                 top1_score=float(poses_box96.scores[0]),
+                 k1_launches=fused.launches,
+                 k1_tc_launches=fused.launches_tc)
+    emit("dock_request_box96", **box96)
+    check(len(poses_box96) > 0 and bool(np.isfinite(poses_box96.scores).all()),
+          f"box-96 request: no or non-finite poses {box96}")
+    check(box96["k1_launches"] > 0 and box96["k1_tc_launches"] == 0,
+          f"box-96 request: K1 did not run its SIMT kernel {box96}")
+
     # ---- phase 4: card against CPU at grid 64, float32 and bf16 ----
     cmp_cfg = serve_cfg.replace(grid_size=64, compute_dtype="float32",
                                 dft_dtype="float32", num_rotations=256)
@@ -558,6 +644,25 @@ def main():
         if dtype == "float32":
             check(top1_ok, "top-1 pose differs between card and CPU")
 
+    t0 = time.perf_counter()
+    cpu_box96 = DockingPipeline(cfg_box96, params=params,
+                                device="cpu").dock_complex(cplx, cluster=False)
+    g, w = poses_box96, cpu_box96
+    top1_ok = (int(g.rot_idx[0]) == int(w.rot_idx[0])
+               and list(g.shifts[0]) == list(w.shifts[0]))
+    emit("card_vs_cpu_box96", grid=L, lig_grid=96, rotations=N_ROT_BOX96,
+         dtype="float32", rtol=1e-3, cuda_seconds=box96["wall_seconds"],
+         cpu_seconds=time.perf_counter() - t0,
+         max_rel_diff=float(np.max(np.abs(np.sort(g.scores)
+                                           - np.sort(w.scores))
+                                    / np.abs(np.sort(w.scores)))),
+         top1_same=top1_ok,
+         top1_cuda=[int(g.rot_idx[0])] + [int(v) for v in g.shifts[0]],
+         top1_cpu=[int(w.rot_idx[0])] + [int(v) for v in w.shifts[0]])
+    check(np.allclose(np.sort(g.scores), np.sort(w.scores), rtol=1e-3,
+                      atol=0), "box-96: top-K values differ card vs CPU")
+    check(top1_ok, "box-96: top-1 pose differs between card and CPU")
+
     # ---- phase 5: the screening slice (DockingService, dft_pallas) ----
     screen_cfg = serve_cfg.replace(fft_impl="dft_pallas")
     svc = DockingService(screen_cfg, params, device=dev)
@@ -579,7 +684,7 @@ def main():
     def bf16_tol(scores):
         return TOL_BF16 * float(np.abs(scores).max())
 
-    idft.launches = 0
+    idft.launches = idft.launches_fft = 0
     dock_stats = {"hits": 0, "misses": 0}
     lig0 = None
     for seed in SEEDS:
@@ -620,11 +725,38 @@ def main():
                   "refine: a refined score fell below the initial ones")
         emit("screen_query", **rec)
     screen_launches = idft.launches
+    screen_fft_launches = idft.launches_fft
     emit("screen_service", dock_stats=dock_stats, stats=svc.stats,
-         k3_launches=screen_launches)
+         k3_launches=screen_launches, k3_fft_launches=screen_fft_launches)
     check(dock_stats == {"hits": 2, "misses": 1} and svc.misses == 1
           and svc.stats["entries"] == 1,
           f"service cache: docks {dock_stats}, all {svc.stats}")
+    check(screen_fft_launches == screen_launches > 0,
+          f"a grid-128 K3 launch missed the FFT kernel: {screen_launches} "
+          f"launches, {screen_fft_launches} FFT")
+
+    # One dft_pallas dock at grid 96, where K3 runs its dense kernel.
+    pipe96p = DockingPipeline(screen_cfg.replace(grid_size=96,
+                                                 num_rotations=256),
+                              params=params, device=dev)
+    idft.launches = idft.launches_fft = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses96p = pipe96p.dock_complex(cplx)
+    torch.cuda.synchronize()
+    k3_dense_path = dict(grid=96, rotations=256,
+                         wall_seconds=time.perf_counter() - t0,
+                         poses=len(poses96p),
+                         top1_score=float(poses96p.scores[0]),
+                         k3_launches=idft.launches,
+                         k3_fft_launches=idft.launches_fft)
+    emit("screen_dock_grid96", **k3_dense_path)
+    check(len(poses96p) > 0 and bool(np.isfinite(poses96p.scores).all()),
+          f"grid-96 dft_pallas dock: no or non-finite poses {k3_dense_path}")
+    check(k3_dense_path["k3_launches"] > 0
+          and k3_dense_path["k3_fft_launches"] == 0,
+          f"grid-96 dft_pallas dock: K3 did not run its dense kernel "
+          f"{k3_dense_path}")
 
     # One rescore on the main-path dft_fused engine: K2 takes the 16 head
     # masks as bias groups.
@@ -659,6 +791,7 @@ def main():
     # ---- phase 6: card against CPU on the dft_pallas path ----
     cmp6_cfg = cmp_cfg.replace(fft_impl="dft_pallas")
     out6 = {}
+    idft.launches = idft.launches_fft = 0
     for where in ("cuda", "cpu"):
         p = DockingPipeline(cmp6_cfg, params=params, device=where)
         t0 = time.perf_counter()
@@ -668,6 +801,7 @@ def main():
                      steps=5)
         out6[where] = (d, r, f, time.perf_counter() - t0)
     (gd, gr, gf, gs), (wd, wr, wf, ws) = out6["cuda"], out6["cpu"]
+    k3_cmp = (idft.launches, idft.launches_fft)
 
     def max_rel(a, b):
         return float(np.max(np.abs(np.sort(a) - np.sort(b))
@@ -681,7 +815,10 @@ def main():
          top1_cuda=[int(gd.rot_idx[0])] + [int(v) for v in gd.shifts[0]],
          top1_cpu=[int(wd.rot_idx[0])] + [int(v) for v in wd.shifts[0]],
          rescored_top1_cuda=[int(v) for v in gr.shifts[0]],
-         rescored_top1_cpu=[int(v) for v in wr.shifts[0]])
+         rescored_top1_cpu=[int(v) for v in wr.shifts[0]],
+         k3_launches=k3_cmp[0], k3_fft_launches=k3_cmp[1])
+    check(k3_cmp[0] > 0 and k3_cmp[1] == k3_cmp[0],
+          f"grid-64 dft_pallas: K3 launches {k3_cmp}, expected all FFT")
     check(np.allclose(np.sort(gd.scores), np.sort(wd.scores), rtol=1e-3,
                       atol=0), "dft_pallas dock: top-K differs card vs CPU")
     check(int(gd.rot_idx[0]) == int(wd.rot_idx[0])
@@ -710,7 +847,9 @@ def main():
          "max_abs_err": errs["k1_bfloat16"][0],
          "max_abs_err_float32": errs["k1_float32"][0],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
-         "ms": k1_ms, "simt_ms": k1_simt_ms, "plain_ms": k1_plain_ms,
+         "ms": k1_ms, "simt_ms": k1_simt_ms,
+         "simt_float32_box96_ms": k1_simt_f32_box96_ms,
+         "plain_ms": k1_plain_ms,
          "bound_ms": bounds["k1"]["bound_ms"],
          "bound_by": bounds["k1"]["bound_by"], "library_ms": None},
         {"name": "invz_blockmax_fft", "route": "cuda",
@@ -735,13 +874,29 @@ def main():
          "ms": k2_dense_ms, "plain_ms": k2_plain_ms,
          "bound_ms": bounds["k2"]["bound_ms"],
          "bound_by": bounds["k2"]["bound_by"], "library_ms": None},
+        {"name": "idft_fft", "route": "cuda",
+         "source": src + "idft_fft.cu",
+         "replaces": tpu + "pallas_idft.py:34",
+         "launches": screen_fft_launches,
+         "launches_path": "the screening service at grid 128 (phase 5)",
+         "max_abs_err": errs["k3"][0],
+         "max_abs_err_L64": errs["k3_fft_L64"][0],
+         "max_abs_err_b128": k3_errs["fft"][0],
+         "tolerance": f"float32 {TOL_F32} x max|plain|",
+         "ms": k3_fft_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": bounds["k3"]["bound_ms"],
+         "bound_by": bounds["k3"]["bound_by"],
+         "library_ms": k3_library_ms},
         {"name": "idft_bc", "route": "cuda",
          "source": src + "idft_bc.cu",
          "replaces": tpu + "pallas_idft.py:34",
-         "launches": screen_launches,
-         "max_abs_err": errs["k3"][0],
+         "launches": k3_dense_path["k3_launches"],
+         "launches_path": "one dft_pallas dock at grid 96 (K3's dense "
+                          "route)",
+         "max_abs_err": errs["k3_dense_L96"][0],
+         "max_abs_err_b128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "ms": k3_dense_ms, "plain_ms": k3_plain_ms,
          "bound_ms": bounds["k3"]["bound_ms"],
          "bound_by": bounds["k3"]["bound_by"],
          "library_ms": k3_library_ms}]}), flush=True)

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -35,6 +37,7 @@ _SIGNATURES = {
     "dlpd_invz_blockmax": [_P] * 6 + [_I] * 6 + [_P],
     "dlpd_invz_blockmax_fft": [_P] * 4 + [_I] * 5 + [_P],
     "dlpd_idft_bc": [_P] * 7 + [_I] * 2 + [_P],
+    "dlpd_idft_fft": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 
@@ -122,3 +125,22 @@ def check_tensors(what: str, device, dtype, specs) -> None:
                              f"{tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def check_matrix(what: str, seen, name: str, t, tag: str, want) -> None:
+    """Raise unless ``t`` holds the float32 matrix ``want`` (to 1e-7): a
+    kernel that computes with ``want`` and never reads ``t`` must not be
+    handed another one.  ``seen`` (a ``WeakIdKeyDictionary``) records,
+    under ``tag``, the tensors found equal, so each is compared once."""
+    if seen.get(t) == tag:
+        return
+    w = torch.as_tensor(want).to(t.device)
+    if t.shape != w.shape or not torch.allclose(t, w, rtol=0, atol=1e-7):
+        raise ValueError(f"{what}, and {name} is not its matrix at "
+                         f"L={w.shape[-1]}")
+    seen[t] = tag
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a C pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream

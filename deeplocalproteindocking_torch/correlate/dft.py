@@ -37,6 +37,13 @@ def _twiddle(pos: np.ndarray, freqs: np.ndarray, L: int, sign: float,
     return re, im
 
 
+def inverse_dft(L: int):
+    """``U (re, im) [L, L]`` float32, ``U[k, x] = e^{+2 pi i k x / L} / L``:
+    the inverse DFT along x or y as a matrix (k, position)."""
+    kf = np.arange(L)
+    return _twiddle(kf, kf, L, +1.0, scale=1.0 / L)
+
+
 def hermitian_inverse_z(L: int):
     """``Mz (re, im) [L//2+1, L]`` float32: the c2r inverse along kz
     (``irfft`` with its 1/L) as a matrix, Hermitian weights 1, 2, ..., 2,
@@ -67,7 +74,7 @@ class DFTCorrelator:
         kh = np.arange(L // 2 + 1)
         WxRe, WxIm = _twiddle(pos, kf, L, -1.0)
         WzRe, WzIm = _twiddle(pos, kh, L, -1.0)
-        UxRe, UxIm = _twiddle(kf, kf, L, +1.0, scale=1.0 / L)
+        UxRe, UxIm = inverse_dft(L)
         mzre, mzim = hermitian_inverse_z(L)
 
         def dev(a, dt=dtype):

@@ -20,7 +20,8 @@ from dtype and shapes alone:
   of 16 up to 128 -- the main path.  Its twiddles go in the layouts of
   :func:`tc_operands`.
 - ``"simt"`` (``csrc/fused_correlate.cu``): float32 FMA loops, for
-  float32 and every other shape up to L = 128.
+  float32 and every other shape up to L = 128.  Its shared memory
+  (:func:`simt_smem_bytes`) does not grow with the ligand box's area.
 
 A CUDA tensor never falls back: the routed kernel launches or the call
 raises.
@@ -35,6 +36,8 @@ from deeplocalproteindocking_torch.correlate._contract import cmm
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_L = 128
 _TC_MAX_BOX = 64
+_SIMT_JT = 8                   # the SIMT kernel's j rows per tile (kJT)
+SMEM_OPTIN_BYTES = 232_448     # shared memory a Hopper block may opt in to
 
 # Kernel launches since the last reset (the main path's proof of use):
 # every K1 launch, and those of the tensor-core kernel alone.
@@ -86,16 +89,35 @@ def tc_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
             UyIm.T.contiguous())
 
 
+def simt_smem_bytes(X, I, Xp, Yp, dtype) -> int:
+    """Dynamic shared memory of one SIMT-kernel block (``smem_bytes`` in
+    ``csrc/fused_correlate.cu``): the float32 D accumulator ``[X', Y']``
+    (re, im) and the B, G, C and Uy tiles of 8 rows in the operand
+    dtype.  The ligand slab A is read from device memory, so only X of
+    the box counts."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return 2 * 4 * Xp * Yp + 2 * elt * _SIMT_JT * (X + I + Xp + Yp)
+
+
 def _launch_simt(args, dims, Dre, Dim):
     """``csrc/fused_correlate.cu`` on ``args`` as :func:`fused_correlate`
-    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``."""
+    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``.  Raises before
+    the launch if a block would need more shared memory than Hopper
+    gives one."""
     global launches
+    _, _, _, X, _, _, I, Xp, Yp = dims
+    smem = simt_smem_bytes(X, I, Xp, Yp, args[0].dtype)
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"fused_correlate: the SIMT kernel needs {smem} B of shared "
+            f"memory per block at X={X}, I={I}, X'={Xp}, Y'={Yp}, more "
+            f"than the {SMEM_OPTIN_BYTES} B a block may have")
     dev = args[0].device
     with torch.cuda.device(dev):
         err = _build.library().dlpd_fused_correlate(
             _KERNEL_DTYPES[args[0].dtype], *(t.data_ptr() for t in args),
             Dre.data_ptr(), Dim.data_ptr(), *dims,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _build.stream(args[0]))
     _build.check(err, "fused_correlate")
     launches += 1
 
@@ -109,7 +131,7 @@ def _launch_tc(args, dims, Dre, Dim):
     with torch.cuda.device(dev):
         err = _build.library().dlpd_fused_correlate_tc(
             *(t.data_ptr() for t in ops), Dre.data_ptr(), Dim.data_ptr(),
-            *dims, torch.cuda.current_stream(dev).cuda_stream)
+            *dims, _build.stream(args[0]))
     _build.check(err, "fused_correlate_tc")
     launches += 1
     launches_tc += 1

@@ -10,14 +10,27 @@ Port of ``deeplocalproteindocking_tpu/correlate/pallas_idft.py``
 
 all complex products as four real float32 contractions, with float32
 twiddles whatever the correlator's operand dtype, as the TPU kernel
-takes them.  :func:`idft_bc` launches the hand-written CUDA kernel
-(``csrc/idft_bc.cu``) for CUDA tensors and runs the plain version
-:func:`idft_bc_reference` for CPU tensors; a CUDA tensor never falls
-back.
+takes them.  :func:`idft_bc` runs the plain version
+:func:`idft_bc_reference` for CPU tensors and launches one of two
+hand-written CUDA kernels for CUDA tensors, chosen by :func:`k3_route`
+from the grid size L alone:
+
+- ``"fft"`` (``csrc/idft_fft.cu``), L = 64 or 128 -- the screening
+  path: ``Ux`` and ``Uy`` are the inverse DFT matrix
+  (:func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft`), so
+  the kernel computes passes B and C as a complex FFT along ky and a c2r
+  along kx and never reads them; the wrapper checks once per tensor that
+  they are that matrix.
+- ``"dense"`` (``csrc/idft_bc.cu``), every other L: the two contractions
+  as float32 FMA loops.
+
+A CUDA tensor never falls back: the routed kernel launches or the call
+raises.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from deeplocalproteindocking_torch import _build
 from deeplocalproteindocking_torch.correlate._contract import cmm, mm
@@ -25,9 +38,16 @@ from deeplocalproteindocking_torch.correlate._contract import cmm, mm
 TX = 8          # x rows per block (the TPU kernel's TX)
 KYB = 16        # ky block (the TPU kernel's KYB)
 _MAX_L = 128
+FFT_GRIDS = (64, 128)
 
-# Kernel launches since the last reset (the main path's proof of use).
+# Kernel launches since the last reset (the main path's proof of use):
+# every K3 launch, and those of the FFT kernel alone.
 launches = 0
+launches_fft = 0
+
+# Twiddle tensors found to be the inverse DFT matrix ("Re" or "Im"),
+# checked once each.
+_idft_checked = WeakIdKeyDictionary()
 
 
 def _check_grid(L: int) -> None:
@@ -51,6 +71,71 @@ def idft_bc_reference(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
     return mm("bxjz,jy->bxyz", fre, UyRe) - mm("bxjz,jy->bxyz", fim, UyIm)
 
 
+def k3_route(L: int) -> str:
+    """``"fft"`` or ``"dense"``: the kernel K3 launches for CUDA tensors
+    at grid size ``L``."""
+    return "fft" if L in FFT_GRIDS else "dense"
+
+
+def require_idft(UxRe, UxIm, UyRe, UyIm) -> None:
+    """Raise unless ``Ux`` and ``Uy`` are
+    :func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft` of
+    their L, the matrix the FFT kernel applies.  Each tensor is compared
+    once."""
+    # dft imports this module (pallas_inverse): import it at call time.
+    from deeplocalproteindocking_torch.correlate.dft import inverse_dft
+    named = (("UxRe", UxRe, "Re"), ("UxIm", UxIm, "Im"), ("UyRe", UyRe, "Re"),
+             ("UyIm", UyIm, "Im"))
+    if all(_idft_checked.get(t) == part for _, t, part in named):
+        return
+    want = dict(zip(("Re", "Im"), inverse_dft(UxRe.shape[-1])))
+    for name, t, part in named:
+        _build.check_matrix("idft_bc: the FFT route computes the inverse DFT "
+                            "along x and y", _idft_checked, name, t, part,
+                            want[part])
+
+
+def _launch_dense(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
+    """``csrc/idft_bc.cu`` on checked tensors."""
+    global launches
+    B, L = Ere.shape[0], Ere.shape[1]
+    S = torch.empty((B, L, L, L), dtype=torch.float32, device=Ere.device)
+    with torch.cuda.device(Ere.device):
+        err = _build.library().dlpd_idft_bc(
+            Ere.data_ptr(), Eim.data_ptr(), UxRe.data_ptr(), UxIm.data_ptr(),
+            UyRe.data_ptr(), UyIm.data_ptr(), S.data_ptr(), B, L,
+            _build.stream(Ere))
+    _build.check(err, "idft_bc")
+    launches += 1
+    return S
+
+
+def _launch_fft(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
+    """``csrc/idft_fft.cu`` on checked tensors; ``Ux``/``Uy`` must be
+    the inverse DFT matrix (they are not read).  The kernel's scratch,
+    the folded half spectrum ``h (re, im) [B, L/2+1, L, L]``, is
+    allocated here."""
+    global launches, launches_fft
+    B, L = Ere.shape[0], Ere.shape[1]
+    if L not in FFT_GRIDS:
+        raise ValueError(f"idft_bc: the FFT kernel takes L in {FFT_GRIDS}, "
+                         f"got L={L}")
+    if Ere.data_ptr() % 16 or Eim.data_ptr() % 16:
+        raise ValueError("idft_bc: the FFT kernel needs E 16-byte aligned")
+    require_idft(UxRe, UxIm, UyRe, UyIm)
+    S = torch.empty((B, L, L, L), dtype=torch.float32, device=Ere.device)
+    h = torch.empty((2, B, L // 2 + 1, L, L), dtype=torch.float32,
+                    device=Ere.device)
+    with torch.cuda.device(Ere.device):
+        err = _build.library().dlpd_idft_fft(
+            Ere.data_ptr(), Eim.data_ptr(), h[0].data_ptr(), h[1].data_ptr(),
+            S.data_ptr(), B, L, _build.stream(Ere))
+    _build.check(err, "idft_fft")
+    launches += 1
+    launches_fft += 1
+    return S
+
+
 def idft_bc(Ere: torch.Tensor, Eim: torch.Tensor, UxRe: torch.Tensor,
             UxIm: torch.Tensor, UyRe: torch.Tensor, UyIm: torch.Tensor
             ) -> torch.Tensor:
@@ -63,7 +148,6 @@ def idft_bc(Ere: torch.Tensor, Eim: torch.Tensor, UxRe: torch.Tensor,
         return idft_bc_reference(Ere, Eim, UxRe, UxIm, UyRe, UyIm)
     if Ere.device.type != "cuda":
         raise ValueError(f"idft_bc: no kernel for device {Ere.device}")
-    global launches
     if L > _MAX_L:
         raise ValueError(f"idft_bc: kernel takes L <= {_MAX_L}, got {L}")
     vol, tw = (B, L, L, L), (L, L)
@@ -71,16 +155,8 @@ def idft_bc(Ere: torch.Tensor, Eim: torch.Tensor, UxRe: torch.Tensor,
         "idft_bc", Ere.device, torch.float32,
         (("Ere", Ere, vol), ("Eim", Eim, vol), ("UxRe", UxRe, tw),
          ("UxIm", UxIm, tw), ("UyRe", UyRe, tw), ("UyIm", UyIm, tw)))
-    S = torch.empty(vol, dtype=torch.float32, device=Ere.device)
-    lib = _build.library()
-    with torch.cuda.device(Ere.device):
-        err = lib.dlpd_idft_bc(
-            Ere.data_ptr(), Eim.data_ptr(), UxRe.data_ptr(), UxIm.data_ptr(),
-            UyRe.data_ptr(), UyIm.data_ptr(), S.data_ptr(), B, L,
-            torch.cuda.current_stream(Ere.device).cuda_stream)
-    _build.check(err, "idft_bc")
-    launches += 1
-    return S
+    launch = _launch_fft if k3_route(L) == "fft" else _launch_dense
+    return launch(Ere, Eim, UxRe, UxIm, UyRe, UyIm)
 
 
 def _inverse(passes_bc, gre, gim, UxRe, UxIm, UyRe, UyIm, MzRe, MzIm):

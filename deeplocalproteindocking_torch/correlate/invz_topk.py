@@ -87,20 +87,11 @@ def require_c2r(MzRe: torch.Tensor, MzIm: torch.Tensor) -> None:
     function the FFT kernel computes.  Each tensor is compared once."""
     if _c2r_checked.get(MzRe) == "Re" and _c2r_checked.get(MzIm) == "Im":
         return
-    L = MzRe.shape[-1]
     for part, t, want in zip(("Re", "Im"), (MzRe, MzIm),
-                             hermitian_inverse_z(L)):
-        want = torch.as_tensor(want).to(t.device)
-        if t.shape != want.shape or not torch.allclose(t, want, rtol=0,
-                                                       atol=1e-7):
-            raise ValueError(
-                f"invz_blockmax: the FFT route computes the c2r inverse "
-                f"along kz, and Mz{part} is not its matrix at L={L}")
-        _c2r_checked[t] = part
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+                             hermitian_inverse_z(MzRe.shape[-1])):
+        _build.check_matrix("invz_blockmax: the FFT route computes the c2r "
+                            "inverse along kz", _c2r_checked, "Mz" + part, t,
+                            part, want)
 
 
 def _launch_dense(Dre, Dim, MzRe, MzIm, bias):
@@ -117,7 +108,7 @@ def _launch_dense(Dre, Dim, MzRe, MzIm, bias):
         err = _build.library().dlpd_invz_blockmax(
             Dre.data_ptr(), Dim.data_ptr(), MzRe.data_ptr(),
             MzIm.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, K, X, Y, Z, G, _stream(Dre))
+            b, K, X, Y, Z, G, _build.stream(Dre))
     _build.check(err, "invz_blockmax")
     launches += 1
     return out
@@ -141,7 +132,7 @@ def _launch_fft(Dre, Dim, MzRe, MzIm, bias):
     with torch.cuda.device(Dre.device):
         err = _build.library().dlpd_invz_blockmax_fft(
             Dre.data_ptr(), Dim.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, X, Y, L, G, _stream(Dre))
+            b, X, Y, L, G, _build.stream(Dre))
     _build.check(err, "invz_blockmax_fft")
     launches += 1
     launches_fft += 1

@@ -1,0 +1,189 @@
+// Shared pieces of the FFT kernels (invz_blockmax_fft.cu, idft_fft.cu):
+// complex float32 helpers, inverse DFTs of 4, 8 and 16 points in
+// registers, cp.async copies, and the c2r inverse of length L = 64 or 128
+// down the rows of a shared-memory tile of 32 columns.
+#pragma once
+
+#include "common.cuh"
+
+namespace dlpd {
+namespace {
+
+constexpr int kCols = 32;   // columns of an FFT tile: one lane each
+
+struct cf {
+  float re, im;
+};
+__device__ __forceinline__ cf operator+(cf a, cf b) {
+  return {a.re + b.re, a.im + b.im};
+}
+__device__ __forceinline__ cf operator-(cf a, cf b) {
+  return {a.re - b.re, a.im - b.im};
+}
+__device__ __forceinline__ cf cmul(cf a, float2 w) {
+  return {a.re * w.x - a.im * w.y, a.re * w.y + a.im * w.x};
+}
+__device__ __forceinline__ cf times_i(cf a) { return {-a.im, a.re}; }
+__device__ __forceinline__ cf cconj(cf a) { return {a.re, -a.im}; }
+
+// In-place inverse DFTs (sign +, no scaling), natural order in and out.
+__device__ __forceinline__ void idft4(cf& a0, cf& a1, cf& a2, cf& a3) {
+  const cf t0 = a0 + a2, t1 = a0 - a2, t2 = a1 + a3, t3 = times_i(a1 - a3);
+  a0 = t0 + t2;
+  a2 = t0 - t2;
+  a1 = t1 + t3;
+  a3 = t1 - t3;
+}
+
+template <int N>
+__device__ __forceinline__ void idft(cf* v);
+
+template <>
+__device__ __forceinline__ void idft<4>(cf* v) {
+  idft4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void idft<8>(cf* v) {
+  cf e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  cf o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+  idft4(e0, e1, e2, e3);
+  idft4(o0, o1, o2, o3);
+  constexpr float r = 0.70710678118654752f;
+  o1 = {r * (o1.re - o1.im), r * (o1.re + o1.im)};      // x e^{i pi/4}
+  o2 = times_i(o2);                                     // x e^{i pi/2}
+  o3 = {-r * (o3.re + o3.im), r * (o3.re - o3.im)};     // x e^{3i pi/4}
+  v[0] = e0 + o0;
+  v[4] = e0 - o0;
+  v[1] = e1 + o1;
+  v[5] = e1 - o1;
+  v[2] = e2 + o2;
+  v[6] = e2 - o2;
+  v[3] = e3 + o3;
+  v[7] = e3 - o3;
+}
+
+// Two inverse DFTs of 8 (even and odd inputs), then the radix-2 step with
+// the twiddles e^{+2 pi i n / 16}.
+template <>
+__device__ __forceinline__ void idft<16>(cf* v) {
+  cf e[8], o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    e[j] = v[2 * j];
+    o[j] = v[2 * j + 1];
+  }
+  idft<8>(e);
+  idft<8>(o);
+  constexpr float c1 = 0.92387953251128676f;   // cos(pi/8)
+  constexpr float s1 = 0.38268343236508977f;   // sin(pi/8)
+  constexpr float r = 0.70710678118654752f;
+  const float2 w[8] = {{1.f, 0.f}, {c1, s1}, {r, r},   {s1, c1},
+                       {0.f, 1.f}, {-s1, c1}, {-r, r}, {-c1, s1}};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const cf t = cmul(o[n], w[n]);
+    v[n] = e[n] + t;
+    v[n + 8] = e[n] - t;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* smem_dst,
+                                           const float* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `pending` (< 4) of this thread's copy groups are in
+// flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  }
+}
+
+// e^{+2 pi i j / L} for j < L into `tw`, one sincospif per thread.
+template <int L>
+__device__ __forceinline__ void fill_twiddles(float2* tw) {
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    float s, c;
+    sincospif(2.0f * j / L, &s, &c);
+    tw[j] = make_float2(c, s);
+  }
+}
+
+// The c2r inverse of length L (64 or 128) down the columns of a shared
+// tile: rows re/im [L/2 + 1][kCols] hold the half spectrum X[k] of kCols
+// sequences, one per lane.  Called by all 8 warps of the block, after a
+// barrier that made the rows and `tw` (fill_twiddles<L>) visible.
+//
+//  1. Pack: the c2r of length L is a complex inverse FFT of length
+//     M = L/2 on Z[k] = (X[k] + conj X[M-k]) + i e^{+2 pi i k/L}
+//     (X[k] - conj X[M-k]); its output z[n] holds L (s[2n] + i s[2n+1]),
+//     s = irfft(X) with its 1/L.  X[0] and X[M] count by their real parts
+//     only, as irfft and a dense Hermitian matrix (sine row 0) take them.
+//  2. M = P x Q with P = 8: warp k2 (< Q) takes Z[Q k1 + k2] over k1, a
+//     radix-8 inverse DFT in registers, then the twiddle
+//     e^{+2 pi i k2 n1 / M}; the results go back to shared memory in
+//     place (row n1 Q + k2).  Warp n1 then takes the Q entries of row
+//     block n1, a radix-Q (8 or 4) inverse DFT in registers.
+//
+// On return warp n1 holds u[n2] = z[n1 + 8 n2] for its lane's column; the
+// rows are overwritten, and a barrier must precede their next writes.
+template <int L>
+__device__ __forceinline__ void c2r_columns(float* re, float* im,
+                                            const float2* tw,
+                                            cf (&u)[L / 16]) {
+  constexpr int M = L / 2, P = 8, Q = M / P;
+  static_assert(Q == 4 || Q == 8, "L must be 64 or 128");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  cf v[P];
+  const int k2 = warp;
+  if (k2 < Q) {
+#pragma unroll
+    for (int k1 = 0; k1 < P; ++k1) {
+      const int k = Q * k1 + k2;
+      cf a = {re[k * kCols + lane], im[k * kCols + lane]};
+      cf m = {re[(M - k) * kCols + lane], im[(M - k) * kCols + lane]};
+      if (k == 0) {        // X[0], X[M]: real parts only
+        a.im = 0.f;
+        m.im = 0.f;
+      }
+      const cf s = a + cconj(m), d = a - cconj(m);
+      v[k1] = s + times_i(cmul(d, tw[k]));
+    }
+    idft<P>(v);
+#pragma unroll
+    for (int n1 = 1; n1 < P; ++n1) {
+      v[n1] = cmul(v[n1], tw[(2 * k2 * n1) % L]);   // e^{2 pi i k2 n1/M}
+    }
+  }
+  __syncthreads();
+  if (k2 < Q) {
+#pragma unroll
+    for (int n1 = 0; n1 < P; ++n1) {
+      re[(n1 * Q + k2) * kCols + lane] = v[n1].re;
+      im[(n1 * Q + k2) * kCols + lane] = v[n1].im;
+    }
+  }
+  __syncthreads();
+
+  const int n1 = warp;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    u[j] = {re[(n1 * Q + j) * kCols + lane], im[(n1 * Q + j) * kCols + lane]};
+  }
+  idft<Q>(u);
+}
+
+}  // namespace
+}  // namespace dlpd

@@ -30,9 +30,14 @@
 // G accumulators in registers (F never exists as a whole), rounds G into
 // shared memory, forms C[jt,:], and adds C[jt,:]^T Uy[jt,:] into a D
 // accumulator that lives in dynamic shared memory (re + im float32,
-// 128 KB at L=128).  Twiddles and the H slice of the current k are read
-// from global memory, where they stay L2-resident across the grid: the
-// grid's fastest axis is b, so consecutive blocks share H[k].
+// 128 KB at L=128).  The ligand slab A[c] (X*Y elements) is read by the
+// forward-y loop straight from device memory through the read-only cache,
+// not staged, so shared memory does not grow with the box: at L = 128 it
+// is 131,072 + 2 * elt * (8 X + 3 * 8 * 128) B, at most 163,840 B (float32,
+// X = 128), under the 232,448 B a block may opt in to, for every box in
+// both types.  Twiddles and the H slice of the current k are read from
+// global memory, where they stay L2-resident across the grid: the grid's
+// fastest axis is b, so consecutive blocks share H[k].
 #include <cstdint>
 
 #include "common.cuh"
@@ -63,9 +68,7 @@ fused_correlate_kernel(const T* __restrict__ Are, const T* __restrict__ Aim,
   extern __shared__ __align__(16) unsigned char smem[];
   float* d_re = reinterpret_cast<float*>(smem);      // [Xp*Yp]
   float* d_im = d_re + Xp * Yp;
-  T* a_re = reinterpret_cast<T*>(d_im + Xp * Yp);    // [X*Y]
-  T* a_im = a_re + X * Y;
-  T* b_re = a_im + X * Y;                            // [X*kJT]
+  T* b_re = reinterpret_cast<T*>(d_im + Xp * Yp);    // [X*kJT]
   T* b_im = b_re + X * kJT;
   T* g_re = b_im + X * kJT;                          // [kJT*I]
   T* g_im = g_re + kJT * I;
@@ -89,21 +92,18 @@ fused_correlate_kernel(const T* __restrict__ Are, const T* __restrict__ Aim,
     for (int r = 0; r < kGPerThread; ++r) gr[r] = gi[r] = 0.f;
 
     for (int c = 0; c < C; ++c) {
-      __syncthreads();  // a_s / b_s of the previous channel are consumed
+      __syncthreads();  // b_s of the previous channel is consumed
       const T* ar = Are + a_base + static_cast<size_t>(c) * X * Y;
       const T* ai = Aim + a_base + static_cast<size_t>(c) * X * Y;
-      for (int o = tid; o < X * Y; o += kThreads) {
-        a_re[o] = ar[o];
-        a_im[o] = ai[o];
-      }
-      __syncthreads();
-      // Forward y: B[x, jj] = sum_y A[x, y] Wy[y, j0 + jj], rounded to T.
+      // Forward y: B[x, jj] = sum_y A[x, y] Wy[y, j0 + jj], rounded to T;
+      // A through the read-only cache (the kJT threads of one x share
+      // each element).
       for (int o = tid; o < X * jn; o += kThreads) {
         const int x = o / jn, jj = o % jn;
         float sr = 0.f, si = 0.f;
         for (int y = 0; y < Y; ++y) {
-          const float p = to_f32(a_re[x * Y + y]);
-          const float q = to_f32(a_im[x * Y + y]);
+          const float p = ldg_f32(ar + x * Y + y);
+          const float q = ldg_f32(ai + x * Y + y);
           const float wr = to_f32(WyRe[y * J + j0 + jj]);
           const float wi = to_f32(WyIm[y * J + j0 + jj]);
           sr = fmaf(p, wr, fmaf(-q, wi, sr));
@@ -193,12 +193,10 @@ fused_correlate_kernel(const T* __restrict__ Are, const T* __restrict__ Aim,
   }
 }
 
-size_t smem_bytes(int X, int Y, int I, int Xp, int Yp, size_t elt) {
+// Mirrored by fused.simt_smem_bytes in Python.
+size_t smem_bytes(int X, int I, int Xp, int Yp, size_t elt) {
   return 2 * sizeof(float) * static_cast<size_t>(Xp) * Yp +
-         2 * elt *
-             (static_cast<size_t>(X) * Y + static_cast<size_t>(X) * kJT +
-              static_cast<size_t>(kJT) * I + static_cast<size_t>(kJT) * Xp +
-              static_cast<size_t>(kJT) * Yp);
+         2 * elt * static_cast<size_t>(kJT) * (X + I + Xp + Yp);
 }
 
 template <typename T>
@@ -211,7 +209,7 @@ int launch(const void* Are, const void* Aim, const void* Hre, const void* Him,
   if (I > kMaxI || K > 65535 || C < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(X, Y, I, Xp, Yp, sizeof(T));
+  const size_t smem = smem_bytes(X, I, Xp, Yp, sizeof(T));
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);

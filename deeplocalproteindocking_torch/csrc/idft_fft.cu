@@ -1,0 +1,253 @@
+// K3, FFT route: passes B and C of the inverse DFT as a complex FFT along
+// ky and a c2r along kx, for L = 64 and 128.
+//
+// Replaces the TPU kernel `_idft_bc_kernel` / `pallas_inverse` in
+// deeplocalproteindocking_tpu/correlate/pallas_idft.py, computing the same
+// function as csrc/idft_bc.cu on the same inputs and output:
+//
+//   S[b, x, y, z] = Re sum_kx sum_ky Ux[kx, x] Uy[ky, y] E[b, kx, ky, z]
+//
+// with Ux = Uy the inverse DFT matrix (1/L) e^{+2 pi i k x / L}, i.e.
+// S = Re ifft2(E) over (kx, ky).  The wrapper (correlate/idft.py) routes
+// here only with that matrix, which this kernel therefore never reads.
+//
+// Why two passes compute it.  Pass 1 takes the complex inverse FFT along
+// ky, g[kx, y] = (1/L) sum_ky e^{+2 pi i ky y / L} E[kx, ky], and folds
+// each kx with L - kx: h[kx] = (g[kx] + conj g[L - kx]) / 2 for kx <= L/2.
+// h is Hermitian along kx and its c2r along kx is Re ifft_kx(g), so pass 2
+// is a c2r of length L along kx (fft.cuh, the core of K2's FFT route) with
+// no bias and no max, writing all L rows of S.
+//
+// What bounds it on the H100: bytes.  At the dft_pallas path's chunk
+// (b = 128, L = 128) the function reads E (2.147 GB) and writes S
+// (1.074 GB): 3.22 GB / 3.35 TB/s = 0.962 ms; done as FFTs it is 18.8
+// GFLOP, 0.28 ms at the float32 peak.  This design also writes h and reads
+// it back (1.091 GB each way): 5.40 GB, 1.61 ms.  (idft_bc.cu computes the
+// same function as two dense contractions, 412 GFLOP on the CUDA cores.)
+//
+// Design.  Both passes keep lane = z (32-wide runs of the contiguous axis),
+// so every global and shared access is one 128 B row per warp and the FFTs
+// run down the columns of shared-memory tiles.
+//  Pass 1: one block of 8 warps per (z run, kx pair {kx, L - kx},
+//   rotation): 4 x 65 x b blocks at L = 128.  Both kx planes' [ky][32]
+//   rows (re, im; 64 KB at L = 128) arrive by cp.async.  L = P x 8 with
+//   P = 16 (L = 128) or 8 (L = 64): a task (plane, k2) takes rows 8 k1 + k2
+//   over k1, a radix-P inverse DFT in registers, the twiddle
+//   e^{+2 pi i k2 n1 / L}, and writes back in place (row 8 n1 + k2: the
+//   task's own rows, so tasks need no barrier between them).  After one
+//   barrier warp w takes row blocks n1 = w (and w + 8) of both planes, a
+//   radix-8 inverse DFT each giving g[n1 + P n2], folds the two planes in
+//   registers and stores h rows.  kx = 0 and L/2 fold with themselves (one
+//   plane, one FFT).
+//  Pass 2: one block per (z run, y, pair of rotations), as K2's FFT route:
+//   both rotations' h rows [L/2 + 1][32] (33 KB) by cp.async at once; the
+//   c2r leaves z[n] = L (S[2n] + i S[2n+1]) in warp n % 8, stored straight
+//   from registers as 128 B rows of S.
+// Scaling: 1/(2L) in pass 1 (the ky inverse and the fold's half), 1/L in
+// pass 2.  Twiddles e^{+2 pi i j / L} are computed once per block into
+// shared memory and read as warp-wide broadcasts.  Float32 throughout, as
+// the TPU kernel takes E and its twiddles.
+#include <cstdint>
+
+#include "fft.cuh"
+
+namespace dlpd {
+namespace {
+
+constexpr int kThreads = 256;         // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRot = 2;               // rotations per pass-2 block
+constexpr int kVec = kCols / 4;       // float4 per 32-float row
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+    idft_ky_fold_kernel(const float* __restrict__ Ere,
+                        const float* __restrict__ Eim,
+                        float* __restrict__ Hre, float* __restrict__ Him) {
+  constexpr int K = L / 2 + 1;
+  constexpr int Q = 8;                    // second radix
+  constexpr int P = L / Q;                // first radix: 16 or 8
+  constexpr int kPlane = 2 * L * kCols;   // floats per plane: re, im rows
+  static_assert(P == 8 || P == 16, "L must be 64 or 128");
+
+  extern __shared__ __align__(16) float smem[];   // 2 x kPlane
+  __shared__ float2 s_tw[L];                       // e^{+2 pi i j / L}
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int z0 = blockIdx.x * kCols, kx = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const int kx_pair = (L - kx) % L;
+  const int planes = kx_pair == kx ? 1 : 2;       // uniform over the block
+
+  for (int p = 0; p < planes; ++p) {
+    const size_t base = (b * L + (p ? kx_pair : kx)) * L * L + z0;
+    float* buf = smem + p * kPlane;
+    for (int o = threadIdx.x; o < 2 * L * kVec; o += kThreads) {
+      const int half = o / (L * kVec), rem = o % (L * kVec);
+      const int ky = rem / kVec, c = rem % kVec;
+      cp_async16(buf + half * L * kCols + ky * kCols + 4 * c,
+                 (half ? Eim : Ere) + base + static_cast<size_t>(ky) * L +
+                     4 * c);
+    }
+  }
+  cp_async_commit();
+  fill_twiddles<L>(s_tw);
+  cp_async_wait(0);
+  __syncthreads();
+
+  // Radix-P pass: task (plane, k2) over rows Q k1 + k2, in place.
+  for (int t = warp; t < planes * Q; t += kWarps) {
+    float* re = smem + (t / Q) * kPlane;
+    float* im = re + L * kCols;
+    const int k2 = t % Q;
+    cf v[P];
+#pragma unroll
+    for (int k1 = 0; k1 < P; ++k1) {
+      const int at = (Q * k1 + k2) * kCols + lane;
+      v[k1] = {re[at], im[at]};
+    }
+    idft<P>(v);
+#pragma unroll
+    for (int n1 = 0; n1 < P; ++n1) {
+      const cf w = n1 ? cmul(v[n1], s_tw[k2 * n1]) : v[0];   // k2 n1 < L
+      const int at = (Q * n1 + k2) * kCols + lane;
+      re[at] = w.re;
+      im[at] = w.im;
+    }
+  }
+  __syncthreads();
+
+  // Radix-Q pass on both planes: g[n1 + P n2]; then the fold.
+  const float* re0 = smem;
+  const float* im0 = re0 + L * kCols;
+  const float* re1 = smem + (planes - 1) * kPlane;
+  const float* im1 = re1 + L * kCols;
+  constexpr float kScale = 0.5f / L;
+  const size_t out = (b * K + kx) * L * L + z0 + lane;
+  for (int n1 = warp; n1 < P; n1 += kWarps) {
+    cf g0[Q], g1[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int at = (n1 * Q + j) * kCols + lane;
+      g0[j] = {re0[at], im0[at]};
+      g1[j] = {re1[at], im1[at]};
+    }
+    idft<Q>(g0);
+    idft<Q>(g1);
+#pragma unroll
+    for (int n2 = 0; n2 < Q; ++n2) {
+      const size_t at = out + static_cast<size_t>(n1 + P * n2) * L;
+      const cf h = g0[n2] + cconj(g1[n2]);
+      Hre[at] = h.re * kScale;
+      Him[at] = h.im * kScale;
+    }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+    idft_kx_c2r_kernel(const float* __restrict__ Hre,
+                       const float* __restrict__ Him, float* __restrict__ S,
+                       int b) {
+  constexpr int K = L / 2 + 1, Q = L / 16;
+  constexpr int kBuf = 2 * K * kCols;    // floats per rotation: re, im rows
+  constexpr size_t kPlane = static_cast<size_t>(L) * L;
+
+  extern __shared__ __align__(16) float smem[];   // kRot x kBuf
+  __shared__ float2 s_tw[L];
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int z0 = blockIdx.x * kCols, y = blockIdx.y;
+  const int b0 = blockIdx.z * kRot;
+
+  // Every rotation's copies at once, one cp.async group per rotation.
+#pragma unroll
+  for (int r = 0; r < kRot; ++r) {
+    if (b0 + r < b) {
+      float* buf = smem + r * kBuf;
+      for (int o = threadIdx.x; o < 2 * K * kVec; o += kThreads) {
+        const int half = o / (K * kVec), rem = o % (K * kVec);
+        const int k = rem / kVec, c = rem % kVec;
+        cp_async16(buf + half * K * kCols + k * kCols + 4 * c,
+                   (half ? Him : Hre) +
+                       (static_cast<size_t>(b0 + r) * K + k) * kPlane +
+                       y * L + z0 + 4 * c);
+      }
+    }
+    cp_async_commit();
+  }
+  fill_twiddles<L>(s_tw);
+
+  constexpr float kScale = 1.0f / L;
+#pragma unroll 1
+  for (int r = 0; r < kRot; ++r) {
+    const int bb = b0 + r;
+    if (bb >= b) break;                           // uniform over the block
+    cp_async_wait(kRot - 1 - r);
+    __syncthreads();
+    float* re = smem + r * kBuf;
+    cf u[Q];
+    c2r_columns<L>(re, re + K * kCols, s_tw, u);
+    float* out = S + static_cast<size_t>(bb) * L * kPlane + y * L + z0 + lane;
+#pragma unroll
+    for (int n2 = 0; n2 < Q; ++n2) {
+      const int n = warp + 8 * n2;
+      out[2 * n * kPlane] = u[n2].re * kScale;
+      out[(2 * n + 1) * kPlane] = u[n2].im * kScale;
+    }
+  }
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <int L>
+int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
+           float* S, int B, cudaStream_t stream) {
+  constexpr int K = L / 2 + 1;
+  constexpr int smem1 = 2 * 2 * L * kCols * sizeof(float);
+  constexpr int smem2 = kRot * 2 * K * kCols * sizeof(float);
+  static_assert(kRot <= 4, "cp_async_wait takes up to 3 pending groups");
+  int err = allow_smem(idft_ky_fold_kernel<L>, smem1);
+  if (err != 0) return err;
+  err = allow_smem(idft_kx_c2r_kernel<L>, smem2);
+  if (err != 0) return err;
+  idft_ky_fold_kernel<L><<<dim3(L / kCols, K, B), kThreads, smem1, stream>>>(
+      Ere, Eim, Hre, Him);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  idft_kx_c2r_kernel<L>
+      <<<dim3(L / kCols, L, (B + kRot - 1) / kRot), kThreads, smem2,
+         stream>>>(Hre, Him, S, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace dlpd
+
+// E re/im [B, L, L, L] (kx, ky, z), S [B, L, L, L] (x, y, z), and the
+// scratch h re/im [B, L/2+1, L, L] (kx, y, z); all float32, contiguous,
+// E and h 16-byte aligned; L = 64 or 128.  Returns a cudaError_t: 0 on
+// successful launches.
+extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
+                             void* Him, void* S, int B, int L, void* stream) {
+  if (B < 1 || B > 65535 ||
+      (reinterpret_cast<uintptr_t>(Ere) | reinterpret_cast<uintptr_t>(Eim) |
+       reinterpret_cast<uintptr_t>(Hre) | reinterpret_cast<uintptr_t>(Him)) %
+          16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* er = static_cast<const float*>(Ere);
+  const auto* ei = static_cast<const float*>(Eim);
+  auto* hr = static_cast<float*>(Hre);
+  auto* hi = static_cast<float*>(Him);
+  auto* s = static_cast<float*>(S);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (L == 128) return dlpd::launch<128>(er, ei, hr, hi, s, B, st);
+  if (L == 64) return dlpd::launch<64>(er, ei, hr, hi, s, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

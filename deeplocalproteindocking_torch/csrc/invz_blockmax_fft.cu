@@ -25,17 +25,12 @@
 // Each rotation's D rows [K, 32] (re, im) are copied with cp.async into
 // their own 16.6 KB shared buffer, both rotations' copies issued at once;
 // lane = y throughout, so every shared access is one 128 B row.
-//  1. Pack: the c2r of length L is a complex inverse FFT of length
-//     M = L/2 on Z[k] = (X[k] + conj X[M-k]) + i e^{+2 pi i k/L}
-//     (X[k] - conj X[M-k]); its output holds S[2n] + i S[2n+1], times
-//     1/L.  X[0] and X[M] count by their real parts only, as irfft and
-//     the dense Mz (whose sine row is 0 there) take them.
-//  2. M = P x Q with P = 8: warp k2 (< Q) takes Z[Q k1 + k2] over k1, a
-//     radix-8 inverse DFT in registers, then the twiddle
-//     e^{+2 pi i k2 n1 / M}; the results go back to shared memory in
-//     place (row n1 Q + k2).  Warp n1 then takes the Q entries of row
-//     block n1, a radix-Q (8 or 4) inverse DFT in registers, giving
-//     z[n1 + P n2].
+//  1-2. The c2r along kz (fft.cuh, c2r_columns): the half spectrum packed
+//     into a complex sequence of length M = L/2, a radix-8 pass with
+//     twiddles, one in-place exchange through shared memory, a radix-Q
+//     (8 or 4) pass; warp n1 ends with z[n1 + 8 n2] = L (S[2n] + i
+//     S[2n+1]).  X[0] and X[M] count by their real parts only, as irfft
+//     and the dense Mz (whose sine row is 0 there) take them.
 //  3. S[y, z] goes to shared memory over the D buffer (rows padded to
 //     L + 1 floats: no bank conflicts); each thread owns one z of a y
 //     group, adds the bias (read coalesced along z, kept in registers
@@ -47,88 +42,14 @@
 #include <cmath>
 #include <cstdint>
 
-#include "common.cuh"
+#include "fft.cuh"
 
 namespace dlpd {
 namespace {
 
-constexpr int kYB = 32;         // block width along y: one lane per y
+constexpr int kYB = kCols;      // block width along y: one lane per y
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kRot = 2;         // rotations per block
-
-struct cf {
-  float re, im;
-};
-__device__ __forceinline__ cf operator+(cf a, cf b) {
-  return {a.re + b.re, a.im + b.im};
-}
-__device__ __forceinline__ cf operator-(cf a, cf b) {
-  return {a.re - b.re, a.im - b.im};
-}
-__device__ __forceinline__ cf cmul(cf a, float2 w) {
-  return {a.re * w.x - a.im * w.y, a.re * w.y + a.im * w.x};
-}
-__device__ __forceinline__ cf times_i(cf a) { return {-a.im, a.re}; }
-__device__ __forceinline__ cf cconj(cf a) { return {a.re, -a.im}; }
-
-// In-place inverse DFTs (sign +, no scaling), natural order in and out.
-__device__ __forceinline__ void idft4(cf& a0, cf& a1, cf& a2, cf& a3) {
-  const cf t0 = a0 + a2, t1 = a0 - a2, t2 = a1 + a3, t3 = times_i(a1 - a3);
-  a0 = t0 + t2;
-  a2 = t0 - t2;
-  a1 = t1 + t3;
-  a3 = t1 - t3;
-}
-
-template <int N>
-__device__ __forceinline__ void idft(cf* v);
-
-template <>
-__device__ __forceinline__ void idft<4>(cf* v) {
-  idft4(v[0], v[1], v[2], v[3]);
-}
-
-template <>
-__device__ __forceinline__ void idft<8>(cf* v) {
-  cf e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
-  cf o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
-  idft4(e0, e1, e2, e3);
-  idft4(o0, o1, o2, o3);
-  constexpr float r = 0.70710678118654752f;
-  o1 = {r * (o1.re - o1.im), r * (o1.re + o1.im)};      // x e^{i pi/4}
-  o2 = times_i(o2);                                     // x e^{i pi/2}
-  o3 = {-r * (o3.re + o3.im), r * (o3.re - o3.im)};     // x e^{3i pi/4}
-  v[0] = e0 + o0;
-  v[4] = e0 - o0;
-  v[1] = e1 + o1;
-  v[5] = e1 - o1;
-  v[2] = e2 + o2;
-  v[6] = e2 - o2;
-  v[3] = e3 + o3;
-  v[7] = e3 - o3;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem_dst,
-                                           const float* gmem_src) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem_src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most `pending` (< 4) of this thread's copy groups are in
-// flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory");
-  }
-}
 
 template <int L>
 __global__ void __launch_bounds__(kThreads)
@@ -172,11 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     cp_async_commit();
   }
-  for (int j = tid; j < L; j += kThreads) {
-    float s, c;
-    sincospif(2.0f * j / L, &s, &c);
-    s_tw[j] = make_float2(c, s);
-  }
+  fill_twiddles<L>(s_tw);
 
   // The epilogue's bias: thread (grp, z) reads YPG rows of its group.
   const int z = tid % L, grp = tid / L;
@@ -200,46 +117,11 @@ __global__ void __launch_bounds__(kThreads)
     float* re = smem + r * kBuf;
     float* im = re + K * kYB;
 
-    // 1-2a. Pack and radix-P pass over k1 for k2 = warp.
-    cf v[P];
-    const int k2 = warp;
-    if (k2 < Q) {
-#pragma unroll
-      for (int k1 = 0; k1 < P; ++k1) {
-        const int k = Q * k1 + k2;
-        cf a = {re[k * kYB + lane], im[k * kYB + lane]};
-        cf m = {re[(M - k) * kYB + lane], im[(M - k) * kYB + lane]};
-        if (k == 0) {        // X[0], X[M]: real parts only
-          a.im = 0.f;
-          m.im = 0.f;
-        }
-        const cf s = a + cconj(m), d = a - cconj(m);
-        v[k1] = s + times_i(cmul(d, s_tw[k]));
-      }
-      idft<P>(v);
-#pragma unroll
-      for (int n1 = 1; n1 < P; ++n1) {
-        v[n1] = cmul(v[n1], s_tw[(2 * k2 * n1) % L]);   // e^{2 pi i k2 n1/M}
-      }
-    }
-    __syncthreads();
-    if (k2 < Q) {
-#pragma unroll
-      for (int n1 = 0; n1 < P; ++n1) {
-        re[(n1 * Q + k2) * kYB + lane] = v[n1].re;
-        im[(n1 * Q + k2) * kYB + lane] = v[n1].im;
-      }
-    }
-    __syncthreads();
-
-    // 2b. Radix-Q pass over k2 for n1 = warp: z[n1 + P n2].
+    // 1-2. Pack, then the radix-8 and radix-Q passes: warp n1 holds
+    // z[n1 + P n2].
     const int n1 = warp;
     cf u[Q];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      u[j] = {re[(n1 * Q + j) * kYB + lane], im[(n1 * Q + j) * kYB + lane]};
-    }
-    idft<Q>(u);
+    c2r_columns<L>(re, im, s_tw, u);
     __syncthreads();
     float* S = re;                              // [kYB][kLd] over the buffer
     constexpr float kScale = 1.0f / L;

@@ -176,10 +176,18 @@ def test_pose_rmsd_and_nms():
 
 def test_port_imports_without_jax():
     """The port's docking, screening and refinement paths import where
-    jax, flax, optax and orbax are absent, and never load the JAX
-    package itself."""
+    jax, flax, optax and orbax are absent, never load the JAX package
+    itself, and open no file under it (no module of the JAX package run
+    on its own, as a file)."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
+        "tpu = os.sep + 'deeplocalproteindocking_tpu' + os.sep\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if (event == 'open' and isinstance(args[0], str)\n"
+        "            and tpu in os.path.abspath(args[0])):\n"
+        "        opened.append(args[0])\n"
+        "sys.addaudithook(hook)\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
         "    sys.modules[m] = None\n"
         "import deeplocalproteindocking_torch.pipeline\n"
@@ -190,7 +198,10 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.serving\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('deeplocalproteindocking_tpu')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "assert not opened, opened\n"
+        "loaded = [m for m in sys.modules if m.endswith('_shared_config')]\n"
+        "assert not loaded, loaded\n")
     env = {k: v for k, v in os.environ.items() if k != "DLPD_PLATFORM"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

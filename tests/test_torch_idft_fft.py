@@ -1,0 +1,224 @@
+"""K3's FFT route (``csrc/idft_fft.cu``) on the CPU, and the two repairs
+that came with it: float32 K1's shared-memory rule and the port's own
+``DockConfig``.
+
+The CUDA kernel cannot run here, so this file holds its formulation: a
+torch emulation of its stages -- pass 1's complex inverse FFT along ky
+(L = P x 8 with P = 16 at L = 128 and 8 at L = 64: radix-P butterflies
+over k1, the twiddle e^{+2 pi i k2 n1 / L}, radix-8 over k2, output
+digit y = n1 + P n2), the Hermitian fold h[kx] = (g[kx] + conj g[L-kx]) / 2
+for kx <= L/2, and pass 2's c2r along kx (``fft.cuh``: packing, radix
+passes, even/odd interleave) -- against the plain version
+(``idft_bc_reference``, the dense contractions) and the JAX kernel in
+interpret mode; planted errors in the fold, the ky FFT and the packing
+move the result by O(1); and ``k3_route``, ``inverse_dft`` and the
+wrapper's check of ``Ux``/``Uy``.
+
+Tolerance: 1e-5 relative to max |S| (float32; the FFTs and the dense
+contractions round in another order, O(1e-7) relative).  The kernel
+itself is held against the plain version on a card by
+``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+"""
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_fft_emulation import IDFT, c2r_columns, twiddles
+from torch_parity import V9P_CKPT, np_, t_
+
+from deeplocalproteindocking_torch import config as tconfig
+from deeplocalproteindocking_torch.correlate import dft as tdft
+from deeplocalproteindocking_torch.correlate import fused as tfused
+from deeplocalproteindocking_torch.correlate import idft as tidft
+from deeplocalproteindocking_tpu import config as jconfig
+from deeplocalproteindocking_tpu.correlate import dft as jdft
+from deeplocalproteindocking_tpu.correlate import pallas_idft as jidft
+
+TOL = 1e-5
+Q = 8           # pass 1's second radix
+
+
+def emulate_idft_fft(Ere, Eim, mutate=None):
+    """What ``idft_fft.cu`` computes, stage by stage, in complex64:
+    ``E (re, im) [b, L, L, Z]`` (kx, ky, z) -> ``S [b, L, L, Z]`` float32.
+    ``mutate`` plants one error (for the O(1) test)."""
+    b, L, _, Z = Ere.shape
+    K, P = L // 2 + 1, L // Q
+    tw = twiddles(L)
+    E = torch.complex(Ere, Eim)
+    # Pass 1, radix-P: task k2 takes rows ky = Q k1 + k2 over k1, then
+    # the twiddle e^{+2 pi i k2 n1 / L}.
+    Ek = E.reshape(b, L, P, Q, Z)                      # [b, kx, k1, k2, z]
+    v = IDFT[P]([Ek[:, :, k1] for k1 in range(P)])     # v[n1]: [b, kx, k2, z]
+    sign = -1 if mutate == "ky_twiddle_sign" else 1
+    k2 = torch.arange(Q)
+    A = torch.stack([v[n1] * tw[(sign * k2 * n1) % L, None]
+                     for n1 in range(P)], dim=2)       # [b, kx, n1, k2, z]
+    # Radix-8: warp n1 takes A[n1, k2] over k2: g[n1 + P n2].
+    u = IDFT[Q]([A[:, :, :, j] for j in range(Q)])     # u[n2]: [b, kx, n1, z]
+    g = torch.stack(u, dim=2)                          # [b, kx, n2, n1, z]
+    if mutate == "ky_digit_order":
+        g = g.transpose(2, 3)
+    g = g.reshape(b, L, L, Z)
+    # The fold with scale 1/(2L).
+    kx = torch.arange(K)
+    partner = (L - kx - 1) % L if mutate == "fold_partner" else (L - kx) % L
+    gp = g[:, partner] if mutate == "fold_no_conj" else g[:, partner].conj()
+    h = (g[:, kx] + gp) * (0.5 / L)                    # [b, K, y, z]
+    # Pass 2: the c2r along kx.
+    S = c2r_columns(h.reshape(b, K, L * Z), mutate)
+    return S.reshape(b, L, L, Z)
+
+
+def _e_inputs(L, b, Z=None, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (b, L, L, Z or L)
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def _rel(got, want):
+    got, want = np_(got), np_(want)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_emulation_matches_plain(L):
+    Ere, Eim = _e_inputs(L, 2, Z=32, seed=L)
+    ux = [t_(a) for a in tdft.inverse_dft(L)]
+    want = tidft.idft_bc_reference(t_(Ere), t_(Eim), *ux, *ux)
+    got = emulate_idft_fft(t_(Ere), t_(Eim))
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+    # And both are Re ifft2 over (kx, ky).
+    lib = np.fft.ifft2(Ere + 1j * Eim, axes=(1, 2)).real
+    assert _rel(got, lib) <= TOL
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_emulation_matches_pallas_interpret(L):
+    """The same G into JAX ``pallas_inverse`` (interpret mode) and into
+    pass A then the emulation."""
+    rng = np.random.default_rng(20 + L)
+    gre, gim = (rng.normal(size=(1, L, L, L // 2 + 1)).astype(np.float32)
+                for _ in range(2))
+    c = jdft.get_correlator(L, 8)
+    tw = (c.UxRe, c.UxIm, c.UyRe, c.UyIm, c.MzRe, c.MzIm)
+    want = jidft.pallas_inverse(jnp.asarray(gre), jnp.asarray(gim),
+                                *(jnp.asarray(a) for a in tw), interpret=True)
+    mz = [t_(a) for a in tdft.hermitian_inverse_z(L)]
+    ere, eim = tidft._pass_a(t_(gre), t_(gim), *mz)
+    assert _rel(emulate_idft_fft(ere, eim), want) <= TOL
+
+
+@pytest.mark.parametrize("mutate", [
+    "fold_partner", "fold_no_conj", "ky_twiddle_sign", "ky_digit_order",
+    "minus_i", "mirror_index", "digit_order"])
+def test_planted_errors_move_the_result(mutate):
+    """The emulation is sharp: one planted error moves S by O(1) of its
+    scale, far outside TOL."""
+    Ere, Eim = _e_inputs(64, 1, Z=32, seed=5)
+    want = emulate_idft_fft(t_(Ere), t_(Eim))
+    got = emulate_idft_fft(t_(Ere), t_(Eim), mutate=mutate)
+    assert _rel(got, want) > 0.1
+
+
+@pytest.mark.parametrize("L,want", [
+    (128, "fft"),       # the screening path
+    (64, "fft"),        # the card-vs-CPU phase
+    (96, "dense"), (32, "dense"), (16, "dense"), (112, "dense")])
+def test_k3_route(L, want):
+    assert tidft.k3_route(L) == want
+
+
+@pytest.mark.parametrize("L", [64, 96, 128])
+def test_inverse_dft_is_the_correlators_matrix(L):
+    UxRe, UxIm = tdft.inverse_dft(L)
+    corr = tdft.get_correlator(L, 16)
+    for t in (corr.UxRe32, corr.UxRe):
+        assert torch.equal(t, t_(UxRe))
+    assert torch.equal(corr.UxIm32, t_(UxIm))
+    jc = jdft.get_correlator(L, 16)
+    np.testing.assert_array_equal(UxRe, np.float32(jc.UxRe))
+    np.testing.assert_array_equal(UxIm, np.float32(jc.UyIm))
+    # It is ifft along the first axis as a matrix.
+    rng = np.random.default_rng(L)
+    x = rng.normal(size=L) + 1j * rng.normal(size=L)
+    np.testing.assert_allclose(x @ (UxRe + 1j * UxIm), np.fft.ifft(x),
+                               atol=1e-6)
+
+
+def test_require_idft():
+    u = [t_(a) for a in tdft.inverse_dft(64)]
+    tidft.require_idft(*u, *u)
+    with pytest.raises(ValueError, match="UxRe is not its matrix"):
+        tidft.require_idft(u[0] * 1.001, u[1], *u)
+    with pytest.raises(ValueError, match="UyIm is not its matrix"):
+        tidft.require_idft(*u, u[0], -u[1])
+    # The bf16-rounded matrix is not the matrix either.
+    with pytest.raises(ValueError, match="not its matrix"):
+        tidft.require_idft(*u, u[0].bfloat16().float(), u[1])
+    with pytest.raises(ValueError, match="at L=128"):
+        tidft.require_idft(torch.zeros(64, 128), u[1], *u)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_simt_smem_fits_every_box(dtype):
+    """Every ligand box 16..128 at L = 128 fits one SIMT block, in both
+    dtypes; the old layout, which staged the A slab [X, Y] too, did not
+    from Ls = 96 in float32."""
+    limit = tfused.SMEM_OPTIN_BYTES
+    for box in range(16, 129, 8):
+        assert tfused.simt_smem_bytes(box, 128, 128, 128, dtype) <= limit
+    assert tfused.simt_smem_bytes(96, 128, 128, 128, torch.float32) == 161_792
+    assert tfused.simt_smem_bytes(128, 128, 128, 128,
+                                  torch.float32) == 163_840
+    old = tfused.simt_smem_bytes(96, 128, 128, 128, torch.float32) + 8 * 96**2
+    assert old > limit
+
+
+def test_simt_refuses_an_oversized_block_before_launch():
+    """A shape whose block would not fit raises a readable ValueError
+    before the library is touched (meta tensors: no card needed)."""
+    a = torch.empty(1, device="meta")
+    dims = (1, 1, 1, 1024, 16, 16, 1024, 1024, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused._launch_simt((a,) * 12, dims, a, a)
+
+
+# ---- the port's own DockConfig, held in step with the JAX package's ----
+
+def test_config_fields_match_the_jax_package():
+    tf = dataclasses.fields(tconfig.DockConfig)
+    jf = dataclasses.fields(jconfig.DockConfig)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    for a, b in zip(tf, jf):
+        assert (a.type, a.default) == (b.type, b.default), a.name
+    assert tconfig.DockConfig.__module__ == "deeplocalproteindocking_torch.config"
+
+
+def test_config_presets_match_the_jax_package():
+    assert tconfig.PRESETS.keys() == jconfig.PRESETS.keys()
+    for name, cfg in tconfig.PRESETS.items():
+        assert (dataclasses.asdict(cfg)
+                == dataclasses.asdict(jconfig.PRESETS[name])), name
+
+
+def test_config_json_round_trips_both_ways():
+    cfg = tconfig.DockConfig(grid_size=64, rep_features=(32, 14),
+                             lig_grid_size=40, coupling_rank=3,
+                             dft_dtype="bfloat16")
+    j = jconfig.DockConfig.from_json(cfg.to_json())
+    assert dataclasses.asdict(j) == dataclasses.asdict(cfg)
+    back = tconfig.DockConfig.from_json(j.to_json())
+    assert back == cfg and back.to_json() == cfg.to_json() == j.to_json()
+    with open(os.path.join(V9P_CKPT, "config.json")) as f:
+        text = f.read()
+    assert (tconfig.DockConfig.from_json(text).to_json()
+            == jconfig.DockConfig.from_json(text).to_json())
+

@@ -17,13 +17,13 @@ The kernel itself is held against the plain version on a card by
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
 """
 import inspect
-import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_fft_emulation import c2r_columns
 from torch_parity import np_, t_
 
 from deeplocalproteindocking_torch.config import DockConfig
@@ -37,57 +37,16 @@ from deeplocalproteindocking_tpu.correlate import dft as jdft
 from deeplocalproteindocking_tpu.correlate import pallas_invz_topk as jinvz
 
 TOL = 1e-5
-P = 8           # the kernel's first radix
-
-
-def _idft4(a0, a1, a2, a3):
-    """The kernel's ``idft4``: inverse DFT of 4, natural order."""
-    t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, 1j * (a1 - a3)
-    return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
-
-
-def _idft8(v):
-    """The kernel's ``idft<8>``: two ``idft4`` and the e^{i pi/4} steps."""
-    e = _idft4(v[0], v[2], v[4], v[6])
-    o = _idft4(v[1], v[3], v[5], v[7])
-    r = math.sqrt(0.5)
-    o[1] = (r + 1j * r) * o[1]
-    o[2] = 1j * o[2]
-    o[3] = (-r + 1j * r) * o[3]
-    return [e[n] + o[n] for n in range(4)] + [e[n] - o[n] for n in range(4)]
 
 
 def emulate_fft(Dre, Dim, bias, mutate=None):
     """What ``invz_blockmax_fft.cu`` computes, stage by stage, in
-    complex64.  ``mutate`` plants one error (for the O(1) test)."""
+    complex64: the c2r along kz (``fft.cuh``), then the bias and the
+    block max.  ``mutate`` plants one error (for the O(1) test)."""
     b, K, X, Y = Dre.shape
-    M = K - 1
-    L, Q = 2 * M, M // P
-    tw = torch.exp(2j * torch.pi * torch.arange(L, dtype=torch.float64)
-                   / L).to(torch.complex64)            # e^{+2 pi i j / L}
-    D = torch.complex(Dre, Dim)
-    D[:, 0] = D[:, 0].real.to(D.dtype)                 # X[0], X[M]: real
-    D[:, M] = D[:, M].real.to(D.dtype)
-    k = torch.arange(M)
-    mirror = M - k - 1 if mutate == "mirror_index" else M - k
-    a, m = D[:, k], D[:, mirror]
-    mc = m if mutate == "no_conj" else m.conj()
-    sign = -1j if mutate == "minus_i" else 1j
-    Z = (a + mc) + sign * tw[k, None, None] * (a - mc)    # [b, M, X, Y]
-    # Pass 1: warp k2 takes Z[Q k1 + k2] over k1, then the twiddle.
-    Zk = Z.reshape(b, P, Q, X, Y)                      # [b, k1, k2, ...]
-    v = _idft8([Zk[:, k1] for k1 in range(P)])         # v[n1]: [b, Q, ..]
-    k2 = torch.arange(Q)
-    A = torch.stack([v[n1] * tw[(2 * k2 * n1) % L, None, None]
-                     for n1 in range(P)], dim=1)       # [b, n1, k2, ...]
-    # Pass 2: warp n1 takes A[n1, k2] over k2: z[n1 + P n2].
-    fft_q = _idft8 if Q == 8 else (lambda u: _idft4(*u))
-    u = fft_q([A[:, :, j] for j in range(Q)])          # u[n2]: [b, n1, ..]
-    zz = torch.stack(u, dim=1)                         # [b, n2, n1, ...]
-    if mutate == "digit_order":
-        zz = zz.transpose(1, 2)
-    z = zz.reshape(b, M, X, Y)
-    S = torch.stack([z.real, z.imag], dim=2).reshape(b, L, X, Y) / L
+    L = 2 * (K - 1)
+    D = torch.complex(Dre, Dim).reshape(b, K, X * Y)
+    S = c2r_columns(D, mutate).reshape(b, L, X, Y)
     S = S.permute(0, 2, 3, 1)                          # [b, X, Y, z]
     G = bias.shape[0]
     S = S.reshape(G, b // G, X, Y, L) + bias[:, None]

@@ -9,8 +9,9 @@ Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order), 2e-2 in bf16 (the same rounding points, where one bf16
 ulp is 2^-8 relative).  K1 runs bf16 boxes up to 64 on its tensor-core
 kernel and the rest on its SIMT kernel (``fused.k1_route``); both are
-held here, as are K2's FFT kernel (L = 64, 128) and dense kernel (other
-L; ``invz_topk.k2_route``).  K2 and K3 are float32 only.
+held here, as are K2's and K3's FFT kernels (L = 64, 128) and dense
+kernels (other L; ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3
+are float32 only.
 """
 import numpy as np
 import pytest
@@ -65,7 +66,9 @@ def _rel(got, want):
     (128, 40, 3, 2, "bfloat16", 2e-2),
     (128, 64, 3, 2, "bfloat16", 2e-2),    # the largest tensor-core box
     (64, 40, 16, 3, "bfloat16", 2e-2),
-    (128, 72, 3, 2, "bfloat16", 2e-2)])   # bf16 on the SIMT kernel
+    (128, 72, 3, 2, "bfloat16", 2e-2),    # bf16 on the SIMT kernel
+    (128, 96, 3, 2, "float32", 1e-4),     # boxes the SIMT kernel refused
+    (128, 128, 3, 1, "float32", 1e-4)])   # before A left shared memory
 def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
     tc = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L) == "tc"
@@ -143,17 +146,35 @@ def _k3_args(dev, L, b, seed=0):
     return (*e, corr.UxRe32, corr.UxIm32, corr.UxRe32, corr.UxIm32)
 
 
-@pytest.mark.parametrize("L", [64, 128])
-@pytest.mark.parametrize("b", [2, 8])
-def test_k3_matches_plain(cuda_device, L, b):
+@pytest.mark.parametrize("L,b,route", [
+    (64, 1, "fft"), (64, 2, "fft"), (64, 8, "fft"), (128, 1, "fft"),
+    (128, 2, "fft"), (128, 3, "fft"), (128, 8, "fft"), (96, 2, "dense")])
+def test_k3_matches_plain(cuda_device, L, b, route):
+    """Both K3 kernels against the plain version: the FFT kernel at
+    L = 64 and 128 (odd b: a pass-2 block's second rotation missing),
+    the dense kernel at L = 96."""
     args = _k3_args(cuda_device, L, b)
-    n0 = idft.launches
+    assert idft.k3_route(L) == route
+    n0, f0 = idft.launches, idft.launches_fft
     got = idft.idft_bc(*args)
     torch.cuda.synchronize()
     assert idft.launches == n0 + 1
+    assert idft.launches_fft == f0 + int(route == "fft")
     want = idft.idft_bc_reference(*args)
     assert got.shape == (b, L, L, L) and got.dtype == torch.float32
     assert _rel(got, want) <= 1e-4
+
+
+def test_k3_fft_refuses_what_it_does_not_take(cuda_device):
+    ere, eim, uxr, uxi, _, _ = _k3_args(cuda_device, 64, 2)
+    with pytest.raises(ValueError, match="UyRe is not its matrix"):
+        idft.idft_bc(ere, eim, uxr, uxi, uxi.clone(), uxi)
+    with pytest.raises(ValueError, match="not its matrix"):
+        idft.idft_bc(ere, eim, uxr.bfloat16().float(), uxi, uxr, uxi)
+    flat = torch.empty(ere.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(ere.shape)            # 4-byte aligned only
+    with pytest.raises(ValueError, match="16-byte"):
+        idft.idft_bc(shifted, eim, uxr, uxi, uxr, uxi)
 
 
 def test_k3_refuses_what_it_does_not_take(cuda_device):

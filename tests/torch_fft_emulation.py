@@ -1,0 +1,81 @@
+"""Torch emulations of the FFT kernels' shared stages (``csrc/fft.cuh``),
+used by the CPU tests of K2's and K3's FFT routes (not a test module).
+
+Each function follows the CUDA code step by step in complex64: the same
+radix splits, twiddles and digit orders, so that a test can hold the
+formulation against the plain versions and the JAX kernels where no card
+is present.
+"""
+import math
+
+import torch
+
+P = 8           # the c2r's first radix (c2r_columns)
+
+
+def idft4(a0, a1, a2, a3):
+    """``idft4``: inverse DFT of 4, natural order."""
+    t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, 1j * (a1 - a3)
+    return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+
+
+def idft8(v):
+    """``idft<8>``: two ``idft4`` and the e^{i pi/4} steps."""
+    e = idft4(v[0], v[2], v[4], v[6])
+    o = idft4(v[1], v[3], v[5], v[7])
+    r = math.sqrt(0.5)
+    o[1] = (r + 1j * r) * o[1]
+    o[2] = 1j * o[2]
+    o[3] = (-r + 1j * r) * o[3]
+    return [e[n] + o[n] for n in range(4)] + [e[n] - o[n] for n in range(4)]
+
+
+def idft16(v):
+    """``idft<16>``: ``idft<8>`` of the even and odd inputs, then the
+    radix-2 step with e^{+2 pi i n / 16}."""
+    e, o = idft8(v[0::2]), idft8(v[1::2])
+    t = [complex(math.cos(math.pi * n / 8), math.sin(math.pi * n / 8)) * o[n]
+         for n in range(8)]
+    return [e[n] + t[n] for n in range(8)] + [e[n] - t[n] for n in range(8)]
+
+
+IDFT = {4: lambda v: idft4(*v), 8: idft8, 16: idft16}
+
+
+def twiddles(L):
+    """The kernels' shared table e^{+2 pi i j / L}, complex64."""
+    return torch.exp(2j * torch.pi * torch.arange(L, dtype=torch.float64)
+                     / L).to(torch.complex64)
+
+
+def c2r_columns(X, mutate=None):
+    """``c2r_columns`` and its 1/L: the half spectrum ``X [b, M+1, N]``
+    (complex64, along dim 1) -> ``s [b, 2M, N]`` float32, the irfft of
+    each column.  ``mutate`` plants one error: ``"no_conj"``,
+    ``"minus_i"``, ``"mirror_index"`` (packing) or ``"digit_order"``."""
+    b, K, N = X.shape
+    M = K - 1
+    L, Q = 2 * M, M // P
+    tw = twiddles(L)
+    X = X.clone()
+    X[:, 0] = X[:, 0].real.to(X.dtype)                 # X[0], X[M]: real
+    X[:, M] = X[:, M].real.to(X.dtype)
+    k = torch.arange(M)
+    mirror = M - k - 1 if mutate == "mirror_index" else M - k
+    a, m = X[:, k], X[:, mirror]
+    mc = m if mutate == "no_conj" else m.conj()
+    sign = -1j if mutate == "minus_i" else 1j
+    Z = (a + mc) + sign * tw[k, None] * (a - mc)       # [b, M, N]
+    # Radix-8 pass: warp k2 takes Z[Q k1 + k2] over k1, then the twiddle.
+    Zk = Z.reshape(b, P, Q, N)                         # [b, k1, k2, N]
+    v = idft8([Zk[:, k1] for k1 in range(P)])          # v[n1]: [b, Q, N]
+    k2 = torch.arange(Q)
+    A = torch.stack([v[n1] * tw[(2 * k2 * n1) % L, None]
+                     for n1 in range(P)], dim=1)       # [b, n1, k2, N]
+    # Radix-Q pass: warp n1 takes A[n1, k2] over k2: z[n1 + P n2].
+    u = IDFT[Q]([A[:, :, j] for j in range(Q)])        # u[n2]: [b, n1, N]
+    zz = torch.stack(u, dim=1)                         # [b, n2, n1, N]
+    if mutate == "digit_order":
+        zz = zz.transpose(1, 2)
+    z = zz.reshape(b, M, N)
+    return torch.stack([z.real, z.imag], dim=2).reshape(b, L, N) / L

@@ -11,7 +11,8 @@ against the ligand of seed 0 (warm-up), then, under ``torch.profiler``,
 against the ligand of seed 1: ``dock`` and ``rescore(top=16, nrot=48)``.
 Prints one JSON line per stage: host-clock wall (profiler overhead
 included), device busy time (the union of kernel intervals), the idle
-share and the largest kernels by total device time.
+share, the largest kernels by total device time, and every kernel of
+the port's own (``csrc/``) with its calls and time.
 """
 import json
 import os
@@ -57,11 +58,13 @@ def stage(name, fn):
         by_name[k.name] = (n + 1, t + (k.time_range.end
                                        - k.time_range.start) / 1e3)
     busy = busy_ms(kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     print(json.dumps(dict(
         stage=name, wall_ms=wall, device_busy_ms=busy,
         idle_share=1.0 - busy / wall, kernels=len(kernels),
-        top=[dict(name=n[:90], calls=c, ms=t) for n, (c, t) in top])),
+        top=[dict(name=n[:90], calls=c, ms=t) for n, (c, t) in ranked[:12]],
+        port_kernels=[dict(name=n[:90], calls=c, ms=t)
+                      for n, (c, t) in ranked if "dlpd::" in n])),
         flush=True)
     return out
 
