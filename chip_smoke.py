@@ -48,7 +48,25 @@ phase that does not hold:
    must see 16 bias groups;
 6. card against CPU for that path: dock -> rescore -> refine at
    float32, grid 64, 256 rotations, ``dft_pallas`` (K3 on its FFT
-   kernel).
+   kernel);
+7. band 100's local rows on the card: the 48 held-out polymer complexes
+   (seeds 100-147, size-diverse, unbound 1.2 A) docked under the local
+   protocol (grid 64, 64 rotations in a 50-degree cone, +-8 A, top-K 64,
+   NMS 5 A, chunk 64) by the shape baseline (float32, every K1 launch on
+   the SIMT kernel) and by the v9p model (bf16, full-rank coupling, every
+   K1 launch on the tensor cores), each pose graded with CAPRI metrics
+   through the port's ``eval_matrix.eval_row``; at most ``MAX_FLIPS`` of
+   the 192 hit decisions may differ from the JAX package's CPU rows
+   (``pretrained/synthetic-v9p/eval_matrix_48_cpu_parity.json``), every
+   K2 launch must be on the FFT kernel and K3 must not run; each row's
+   first K1 launch at each ligand box (24 and 32, b = 64, 2 shape or 16
+   learned channels) and its first K2 launch (the local translation
+   mask as bias) are held against their plain versions on the
+   arguments the row gave them; then the first complex in the learned
+   row at float32, graded on the card and on the CPU, its clustered
+   poses in rank order and its 64 top-K poses before clustering matched
+   by rotation and shift (score, LRMSD, IRMSD and fnat of every pose
+   within 1e-3 relative, the same CAPRI classes).
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -70,6 +88,15 @@ TOL_BF16 = 2e-2
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Band 100's local rows: the EM_* knobs of the committed CPU matrix.
+V9P_DIR = os.path.join(ROOT, "pretrained", "synthetic-v9p")
+BAND100_ENV = dict(EM_COMPLEXES="48", EM_MODES="local", EM_WIDEN="1",
+                   EM_SEED0="100", EM_UNBOUND="1.2", EM_BACKBONE="1",
+                   EM_DTYPE="bfloat16", EM_RANK="0")
+# Decisions that the platform alone flipped between the TPU and the CPU
+# on these rows (platform_parity_band100.json).
+MAX_FLIPS = 3
+GRADE_RTOL = 1e-3
 
 
 def emit(phase, **fields):
@@ -134,6 +161,222 @@ def k2_fft_flops(L):
     Q = M // 8
     radix = {4: 16, 8: 56}
     return 12 * M + Q * radix[8] + 6 * Q * 7 + 8 * radix[Q] + 3 * L
+
+
+def k1_check(args):
+    """((max abs err, rel err), route, D) of one K1 launch on ``args``,
+    held against the plain version."""
+    import torch
+    from deeplocalproteindocking_torch.correlate import fused
+    X, Y = args[0].shape[-2:]
+    route = fused.k1_route(args[0].dtype, X, Y, args[6].shape[1],
+                           args[4].shape[1], args[8].shape[1],
+                           args[10].shape[1])
+    tc0 = fused.launches_tc
+    got = fused.fused_correlate(*args)
+    torch.cuda.synchronize()
+    check(fused.launches_tc - tc0 == int(route == "tc"),
+          f"K1 at box {X} did not launch its {route} kernel")
+    want = fused.fused_correlate_reference(*args)
+    e = [rel_err(g, w) for g, w in zip(got, want)]
+    return (max(a for a, _ in e), max(r for _, r in e)), route, got
+
+
+def k2_check(args):
+    """((max abs err, rel err), route, output) of one K2 launch on
+    ``args``, held against the plain version."""
+    import torch
+    from deeplocalproteindocking_torch.correlate import invz_topk
+    f0 = invz_topk.launches_fft
+    got = invz_topk.invz_blockmax(*args)
+    torch.cuda.synchronize()
+    route = "fft" if invz_topk.launches_fft > f0 else "dense"
+    return (rel_err(got, invz_topk.invz_blockmax_reference(*args)), route,
+            got)
+
+
+def band100_local(dev, params):
+    """Phase 7: band 100's local rows on ``dev`` against the committed CPU
+    matrix, then one complex of the learned row at float32 graded on
+    ``dev`` and on the CPU.  Returns the phase's record, with the launch
+    counts of each row and the error of its first K1 launch at each
+    ligand box and of its first K2 launch against their plain versions,
+    on the arguments the row gave them."""
+    import torch
+    from deeplocalproteindocking_torch import eval_matrix as em
+    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.correlate import (dft, fused, idft,
+                                                         invz_topk)
+    from deeplocalproteindocking_torch.evaluation import (grade_poses,
+                                                          local_dock_kwargs)
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline
+
+    with open(os.path.join(V9P_DIR, "eval_matrix_48_cpu_parity.json")) as f:
+        committed = json.load(f)
+    ckpt = os.path.join(V9P_DIR, "best")
+    settings = em.settings_from_env(BAND100_ENV)
+    n_cplx = settings["n_cplx"]
+    complexes = em.heldout_complexes(
+        n_cplx, widen=settings["widen"], seed0=settings["seed0"],
+        unbound=settings["unbound"], backbone=settings["backbone"])
+    base = em.protocol_base(settings, "local")
+    pipes = {"shape_local": DockingPipeline(
+                 DockConfig(rep_features=(8,), **base), device=dev),
+             "learned_local": DockingPipeline(
+                 em.learned_config(ckpt, settings, "local"), params=params,
+                 device=dev)}
+    # The sweep reaches K1 through dft's name for it and K2 through
+    # invz_topk's; spies keep the arguments of each row's first launch
+    # (K1: at each ligand box) and launch as the path would.
+    k1_launch, k2_launch = dft.fused_correlate, invz_topk.invz_blockmax
+    rows, launches, kernels = {}, {}, {}
+    for key, pipe in pipes.items():
+        check(em.fingerprint_of(settings) == committed[key]["fingerprint"],
+              f"{key}: not the committed protocol")
+        seen = {}
+
+        def k1_spy(*args, seen=seen):
+            seen.setdefault(f"k1_box{args[0].shape[-1]}", args)
+            return k1_launch(*args)
+
+        def k2_spy(*args, seen=seen):
+            seen.setdefault("k2", args)
+            return k2_launch(*args)
+
+        fused.launches = fused.launches_tc = 0
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dft.fused_correlate, invz_topk.invz_blockmax = k1_spy, k2_spy
+        try:
+            row = em.eval_row(em.mode_dock_fn(pipe, "local"), complexes,
+                              key, device=dev)
+        finally:
+            dft.fused_correlate, invz_topk.invz_blockmax = (k1_launch,
+                                                            k2_launch)
+        torch.cuda.synchronize(dev)
+        want = committed[key]
+        rows[key] = dict(top1=row["top1"], top10=row["top10"],
+                         committed_top1=want["top1"],
+                         committed_top10=want["top10"],
+                         seconds=time.perf_counter() - t0,
+                         complexes=row["complexes"])
+        launches[key] = dict(k1=fused.launches, k1_tc=fused.launches_tc,
+                             k1_simt=fused.launches - fused.launches_tc,
+                             k2=invz_topk.launches,
+                             k2_fft=invz_topk.launches_fft, k3=idft.launches,
+                             k3_fft=idft.launches_fft)
+        # The row's launches against their plain versions, on the card,
+        # after its counts were read.
+        kernels[key] = {}
+        with torch.inference_mode():
+            for name, args in sorted(seen.items()):
+                (err, rel), route, _ = (k1_check if name.startswith("k1")
+                                        else k2_check)(args)
+                kernels[key][name] = dict(
+                    route=route, shape=list(args[0].shape),
+                    dtype=str(args[0].dtype).replace("torch.", ""),
+                    max_abs_err=err, rel_err=rel)
+        del seen
+
+    flips, moved = [], []
+    for key, row in rows.items():
+        want = {r["name"]: r for r in committed[key]["complexes"]}
+        for r in row.pop("complexes"):
+            w = want[r["name"]]
+            flips += [dict(row=key, name=r["name"], metric=m, card=r[m],
+                           committed=w[m])
+                      for m in ("hit_top1", "hit_top10") if r[m] != w[m]]
+            check(r["best_lrmsd"] is not None,
+                  f"{key} {r['name']}: no graded pose")
+            moved.append((abs(r["best_lrmsd"] - w["best_lrmsd"]), key,
+                          r["name"], r["best_lrmsd"], w["best_lrmsd"]))
+    # The complexes whose best LRMSD moved by more than 1e-3 A.
+    best_lrmsd_moved = [dict(row=k, name=n, card=a, committed=b)
+                        for d, k, n, a, b in sorted(moved, reverse=True)
+                        if d > 1e-3]
+
+    # Kernel error apart from bf16 drift: one complex at float32, its
+    # clustered poses (what eval_row grades) in rank order, and all top-K
+    # poses before clustering matched by (rotation, shift).
+    c = complexes[0]
+    f32 = em.learned_config(ckpt, dict(settings, dtype="float32"), "local")
+    graded, secs = {}, {}
+    for where in (dev, torch.device("cpu")):
+        p = DockingPipeline(f32, params=params, device=where)
+        t0 = time.perf_counter()
+        kw = local_dock_kwargs(p, c)
+        clustered = grade_poses(c, p.dock_complex(c, **kw), device=where)
+        poses = p.dock_complex(c, cluster=False, **kw)
+        top_k = {(int(r),) + tuple(int(v) for v in sh): g
+                 for r, sh, g in zip(poses.rot_idx, poses.shifts,
+                                     grade_poses(c, poses, device=where))}
+        graded[where.type] = (clustered, top_k)
+        secs[where.type] = time.perf_counter() - t0
+    (g, gk), (w, wk) = graded[dev.type], graded["cpu"]
+    check(len(g) == len(w) > 0,
+          f"float32 {c.name}: {len(g)} poses on the card, {len(w)} on CPU")
+    check(gk.keys() == wk.keys(),
+          f"float32 {c.name}: the top-K poses differ card vs CPU")
+    pairs = list(zip(g, w)) + [(gk[k], wk[k]) for k in wk]
+
+    def rel(m):
+        return max(abs(a[m] - b[m]) / max(abs(b[m]), 1e-12)
+                   for a, b in pairs)
+
+    f32_rec = dict(complex=c.name, poses=len(g), top_k_poses=len(wk),
+                   rtol=GRADE_RTOL, seconds=secs,
+                   **{f"{m}_max_rel_diff": rel(m)
+                      for m in ("score", "lrmsd", "irmsd", "fnat")},
+                   capri_same=all(a["capri"] == b["capri"]
+                                  for a, b in pairs))
+    record = dict(complexes=n_cplx, decisions=4 * n_cplx,
+                  max_flips=MAX_FLIPS, flips=flips, n_flips=len(flips),
+                  max_abs_delta_best_lrmsd=max(m[0] for m in moved),
+                  best_lrmsd_moved=best_lrmsd_moved, rows=rows,
+                  launches=launches, kernels_vs_plain=kernels,
+                  tolerance={"shape_local": TOL_F32,
+                             "learned_local": TOL_BF16,
+                             "k2": TOL_F32},
+                  float32_card_vs_cpu=f32_rec,
+                  protocol=dict(base, dtype=settings["dtype"],
+                                rank=settings["rank"]))
+    return record
+
+
+def check_band100(record):
+    """Phase 7's gates, applied after its line is printed."""
+    launches = record["launches"]
+    check(record["n_flips"] <= MAX_FLIPS,
+          f"band 100: {record['n_flips']} of {record['decisions']} "
+          f"decisions differ from the committed CPU rows")
+    shape, learned = launches["shape_local"], launches["learned_local"]
+    check(shape["k1"] > 0 and shape["k1_tc"] == 0,
+          f"shape_local: K1 not all on the SIMT kernel {shape}")
+    check(learned["k1"] > 0 and learned["k1_tc"] == learned["k1"],
+          f"learned_local: K1 not all on the tensor cores {learned}")
+    for key, n in launches.items():
+        check(n["k2"] > 0 and n["k2_fft"] == n["k2"],
+              f"{key}: a K2 launch missed the FFT kernel {n}")
+        check(n["k3"] == 0, f"{key}: K3 ran {n}")
+    # Each row's K1 launches at its two ligand boxes (24 and 32) and its
+    # K2 launch, held against their plain versions.
+    k1_route = {"shape_local": "simt", "learned_local": "tc"}
+    for key, errs in record["kernels_vs_plain"].items():
+        check(sorted(errs) == ["k1_box24", "k1_box32", "k2"],
+              f"{key}: launches held against plain {sorted(errs)}")
+        for name, e in errs.items():
+            route, limit = (("fft", record["tolerance"]["k2"])
+                            if name == "k2" else
+                            (k1_route[key], record["tolerance"][key]))
+            check(e["route"] == route and e["rel_err"] <= limit,
+                  f"{key} {name} against its plain version: {e}")
+    f32 = record["float32_card_vs_cpu"]
+    check(f32["capri_same"] and all(
+        f32[f"{m}_max_rel_diff"] <= GRADE_RTOL
+        for m in ("score", "lrmsd", "irmsd", "fnat")),
+        f"float32 grading differs card vs CPU: {f32}")
 
 
 def main():
@@ -242,20 +485,6 @@ def main():
                 corr.WyRe, corr.WyIm, corr.WxRe, corr.WxIm, corr.UxRe,
                 corr.UxIm, corr.UyRe, corr.UyIm)
 
-    def k1_check(args):
-        """((max abs err, rel err), route, D) of one K1 launch, held
-        against the plain version."""
-        X, Y = args[0].shape[-2:]
-        route = fused.k1_route(args[0].dtype, X, Y, L, L, L, L)
-        tc0 = fused.launches_tc
-        got = fused.fused_correlate(*args)
-        torch.cuda.synchronize()
-        check(fused.launches_tc - tc0 == int(route == "tc"),
-              f"K1 at box {X} did not launch its {route} kernel")
-        want = fused.fused_correlate_reference(*args)
-        e = [rel_err(g, w) for g, w in zip(got, want)]
-        return (max(a for a, _ in e), max(r for _, r in e)), route, got
-
     def k2_random_check(Lk, b=8, seed=0):
         """((max abs err, rel err), route) of one K2 launch at grid Lk on
         a random D, with a random mask (40% masked, one whole y run),
@@ -267,15 +496,10 @@ def main():
         bk = torch.where(torch.rand((Lk,) * 3, generator=g, device=dev)
                          < 0.6, 0.0, float("-inf"))
         bk[3, 0:32, 5] = float("-inf")
-        f0 = invz_topk.launches_fft
-        got = invz_topk.invz_blockmax(*Dk, corr.MzRe, corr.MzIm, bk)
-        torch.cuda.synchronize()
-        route = "fft" if invz_topk.launches_fft > f0 else "dense"
-        want = invz_topk.invz_blockmax_reference(*Dk, corr.MzRe, corr.MzIm,
-                                                 bk)
+        err, route, got = k2_check((*Dk, corr.MzRe, corr.MzIm, bk))
         check(bool((got[:, 3, 0, 5] == float("-inf")).all()),
               f"K2 at L={Lk}: a fully masked run is not -inf")
-        return rel_err(got, want), route
+        return err, route
 
     def k3_inputs(b):
         """K3's arguments as the ``dft_pallas`` sweep builds them for b
@@ -327,15 +551,9 @@ def main():
             errs[key], routes[key], _ = k1_check(k1_random_inputs(2, box))
         errs["k1_f32_box96_random"], routes["k1_f32_box96_random"], _ = (
             k1_check(k1_random_inputs(2, 96, dtype_name="float32")))
-        f0 = invz_topk.launches_fft
-        bk = invz_topk.invz_blockmax(D[0], D[1], corr32.MzRe, corr32.MzIm,
-                                     bias)
-        torch.cuda.synchronize()
-        check(invz_topk.launches_fft == f0 + 1,
-              "K2 at L=128 did not launch its FFT kernel")
-        br = invz_topk.invz_blockmax_reference(D[0], D[1], corr32.MzRe,
-                                               corr32.MzIm, bias)
-        errs["k2_fft"] = rel_err(bk, br)
+        errs["k2_fft"], route, bk = k2_check(
+            (D[0], D[1], corr32.MzRe, corr32.MzIm, bias))
+        check(route == "fft", "K2 at L=128 did not launch its FFT kernel")
         k2_routes = {}
         for key, Lk in (("k2_fft_L64", 64), ("k2_dense_L96", 96)):
             errs[key], k2_routes[key] = k2_random_check(Lk)
@@ -831,6 +1049,21 @@ def main():
     check(np.allclose(gf.scores, wf.scores, rtol=1e-3, atol=0),
           "refine differs card vs CPU")
 
+    # ---- phase 7: band 100's local rows against the committed CPU rows ----
+    band = band100_local(dev, params)
+    emit("band100_local", card=card, **band)
+    check_band100(band)
+    band_launches = band["launches"]
+
+    def band_count(name):
+        return sum(n[name] for n in band_launches.values())
+
+    def band_errs(prefix):
+        """Phase 7's max abs errors against plain, by row and launch."""
+        return {row: {n: e["max_abs_err"] for n, e in errs.items()
+                      if n.startswith(prefix)}
+                for row, errs in band["kernels_vs_plain"].items()}
+
     src = "deeplocalproteindocking_torch/csrc/"
     tpu = "deeplocalproteindocking_tpu/correlate/"
     print(json.dumps({"kernels": [
@@ -844,8 +1077,11 @@ def main():
              "tc": main_launches["fused_correlate_tc"],
              "simt": main_launches["fused_correlate"]
              - main_launches["fused_correlate_tc"]},
+         "launches_band100": {"tc": band_count("k1_tc"),
+                              "simt": band_count("k1_simt")},
          "max_abs_err": errs["k1_bfloat16"][0],
          "max_abs_err_float32": errs["k1_float32"][0],
+         "max_abs_err_band100": band_errs("k1"),
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
          "ms": k1_ms, "simt_ms": k1_simt_ms,
          "simt_float32_box96_ms": k1_simt_f32_box96_ms,
@@ -856,9 +1092,11 @@ def main():
          "source": src + "invz_blockmax_fft.cu",
          "replaces": tpu + "pallas_invz_topk.py:54",
          "launches": main_launches["invz_blockmax_fft"],
+         "launches_band100": band_count("k2_fft"),
          "max_abs_err": errs["k2_fft"][0],
          "max_abs_err_L64": errs["k2_fft_L64"][0],
          "max_abs_err_b128": k2_errs["fft"][0],
+         "max_abs_err_band100": band_errs("k2"),
          "tolerance": f"float32 {TOL_F32} x max|plain|",
          "ms": k2_fft_ms, "plain_ms": k2_plain_ms,
          "bound_ms": bounds["k2"]["bound_ms"],
@@ -868,6 +1106,7 @@ def main():
          "replaces": tpu + "pallas_invz_topk.py:54",
          "launches": dense_path["k2_launches"],
          "launches_path": "one dock request at grid 96 (K2's dense route)",
+         "launches_band100": band_count("k2") - band_count("k2_fft"),
          "max_abs_err": errs["k2_dense_L96"][0],
          "max_abs_err_b128": k2_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
@@ -879,6 +1118,7 @@ def main():
          "replaces": tpu + "pallas_idft.py:34",
          "launches": screen_fft_launches,
          "launches_path": "the screening service at grid 128 (phase 5)",
+         "launches_band100": band_count("k3_fft"),
          "max_abs_err": errs["k3"][0],
          "max_abs_err_L64": errs["k3_fft_L64"][0],
          "max_abs_err_b128": k3_errs["fft"][0],
@@ -893,6 +1133,7 @@ def main():
          "launches": k3_dense_path["k3_launches"],
          "launches_path": "one dft_pallas dock at grid 96 (K3's dense "
                           "route)",
+         "launches_band100": band_count("k3") - band_count("k3_fft"),
          "max_abs_err": errs["k3_dense_L96"][0],
          "max_abs_err_b128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",

@@ -1,9 +1,9 @@
 """Synthetic docked complexes and padded device tensors.
 
-Port of the main-path part of ``deeplocalproteindocking_tpu/data/
-benchmark.py``: the deterministic carved-blob generator (numpy, the same
-draws from the same seed) and ``structure_to_device``.  The polymer
-backbone generator (``backbone=True``) is not ported yet.
+Port of the synthetic part of ``deeplocalproteindocking_tpu/data/
+benchmark.py``: the deterministic carved complexes, from residue blobs or
+from polymer chains (numpy, the same draws from the same seed), and
+``structure_to_device``.
 """
 from __future__ import annotations
 
@@ -109,18 +109,29 @@ def synthetic_complex(seed: int = 0, n_res_rec: int = 30,
                       backbone: bool = False) -> Complex:
     """Deterministic synthetic docked complex: one globular blob carved
     into a receptor and the surface chunk of ``n_res_lig`` residues
-    nearest the most protruding residue (the ligand).  The receptor is
-    centered at the origin; the ligand keeps its native placement."""
-    if backbone:
-        raise NotImplementedError(
-            "backbone=True (the polymer generator) is not ported yet")
+    nearest a seed residue (the ligand).  The receptor is centered at the
+    origin; the ligand keeps its native placement.
+
+    ``backbone=True`` builds the blob as one chain with covalent polymer
+    geometry (``data/polymer.py``) and seeds the carve at the residue of
+    the ~75th depth percentile, which carves a concave native interface;
+    the blob generator seeds it at the most protruding residue.
+    ``unbound_rmsd > 0`` then deforms receptor and ligand independently
+    in place (:func:`_deform`), the unbound protocol."""
     rng = np.random.default_rng(seed)
-    whole = _random_chain(rng, n_res_rec + n_res_lig, "A")
+    if backbone:
+        from deeplocalproteindocking_torch.data.polymer import polymer_chain
+        whole = polymer_chain(rng, n_res_rec + n_res_lig, "A")
+    else:
+        whole = _random_chain(rng, n_res_rec + n_res_lig, "A")
     n_res = n_res_rec + n_res_lig
     res_centers = np.stack([
         whole.coords[whole.res_ids == i + 1].mean(0) for i in range(n_res)])
     depth = np.linalg.norm(res_centers - whole.coords.mean(0), axis=1)
-    seed_res = int(np.argmax(depth))
+    if backbone:
+        seed_res = int(np.argsort(depth)[int(0.75 * (n_res - 1))])
+    else:
+        seed_res = int(np.argmax(depth))
     d_to_seed = np.linalg.norm(res_centers - res_centers[seed_res], axis=1)
     lig_res = set((np.argsort(d_to_seed)[:n_res_lig] + 1).tolist())
     lig_mask = np.isin(whole.res_ids, list(lig_res))

@@ -38,9 +38,17 @@ def test_synthetic_complex_equal(seed, n_rec, n_lig, unbound):
     _assert_structures_equal(a.ligand, b.ligand)
 
 
-def test_synthetic_backbone_not_ported():
-    with pytest.raises(NotImplementedError):
-        tbench.synthetic_complex(0, backbone=True)
+@pytest.mark.parametrize("s", range(48))
+def test_synthetic_backbone_band100_equal(s):
+    """Complex ``s`` of the held-out band 100 (polymer chains, widen
+    sizes, unbound 1.2 A) equals the JAX package's bit for bit."""
+    kw = dict(seed=100 + s, n_res_rec=12 + s % 9, n_res_lig=6 + (s // 9) % 5,
+              unbound_rmsd=1.2, backbone=True)
+    a = tbench.synthetic_complex(**kw)
+    b = jbench.synthetic_complex(**kw)
+    assert a.name == b.name
+    _assert_structures_equal(a.receptor, b.receptor)
+    _assert_structures_equal(a.ligand, b.ligand)
 
 
 @pytest.mark.parametrize("bucket,max_atoms", [(None, None), (64, None),
@@ -175,10 +183,10 @@ def test_pose_rmsd_and_nms():
 
 
 def test_port_imports_without_jax():
-    """The port's docking, screening and refinement paths import where
-    jax, flax, optax and orbax are absent, never load the JAX package
-    itself, and open no file under it (no module of the JAX package run
-    on its own, as a file)."""
+    """The port's docking, screening, refinement and grading paths import
+    where jax, flax, optax and orbax are absent, never load the JAX
+    package itself, and open no file under it (no module of the JAX
+    package run on its own, as a file); a polymer complex builds there."""
     code = (
         "import os, sys\n"
         "tpu = os.sep + 'deeplocalproteindocking_tpu' + os.sep\n"
@@ -196,6 +204,14 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.correlate.idft\n"
         "import deeplocalproteindocking_torch.sweep.refine\n"
         "import deeplocalproteindocking_torch.serving\n"
+        "import deeplocalproteindocking_torch.eval_matrix\n"
+        "import deeplocalproteindocking_torch.evaluation\n"
+        "import deeplocalproteindocking_torch.data.polymer\n"
+        "import deeplocalproteindocking_torch.train.data_gen\n"
+        "import deeplocalproteindocking_torch.utils.logging\n"
+        "from deeplocalproteindocking_torch.eval_matrix import (\n"
+        "    heldout_complexes)\n"
+        "heldout_complexes(1, widen=True, unbound=1.2, backbone=True)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('deeplocalproteindocking_tpu')]\n"
         "assert not bad, bad\n"
