@@ -67,6 +67,23 @@ phase that does not hold:
    poses in rank order and its 64 top-K poses before clustering matched
    by rotation and shift (score, LRMSD, IRMSD and fnat of every pose
    within 1e-3 relative, the same CAPRI classes).
+8. batched and ensemble docking on the same model: ``evaluation.
+   run_benchmark_batched`` on the complexes of seeds 0-3 as one group
+   (2,048 rotations each, chunk 32 per complex: 128 rows per step),
+   every K1 launch on the tensor cores with 4 receptor groups and every
+   K2 launch on the FFT kernel with 4 bias groups, its first K1 and K2
+   launches held against plain; each complex's row of the batched sweep
+   against its own sweep at the group's box (top-K values, top-1 pose);
+   its hit decisions against the sequential ``run_benchmark``; then
+   ``dock_ensemble`` of 2 receptor x 2 ligand models ("product", K1 with
+   one receptor group per pair) against four single docks merged on the
+   host; then ``dock_batch`` of two complexes at float32, grid 64, 256
+   rotations on ``dft_fused`` (SIMT K1, 2 groups; FFT K2) and on
+   ``dft_pallas`` (FFT K3), on the card and on the CPU (top-K within
+   1e-3 relative, the same top-1 per complex).  Phase 2 also holds K1
+   with 4 receptor groups against plain (tensor cores at b = 128, the
+   batched step; SIMT in float32 at b = 8) and times G = 4 against
+   G = 1 in turns.
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -97,6 +114,10 @@ BAND100_ENV = dict(EM_COMPLEXES="48", EM_MODES="local", EM_WIDEN="1",
 # on these rows (platform_parity_band100.json).
 MAX_FLIPS = 3
 GRADE_RTOL = 1e-3
+# Phase 8: a batched sweep's rows, and the ensemble's pairs, against the
+# same complexes swept alone, top-K values relative (the ensemble's
+# single docks may run a smaller ligand box than the pairs' shared one).
+BATCH_RTOL = 1e-3
 
 
 def emit(phase, **fields):
@@ -379,6 +400,251 @@ def check_band100(record):
         f"float32 grading differs card vs CPU: {f32}")
 
 
+def batched_and_ensemble(dev, pipe, params, cmp_cfg, group):
+    """Phase 8: batched evaluation, ensemble docking and batched card vs
+    CPU, each path driven with the launch counts set to 0 just before it
+    and read just after.  Returns the phase's record."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch.correlate import (dft, fused, idft,
+                                                         invz_topk)
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.evaluation import (
+        batch_inputs, run_benchmark, run_benchmark_batched)
+    from deeplocalproteindocking_torch.parallel import batch_eval
+    from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
+                                                        ensemble_pair_batch)
+    from deeplocalproteindocking_torch.sweep.resplat import (
+        dock_sweep_resplat)
+
+    def reset():
+        fused.launches = fused.launches_tc = 0
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+
+    def counts():
+        return dict(k1=fused.launches, k1_tc=fused.launches_tc,
+                    k2=invz_topk.launches, k2_fft=invz_topk.launches_fft,
+                    k3=idft.launches, k3_fft=idft.launches_fft)
+
+    # Spies record each launch's receptor and bias groups, keep the first
+    # launch's arguments and time each batched sweep; each launches as
+    # the path would.
+    k1_launch, k2_launch = dft.fused_correlate, invz_topk.invz_blockmax
+    dock_batch = batch_eval.dock_batch
+    seen = {}
+
+    def k1_spy(*args):
+        seen.setdefault("k1_groups", []).append(
+            args[2].shape[0] if args[2].ndim == 5 else 1)
+        seen.setdefault("k1", args)
+        return k1_launch(*args)
+
+    def k2_spy(*args):
+        seen.setdefault("k2_groups", []).append(
+            args[4].shape[0] if args[4].ndim == 4 else 1)
+        seen.setdefault("k2", args)
+        return k2_launch(*args)
+
+    def sweep_spy(*args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = dock_batch(*args, **kw)
+        torch.cuda.synchronize(dev)
+        seen.setdefault("sweeps", []).append(
+            dict(args=args, kw=kw, res=res,
+                 seconds=time.perf_counter() - t0))
+        return res
+
+    def spied(fn):
+        seen.clear()
+        reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dft.fused_correlate, invz_topk.invz_blockmax = k1_spy, k2_spy
+        batch_eval.dock_batch = sweep_spy
+        try:
+            out = fn()
+        finally:
+            dft.fused_correlate, invz_topk.invz_blockmax = (k1_launch,
+                                                            k2_launch)
+            batch_eval.dock_batch = dock_batch
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0, counts()
+
+    def max_rel(a, w):
+        a, w = np.sort(np.asarray(a)), np.sort(np.asarray(w))
+        return float(np.max(np.abs(a - w) / np.abs(w)))
+
+    n_rot = pipe.config.num_rotations
+    tmp = tempfile.mkdtemp(prefix="dlpd_batched_")
+    try:
+        # -- batched evaluation: the four complexes as one group --
+        _, wall, launches = spied(lambda: run_benchmark_batched(
+            pipe, group, os.path.join(tmp, "batched"),
+            group_size=len(group)))
+        sweep = seen["sweeps"][0]
+        k1_groups = sorted(set(seen["k1_groups"]))
+        k2_groups = sorted(set(seen["k2_groups"]))
+        with torch.inference_mode():
+            (k1_err, k1_rel), k1_route, _ = k1_check(seen["k1"])
+            (k2_err, k2_rel), k2_route, _ = k2_check(seen["k2"])
+        # Each complex's row against its own sweep at the group's box.
+        H_b, lc, lt, lm, rots, rep_fn = sweep["args"]
+        kw, res = sweep["kw"], sweep["res"]
+        rows = []
+        for i, c in enumerate(group):
+            one = dock_sweep_resplat(
+                H_b[i], lc[i], lt[i], lm[i], rots, rep_fn,
+                **dict(kw, score_mask=(None if kw["score_mask"] is None
+                                       else kw["score_mask"][i])))
+            a, w = res.scores[i].cpu().numpy(), one.scores.cpu().numpy()
+            rows.append(dict(
+                name=c.name, max_rel_diff=max_rel(a, w),
+                top1_same=(int(res.rot_idx[i, 0]) == int(one.rot_idx[0])
+                           and res.shifts[i, 0].tolist()
+                           == one.shifts[0].tolist())))
+        seq_t0 = time.perf_counter()
+        run_benchmark(pipe, group, os.path.join(tmp, "seq"))
+        seq_s = time.perf_counter() - seq_t0
+        decisions = []
+        for c in group:
+            got = {}
+            for mode in ("batched", "seq"):
+                with open(os.path.join(tmp, mode, f"{c.name}.json")) as f:
+                    got[mode] = json.load(f)
+            decisions.append(dict(
+                name=c.name,
+                **{f"{m}_{k}": got[m][k] for m in ("batched", "seq")
+                   for k in ("hit_top1", "hit_top10")}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batched = dict(
+        complexes=[c.name for c in group], rotations=n_rot,
+        group_size=len(group), lig_grid=kw["lig_grid"], chunk=kw["chunk"],
+        rows_per_step=kw["chunk"] * len(group),
+        atoms_padded=int(lc.shape[1]), sweep_seconds=sweep["seconds"],
+        rotations_per_second=len(group) * n_rot / sweep["seconds"],
+        wall_seconds=wall, sequential_wall_seconds=seq_s,
+        launches=launches, k1_groups=k1_groups, k2_groups=k2_groups,
+        k1_first=dict(route=k1_route, shape=list(seen["k1"][0].shape),
+                      h_shape=list(seen["k1"][2].shape), max_abs_err=k1_err,
+                      rel_err=k1_rel),
+        k2_first=dict(route=k2_route, bias_shape=list(seen["k2"][4].shape),
+                      max_abs_err=k2_err, rel_err=k2_rel),
+        rows_vs_single=rows, decisions=decisions)
+    del seen["sweeps"], sweep, res, H_b
+
+    # -- ensemble: 2 receptor x 2 ligand models, "product" --
+    c0 = group[0]
+    ub = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30,
+                           unbound_rmsd=1.2)
+    recs, ligs = [c0.receptor, ub.receptor], [c0.ligand, ub.ligand]
+    with torch.no_grad():
+        _, rep0, cpl0 = pipe._receptor_half(recs[0])
+        pair_batch = ensemble_pair_batch(pipe._engine_parts(rep0, cpl0)[1])
+    (merged, pairs), ens_s, ens_launches = spied(
+        lambda: pipe.dock_ensemble(recs, ligs, cluster=False))
+    ens_k1_groups = sorted(set(seen["k1_groups"]))
+    clustered, cpairs = pipe._merge_ensemble(merged, pairs, ligs, True)
+    singles, tags = [], []
+    for ri, li in itertools.product(range(2), range(2)):
+        p = pipe.dock(recs[ri], ligs[li], cluster=False)
+        singles.append(p.scores)
+        tags += [(ri, li)] * len(p)
+    single = np.concatenate(singles)
+    top = int(np.argmax(single))
+    ensemble = dict(
+        models="seed 0 bound and unbound (1.2 A) sides", pairing="product",
+        pairs=4, pair_batch=pair_batch, seconds=ens_s, launches=ens_launches,
+        k1_groups=ens_k1_groups, poses_before_nms=len(merged),
+        poses_after_nms=len(clustered),
+        max_rel_diff_vs_single_docks=max_rel(merged.scores, single),
+        top1_pair=[int(v) for v in pairs[0]], top1_pair_single=list(tags[top]),
+        top1_score=float(merged.scores[0]), top1_score_single=float(
+            single[top]))
+
+    # -- card against CPU: dock_batch of two complexes at float32 --
+    vs_cpu = {}
+    for engine in ("dft_fused", "dft_pallas"):
+        cfg = cmp_cfg.replace(fft_impl=engine)
+        out = {}
+        for where in ("card", "cpu"):
+            p = DockingPipeline(cfg, params=params,
+                                device=dev if where == "card" else "cpu")
+            rots = torch.as_tensor(p.rotation_set(), dtype=torch.float32,
+                                   device=p.device)
+            args, kw2 = batch_inputs(p, group[:2], rots)
+            if where == "card":
+                r, secs, n = spied(lambda: batch_eval.dock_batch(*args,
+                                                                 **kw2))
+                groups = sorted(set(seen.get("k1_groups", [])))
+            else:
+                t0 = time.perf_counter()
+                r, n, groups = batch_eval.dock_batch(*args, **kw2), None, None
+                secs = time.perf_counter() - t0
+            out[where] = (r.scores.cpu().numpy(), r.rot_idx.cpu().numpy(),
+                          r.shifts.cpu().numpy(), secs, n, groups)
+        (gs, gr, gsh, g_s, g_n, g_groups) = out["card"]
+        (ws, wr, wsh, w_s, _, _) = out["cpu"]
+        vs_cpu[engine] = dict(
+            grid=cfg.grid_size, rotations=cfg.num_rotations,
+            dtype=cfg.dft_dtype, complexes=2, lig_grid=kw2["lig_grid"],
+            cuda_seconds=g_s, cpu_seconds=w_s, launches=g_n,
+            k1_groups=g_groups,
+            max_rel_diff=max(max_rel(gs[i], ws[i]) for i in range(2)),
+            top1_same=all(int(gr[i, 0]) == int(wr[i, 0])
+                          and gsh[i, 0].tolist() == wsh[i, 0].tolist()
+                          for i in range(2)))
+    return dict(batched=batched, ensemble=ensemble, card_vs_cpu=vs_cpu)
+
+
+def check_batched(record):
+    """Phase 8's gates, applied after its line is printed."""
+    b, e, v = record["batched"], record["ensemble"], record["card_vs_cpu"]
+    n, G = b["launches"], b["group_size"]
+    check(n["k1"] > 0 and n["k1_tc"] == n["k1"] and b["k1_groups"] == [G],
+          f"batched: K1 not all on the tensor cores with {G} groups "
+          f"{n} {b['k1_groups']}")
+    check(n["k2"] > 0 and n["k2_fft"] == n["k2"] and b["k2_groups"] == [G]
+          and n["k3"] == 0,
+          f"batched: K2 not all FFT with {G} groups {n} {b['k2_groups']}")
+    check(b["k1_first"]["route"] == "tc"
+          and b["k1_first"]["rel_err"] <= TOL_BF16
+          and b["k2_first"]["route"] == "fft"
+          and b["k2_first"]["rel_err"] <= TOL_F32,
+          f"batched: first launches against plain {b['k1_first']} "
+          f"{b['k2_first']}")
+    for r in b["rows_vs_single"]:
+        check(r["max_rel_diff"] <= BATCH_RTOL and r["top1_same"],
+              f"batched row against its own sweep: {r}")
+    for d in b["decisions"]:
+        check(d["batched_hit_top1"] == d["seq_hit_top1"]
+              and d["batched_hit_top10"] == d["seq_hit_top10"],
+              f"batched decisions differ from run_benchmark: {d}")
+    check(e["k1_groups"] == [min(e["pair_batch"], e["pairs"])]
+          and e["launches"]["k1_tc"] == e["launches"]["k1"] > 0,
+          f"ensemble: K1 groups {e['k1_groups']}, launches {e['launches']}")
+    check(e["max_rel_diff_vs_single_docks"] <= BATCH_RTOL
+          and e["top1_pair"] == e["top1_pair_single"],
+          f"ensemble against four single docks: {e}")
+    for engine, r in v.items():
+        n = r["launches"]
+        check(r["max_rel_diff"] <= 1e-3 and r["top1_same"],
+              f"{engine} dock_batch card vs CPU: {r}")
+        if engine == "dft_fused":
+            check(n["k1"] > 0 and n["k1_tc"] == 0 and r["k1_groups"] == [2]
+                  and n["k2_fft"] == n["k2"] > 0,
+                  f"dft_fused dock_batch launches {n} {r['k1_groups']}")
+        else:
+            check(n["k3_fft"] == n["k3"] > 0,
+                  f"dft_pallas dock_batch launches {n}")
+
+
 def main():
     import numpy as np
     import torch
@@ -394,6 +660,7 @@ def main():
         receptor_transform)
     from deeplocalproteindocking_torch.data import (structure_to_device,
                                                     synthetic_complex)
+    from deeplocalproteindocking_torch.evaluation import batch_inputs
     from deeplocalproteindocking_torch.grids.voxelize import (
         separable_splat)
     from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
@@ -450,6 +717,16 @@ def main():
     mask = dock_score_mask(serve_cfg, lig_c, device=dev)
     check(mask is not None, "the bench complex should need a wrap mask")
     bias = torch.where(mask, 0.0, float("-inf")).to(torch.float32)
+    # Phase 8's group: the complexes of seeds 0-3, whose four receptor
+    # spectra (from the batched receptor engine) phase 2 gives K1 too.
+    group = [synthetic_complex(seed=s, n_res_rec=60, n_res_lig=30)
+             for s in range(4)]
+    (H4, *_), _ = batch_inputs(pipe, group,
+                               super_fibonacci_rotations(8, dev))
+
+    def grouped(corr, args):
+        """``args`` with the four receptor spectra as K1's H groups."""
+        return args[:2] + corr.prep_H(H4) + args[4:]
 
     def k1_inputs(b, dtype_name, box=Ls):
         """K1's arguments as the main path builds them for b rotations
@@ -551,6 +828,8 @@ def main():
             errs[key], routes[key], _ = k1_check(k1_random_inputs(2, box))
         errs["k1_f32_box96_random"], routes["k1_f32_box96_random"], _ = (
             k1_check(k1_random_inputs(2, 96, dtype_name="float32")))
+        errs["k1_f32_G4"], routes["k1_f32_G4"], _ = k1_check(
+            grouped(*k1_inputs(8, "float32")))
         errs["k2_fft"], route, bk = k2_check(
             (D[0], D[1], corr32.MzRe, corr32.MzIm, bias))
         check(route == "fft", "K2 at L=128 did not launch its FFT kernel")
@@ -584,7 +863,8 @@ def main():
          k1_float32_rel_err=errs["k1_float32"][1],
          k1_bf16_max_abs_err=errs["k1_bfloat16"][0],
          k1_bf16_rel_err=errs["k1_bfloat16"][1],
-         k1_more={k: dict(rel_err=v[1], max_abs_err=v[0], batch=2)
+         k1_more={k: dict(rel_err=v[1], max_abs_err=v[0],
+                          batch=8 if k.endswith("G4") else 2)
                   for k, v in errs.items()
                   if k.startswith(("k1_bf16_", "k1_f32_"))},
          k1_routes=routes,
@@ -599,7 +879,7 @@ def main():
          k3_dense_L96_rel_err=errs["k3_dense_L96"][1], k3_routes=k3_routes,
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
-    for key in ("k1_float32", "k1_f32_box96_random"):
+    for key in ("k1_float32", "k1_f32_box96_random", "k1_f32_G4"):
         check(errs[key][1] <= TOL_F32, f"K1 {key} {errs}")
     for key in ("k1_bfloat16", "k1_bf16_box40", "k1_bf16_box64_random",
                 "k1_bf16_box72_random"):
@@ -607,7 +887,8 @@ def main():
     check(routes == {"k1_float32": "simt", "k1_bfloat16": "tc",
                      "k1_bf16_box40": "tc", "k1_bf16_box64_random": "tc",
                      "k1_bf16_box72_random": "simt",
-                     "k1_f32_box96_random": "simt"}, f"K1 routes {routes}")
+                     "k1_f32_box96_random": "simt", "k1_f32_G4": "simt"},
+          f"K1 routes {routes}")
     for key in ("k2_fft", "k2_fft_L64", "k2_dense_L96"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
     check(k2_routes == {"k2_fft_L64": "fft", "k2_dense_L96": "dense"},
@@ -659,11 +940,27 @@ def main():
         # K1's function as FFTs, per (rotation, kz): forward along y (X
         # rows) and x (L columns) per channel, the product with H summed
         # over channels, inverse along x and y.
-        bounds = {"k1": bound(
-            sum(t.numel() * t.element_size() for t in args16)
-            + 2 * D16[0].numel() * 4,
-            (C * (X + L) * fft_flops(L) + 8 * C * L * L
-             + 2 * L * fft_flops(L)) * K * b, "bfloat16")}
+        k1_flops = (C * (X + L) * fft_flops(L) + 8 * C * L * L
+                    + 2 * L * fft_flops(L)) * K * b
+
+        def k1_bound(args):
+            return bound(sum(t.numel() * t.element_size() for t in args)
+                         + 2 * D16[0].numel() * 4, k1_flops, "bfloat16")
+
+        bounds = {"k1": k1_bound(args16)}
+        # The batched step: 4 complexes x 32 rotations against their own
+        # spectra (the bound's bytes gain 3 spectra), against plain, and
+        # timed in turns with G = 1 on the same A.
+        args16_g4 = grouped(corr16, args16)
+        bounds["k1_G4"] = k1_bound(args16_g4)
+        k1g_err, k1g_route, _ = k1_check(args16_g4)
+        k1_turns = {"G1": [], "G4": []}
+        for key in ("G1", "G4", "G4", "G1"):
+            a = args16_g4 if key == "G4" else args16
+            k1_turns[key].append(cuda_time_ms(
+                lambda: fused.fused_correlate(*a)))
+        k1_g4_ms = sum(k1_turns["G4"]) / 2
+        del args16_g4
         k2_turns, k2_plain_ms, k2_errs, bounds["k2"] = k2_both_routes(
             (D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias[None]))
         k2_fft_ms = sum(k2_turns["fft"]) / 2
@@ -707,6 +1004,8 @@ def main():
         del a96, D96
     emit("kernel_times", batch=128, dtype="bfloat16", Ls=Ls, k1_ms=k1_ms,
          k1_simt_ms=k1_simt_ms, k1_plain_ms=k1_plain_ms,
+         k1_groups=dict(G=4, turns=k1_turns, ms=k1_g4_ms, route=k1g_route,
+                        max_abs_err=k1g_err[0], rel_err=k1g_err[1]),
          k2_fft_ms=k2_fft_ms, k2_dense_ms=k2_dense_ms, k2_turns=k2_turns,
          k2_plain_ms=k2_plain_ms, k2_dtype="float32",
          k2_rel_err={r: e[1] for r, e in k2_errs.items()},
@@ -726,6 +1025,8 @@ def main():
                "SIMT K1)", card=card)
     check(k3_library_err[1] <= TOL_F32,
           f"torch.fft.ifft2 is not K3's function: {k3_library_err}")
+    check(k1g_route == "tc" and k1g_err[1] <= TOL_BF16,
+          f"K1 with 4 receptor groups at b=128: {k1g_route} {k1g_err}")
     for shape, route_errs in (("b=128", k2_errs), ("b=48, G=16", k2g_errs)):
         for route, e in route_errs.items():
             check(e[1] <= TOL_F32, f"K2 {route} at {shape}: {e}")
@@ -1055,6 +1356,17 @@ def main():
     check_band100(band)
     band_launches = band["launches"]
 
+    # ---- phase 8: batched and ensemble docking ----
+    del H4
+    phase8 = batched_and_ensemble(dev, pipe, params, cmp_cfg, group)
+    phase8["batched"]["phase3_request_seconds"] = [
+        r["wall_seconds"] for r in requests]
+    phase8["batched"]["phase3_rotations_per_second"] = [
+        r["rotations_per_second"] for r in requests]
+    emit("batched_and_ensemble", card=card, rtol=BATCH_RTOL, **phase8)
+    check_batched(phase8)
+    batched_launches = phase8["batched"]["launches"]
+
     def band_count(name):
         return sum(n[name] for n in band_launches.values())
 
@@ -1082,6 +1394,17 @@ def main():
          "max_abs_err": errs["k1_bfloat16"][0],
          "max_abs_err_float32": errs["k1_float32"][0],
          "max_abs_err_band100": band_errs("k1"),
+         "launches_batched": {"tc": batched_launches["k1_tc"],
+                              "simt": batched_launches["k1"]
+                              - batched_launches["k1_tc"],
+                              "h_groups": phase8["batched"]["k1_groups"]},
+         "max_abs_err_groups": {
+             "tc_G4_b128": k1g_err[0], "simt_float32_G4_b8":
+             errs["k1_f32_G4"][0],
+             "batched_first_launch": phase8["batched"]["k1_first"][
+                 "max_abs_err"]},
+         "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
+         "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
          "ms": k1_ms, "simt_ms": k1_simt_ms,
          "simt_float32_box96_ms": k1_simt_f32_box96_ms,
@@ -1093,6 +1416,7 @@ def main():
          "replaces": tpu + "pallas_invz_topk.py:54",
          "launches": main_launches["invz_blockmax_fft"],
          "launches_band100": band_count("k2_fft"),
+         "launches_batched": batched_launches["k2_fft"],
          "max_abs_err": errs["k2_fft"][0],
          "max_abs_err_L64": errs["k2_fft_L64"][0],
          "max_abs_err_b128": k2_errs["fft"][0],

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every pointer and the stream are c_void_p.
 _SIGNATURES = {
-    "dlpd_fused_correlate": [_I] + [_P] * 14 + [_I] * 9 + [_P],
-    "dlpd_fused_correlate_tc": [_P] * 14 + [_I] * 9 + [_P],
+    "dlpd_fused_correlate": [_I] + [_P] * 14 + [_I] * 10 + [_P],
+    "dlpd_fused_correlate_tc": [_P] * 14 + [_I] * 10 + [_P],
     "dlpd_invz_blockmax": [_P] * 6 + [_I] * 6 + [_P],
     "dlpd_invz_blockmax_fft": [_P] * 4 + [_I] * 5 + [_P],
     "dlpd_idft_bc": [_P] * 7 + [_I] * 2 + [_P],

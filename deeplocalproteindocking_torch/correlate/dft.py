@@ -118,7 +118,9 @@ class DFTCorrelator:
                vols: torch.Tensor, inverse_impl: str = "einsum"
                ) -> torch.Tensor:
         """Score volumes ``[B, L, L, L]`` from the coupled receptor
-        spectrum ``Hre/Him [L, L, L//2+1, C]``.
+        spectrum ``Hre/Him [L, L, L//2+1, C]``, or ``[G, L, L, L//2+1,
+        C]`` with G dividing B: rows ``[g B/G, (g+1) B/G)`` couple with
+        ``H[g]``.
 
         ``inverse_impl="einsum"`` is the ``dft`` engine; ``"pallas"``
         (the ``dft_pallas`` engine) hands the float32 summed spectrum,
@@ -126,10 +128,15 @@ class DFTCorrelator:
         """
         fre, fim = self._cast(*self.ligand_spectrum(vols))
         Hre_, Him_ = self._cast(Hre, Him)
-        gre = (_mm("ijkc,bijkc->bijk", Hre_, fre)
-               + _mm("ijkc,bijkc->bijk", Him_, fim))
-        gim = (_mm("ijkc,bijkc->bijk", Him_, fre)
-               - _mm("ijkc,bijkc->bijk", Hre_, fim))
+        grouped = Hre.ndim == 5
+        if grouped:
+            fre = fre.reshape((Hre.shape[0], -1) + fre.shape[1:])
+            fim = fim.reshape(fre.shape)
+        eq = "gijkc,gbijkc->gbijk" if grouped else "ijkc,bijkc->bijk"
+        gre = _mm(eq, Hre_, fre) + _mm(eq, Him_, fim)
+        gim = _mm(eq, Him_, fre) - _mm(eq, Hre_, fim)
+        if grouped:
+            gre, gim = gre.flatten(0, 1), gim.flatten(0, 1)
         if inverse_impl == "pallas":
             return pallas_inverse(gre, gim, self.UxRe32, self.UxIm32,
                                   self.UxRe32, self.UxIm32, self.MzRe,
@@ -139,14 +146,18 @@ class DFTCorrelator:
     # ---- fused-kernel path (correlate/fused.py) ----
     def prep_H(self, H: torch.Tensor):
         """``H [i, j, k, c]`` complex -> (re, im) in the fused kernel's
-        ``[k, c, j, i]`` layout.  Once per complex."""
-        Ht = H.permute(2, 3, 1, 0)
+        ``[k, c, j, i]`` layout; ``[G, i, j, k, c]`` (one spectrum per
+        complex of a batched sweep) -> ``[G, k, c, j, i]``.  Once per
+        complex."""
+        Ht = (H.permute(2, 3, 1, 0) if H.ndim == 4
+              else H.permute(0, 3, 4, 2, 1))
         return (Ht.real.to(self.dtype).contiguous(),
                 Ht.imag.to(self.dtype).contiguous())
 
     def fused_D(self, HtRe: torch.Tensor, HtIm: torch.Tensor,
                 vols: torch.Tensor):
-        """``D (re, im) [b, K, X, Y]`` float32 via the fused kernel.
+        """``D (re, im) [b, K, X, Y]`` float32 via the fused kernel;
+        ``HtRe/HtIm`` from :meth:`prep_H`, one spectrum or G of them.
 
         The z forward pass is an einsum emitting the kernel's
         ``[b, k, c, x, y]`` layout; the kernel fuses forward-y/x +

@@ -16,21 +16,21 @@ from typing import Optional
 
 import torch
 
-_FFT_DIMS = (0, 1, 2)
+_FFT_DIMS = (-4, -3, -2)
 
 
 def receptor_transform(rec_rep: torch.Tensor,
                        coupling: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Coupled receptor spectrum ``H [L, L, L//2+1, C']`` complex64.
+    """Coupled receptor spectrum ``H [..., L, L, L//2+1, C']`` complex64.
 
-    ``rec_rep [L, L, L, C]`` float32; ``coupling [C, C']`` (None =
-    identity).
+    ``rec_rep [..., L, L, L, C]`` float32 (a leading axis: one receptor
+    per complex of a batch); ``coupling [C, C']`` (None = identity).
     """
     F_rec = torch.fft.rfftn(rec_rep.to(torch.float32), dim=_FFT_DIMS)
     if coupling is None:
         return F_rec
-    return torch.einsum("xyzc,cd->xyzd", F_rec,
+    return torch.einsum("...xyzc,cd->...xyzd", F_rec,
                         coupling.to(F_rec.device, torch.complex64))
 
 
@@ -56,11 +56,19 @@ def coupled_receptor(rep_rec: torch.Tensor,
 def correlate_scores(H: torch.Tensor, lig_rep: torch.Tensor
                      ) -> torch.Tensor:
     """Score volumes ``[..., L, L, L]`` of full-grid ligand reps
-    ``[..., L, L, L, C]`` against ``H`` (the ``xla`` engine)."""
+    ``[..., L, L, L, C]`` against ``H`` (the ``xla`` engine).  ``H [G,
+    L, L, L//2+1, C]`` holds one spectrum per group of rows: ``lig_rep
+    [B, ...]`` with G dividing B, rows ``[g B/G, (g+1) B/G)`` against
+    ``H[g]``."""
     L = lig_rep.shape[-2]
     F_lig = torch.fft.rfftn(lig_rep.to(torch.float32), dim=(-4, -3, -2))
+    grouped = H.ndim == 5
+    if grouped:
+        F_lig = F_lig.reshape((H.shape[0], -1) + F_lig.shape[1:])
+        H = H[:, None]
     G = torch.sum(H * torch.conj(F_lig), dim=-1)
-    return torch.fft.irfftn(G, s=(L, L, L), dim=(-3, -2, -1))
+    S = torch.fft.irfftn(G, s=(L, L, L), dim=(-3, -2, -1))
+    return S.flatten(0, 1) if grouped else S
 
 
 def flat_index_to_shift(flat: torch.Tensor, L: int) -> torch.Tensor:

@@ -10,6 +10,10 @@ Port of ``deeplocalproteindocking_tpu/correlate/pallas_fused.py``.  Per
     D[x',y']  = sum_j C[j,x']  Uy[j,y']         inverse y   (float32)
 
 "rounded" = cast back to the operand dtype, as the TPU kernel casts.
+``H`` is one coupled receptor spectrum for all b rows, or G of them
+(``[G, K, C, J, I]``, G dividing b): rows ``[g b/G, (g+1) b/G)``
+correlate against ``H[g]``, the rule K2's bias groups follow, so one
+launch serves a batched sweep step of G complexes.
 :func:`fused_correlate` runs the plain version
 :func:`fused_correlate_reference` for CPU tensors and launches one of two
 hand-written CUDA kernels for CUDA tensors, chosen by :func:`k1_route`
@@ -45,17 +49,37 @@ launches = 0
 launches_tc = 0
 
 
+def h_groups(Hre: torch.Tensor, b: int) -> int:
+    """G, the number of receptor spectra in ``Hre`` (``[K, C, J, I]``:
+    1; ``[G, K, C, J, I]``: G).  Raises unless the rank is 4 or 5 and G
+    divides the b rows."""
+    if Hre.ndim not in (4, 5):
+        raise ValueError(f"fused_correlate: H must be [K, C, J, I] or "
+                         f"[G, K, C, J, I], got {tuple(Hre.shape)}")
+    G = 1 if Hre.ndim == 4 else Hre.shape[0]
+    if G < 1 or b % G:
+        raise ValueError(f"fused_correlate: {G} receptor spectra do not "
+                         f"divide b={b} rows")
+    return G
+
+
 def fused_correlate_reference(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
                               UxRe, UxIm, UyRe, UyIm):
     """Plain torch version: the same formulas and rounding points as
-    the TPU kernel, as float32 einsums over the whole batch."""
+    the TPU kernel, as float32 einsums over the whole batch, the b rows
+    taken as ``(G, b/G)`` against G receptor spectra."""
     dt = Are.dtype
+    b = Are.shape[0]
+    G = h_groups(Hre, b)
     Bre, Bim = cmm("bkcxy,yj->bkcxj", Are, Aim, WyRe, WyIm)
     Bre, Bim = Bre.to(dt), Bim.to(dt)
     Fre, Fim = cmm("bkcxj,xi->bkcji", Bre, Bim, WxRe, WxIm)
-    Hr, Hi = Hre.to(torch.float32), Him.to(torch.float32)
-    Gre = (Hr * Fre + Hi * Fim).sum(dim=2).to(dt)       # [b, K, J, I]
-    Gim = (Hi * Fre - Hr * Fim).sum(dim=2).to(dt)
+    grouped = (G, b // G) + Fre.shape[1:]
+    Fre, Fim = Fre.reshape(grouped), Fim.reshape(grouped)
+    Hr = Hre.to(torch.float32).reshape((G, 1) + Hre.shape[-4:])
+    Hi = Him.to(torch.float32).reshape((G, 1) + Him.shape[-4:])
+    Gre = (Hr * Fre + Hi * Fim).sum(dim=3).to(dt).flatten(0, 1)
+    Gim = (Hi * Fre - Hr * Fim).sum(dim=3).to(dt).flatten(0, 1)
     Cre, Cim = cmm("bkji,ix->bkjx", Gre, Gim, UxRe, UxIm)
     Cre, Cim = Cre.to(dt), Cim.to(dt)
     return cmm("bkjx,jy->bkxy", Cre, Cim, UyRe, UyIm)
@@ -101,11 +125,11 @@ def simt_smem_bytes(X, I, Xp, Yp, dtype) -> int:
 
 def _launch_simt(args, dims, Dre, Dim):
     """``csrc/fused_correlate.cu`` on ``args`` as :func:`fused_correlate`
-    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``.  Raises before
-    the launch if a block would need more shared memory than Hopper
-    gives one."""
+    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``, the receptor
+    groups G read from H's shape.  Raises before the launch if a block
+    would need more shared memory than Hopper gives one."""
     global launches
-    _, _, _, X, _, _, I, Xp, Yp = dims
+    b, _, _, X, _, _, I, Xp, Yp = dims
     smem = simt_smem_bytes(X, I, Xp, Yp, args[0].dtype)
     if smem > SMEM_OPTIN_BYTES:
         raise ValueError(
@@ -116,7 +140,7 @@ def _launch_simt(args, dims, Dre, Dim):
     with torch.cuda.device(dev):
         err = _build.library().dlpd_fused_correlate(
             _KERNEL_DTYPES[args[0].dtype], *(t.data_ptr() for t in args),
-            Dre.data_ptr(), Dim.data_ptr(), *dims,
+            Dre.data_ptr(), Dim.data_ptr(), *dims, h_groups(args[2], b),
             _build.stream(args[0]))
     _build.check(err, "fused_correlate")
     launches += 1
@@ -131,7 +155,7 @@ def _launch_tc(args, dims, Dre, Dim):
     with torch.cuda.device(dev):
         err = _build.library().dlpd_fused_correlate_tc(
             *(t.data_ptr() for t in ops), Dre.data_ptr(), Dim.data_ptr(),
-            *dims, _build.stream(args[0]))
+            *dims, h_groups(args[2], dims[0]), _build.stream(args[0]))
     _build.check(err, "fused_correlate_tc")
     launches += 1
     launches_tc += 1
@@ -143,12 +167,14 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
 
     ``Are/Aim [b, K, C, X, Y]`` z-transformed ligand volumes;
     ``Hre/Him [K, C, J, I]`` coupled receptor spectrum
-    (``DFTCorrelator.prep_H``); twiddles ``Wy [Y, J]``, ``Wx [X, I]``,
-    ``Ux [I, X']``, ``Uy [J, Y']``; all of one dtype (float32 or
-    bfloat16) and device.
+    (``DFTCorrelator.prep_H``), or ``[G, K, C, J, I]`` with G dividing b
+    (row ``bb`` correlates against ``H[bb // (b/G)]``); twiddles
+    ``Wy [Y, J]``, ``Wx [X, I]``, ``Ux [I, X']``, ``Uy [J, Y']``; all of
+    one dtype (float32 or bfloat16) and device.
     """
     args = (Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe,
             UyIm)
+    h_groups(Hre, Are.shape[0])
     if Are.device.type == "cpu":
         return fused_correlate_reference(*args)
     if Are.device.type != "cuda":
@@ -165,7 +191,8 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
                          f"got J={J}, I={I}, X'={Xp}, Y'={Yp}")
     names = ("Are", "Aim", "Hre", "Him", "WyRe", "WyIm", "WxRe", "WxIm",
              "UxRe", "UxIm", "UyRe", "UyIm")
-    shapes = ((b, K, C, X, Y),) * 2 + ((K, C, J, I),) * 2 + (
+    h_shape = tuple(Hre.shape[:-4]) + (K, C, J, I)
+    shapes = ((b, K, C, X, Y),) * 2 + (h_shape,) * 2 + (
         (Y, J),) * 2 + ((X, I),) * 2 + ((I, Xp),) * 2 + ((J, Yp),) * 2
     _build.check_tensors("fused_correlate", Are.device, Are.dtype,
                          zip(names, args, shapes))

@@ -13,7 +13,9 @@
 //
 // and keeps the TPU kernel's rounding points: B, G and C are rounded to
 // the operand type T (float or bf16); F and D stay float32; H is read as
-// T and upcast.
+// T and upcast.  H holds G receptor spectra [G, K, C, J, I] (G = 1: the
+// single-complex form); row b correlates against H[b / (b_total / G)],
+// so one launch serves a batched sweep step of G complexes.
 //
 // What bounds it on the H100: arithmetic.  At the main-path shapes
 // (C=3, X=Y=32, J=I=X'=Y'=128) one (k, b) cell is ~50 MFLOP against
@@ -37,7 +39,7 @@
 // X = 128), under the 232,448 B a block may opt in to, for every box in
 // both types.  Twiddles and the H slice of the current k are read from
 // global memory, where they stay L2-resident across the grid: the grid's
-// fastest axis is b, so consecutive blocks share H[k].
+// fastest axis is b, so consecutive blocks share H[g, k].
 #include <cstdint>
 
 #include "common.cuh"
@@ -60,7 +62,7 @@ fused_correlate_kernel(const T* __restrict__ Are, const T* __restrict__ Aim,
                        const T* __restrict__ UyRe, const T* __restrict__ UyIm,
                        float* __restrict__ Dre, float* __restrict__ Dim,
                        int K, int C, int X, int Y, int J, int I, int Xp,
-                       int Yp) {
+                       int Yp, int rows_per_group) {
   const int bb = blockIdx.x;   // rotation
   const int k = blockIdx.y;    // kz frequency
   const int tid = threadIdx.x;
@@ -78,7 +80,8 @@ fused_correlate_kernel(const T* __restrict__ Are, const T* __restrict__ Aim,
   T* uy_im = uy_re + kJT * Yp;
 
   const size_t a_base = (static_cast<size_t>(bb) * K + k) * C * X * Y;
-  const size_t h_base = static_cast<size_t>(k) * C * J * I;
+  const size_t h_base =
+      (static_cast<size_t>(bb / rows_per_group) * K + k) * C * J * I;
 
   for (int o = tid; o < Xp * Yp; o += kThreads) {
     d_re[o] = 0.f;
@@ -204,9 +207,9 @@ int launch(const void* Are, const void* Aim, const void* Hre, const void* Him,
            const void* WyRe, const void* WyIm, const void* WxRe,
            const void* WxIm, const void* UxRe, const void* UxIm,
            const void* UyRe, const void* UyIm, void* Dre, void* Dim, int b,
-           int K, int C, int X, int Y, int J, int I, int Xp, int Yp,
+           int K, int C, int X, int Y, int J, int I, int Xp, int Yp, int G,
            cudaStream_t stream) {
-  if (I > kMaxI || K > 65535 || C < 1) {
+  if (I > kMaxI || K > 65535 || C < 1 || G < 1 || b % G) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(X, I, Xp, Yp, sizeof(T));
@@ -232,14 +235,15 @@ int launch(const void* Are, const void* Aim, const void* Hre, const void* Him,
       static_cast<const T*>(UxRe), static_cast<const T*>(UxIm),
       static_cast<const T*>(UyRe), static_cast<const T*>(UyIm),
       static_cast<float*>(Dre), static_cast<float*>(Dim), K, C, X, Y, J, I,
-      Xp, Yp);
+      Xp, Yp, b / G);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace dlpd
 
-// Returns a cudaError_t: 0 on a successful launch.
+// Returns a cudaError_t: 0 on a successful launch.  H is [G, K, C, J, I]
+// with G dividing b (G = 1: [K, C, J, I]).
 extern "C" int dlpd_fused_correlate(int dtype, const void* Are,
                                     const void* Aim, const void* Hre,
                                     const void* Him, const void* WyRe,
@@ -248,17 +252,18 @@ extern "C" int dlpd_fused_correlate(int dtype, const void* Are,
                                     const void* UxIm, const void* UyRe,
                                     const void* UyIm, void* Dre, void* Dim,
                                     int b, int K, int C, int X, int Y, int J,
-                                    int I, int Xp, int Yp, void* stream) {
+                                    int I, int Xp, int Yp, int G,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dlpd::kFloat32) {
     return dlpd::launch<float>(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
                                UxRe, UxIm, UyRe, UyIm, Dre, Dim, b, K, C, X,
-                               Y, J, I, Xp, Yp, s);
+                               Y, J, I, Xp, Yp, G, s);
   }
   if (dtype == dlpd::kBFloat16) {
     return dlpd::launch<__nv_bfloat16>(Are, Aim, Hre, Him, WyRe, WyIm, WxRe,
                                        WxIm, UxRe, UxIm, UyRe, UyIm, Dre, Dim,
-                                       b, K, C, X, Y, J, I, Xp, Yp, s);
+                                       b, K, C, X, Y, J, I, Xp, Yp, G, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

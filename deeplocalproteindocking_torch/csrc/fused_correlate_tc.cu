@@ -180,7 +180,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
                           const bf16* __restrict__ UyTIm,
                           float* __restrict__ Dre, float* __restrict__ Dim,
                           int K, int C, int X, int Y, int J, int I, int Xp,
-                          int Yp) {
+                          int Yp, int rows_per_group) {
   constexpr int P = 16 * PK;      // padded ligand box edge
   constexpr int SA = P + 8;       // row strides in shared memory (+8: no
   const int SG = I + 8;           // bank conflicts on fragment loads)
@@ -202,7 +202,9 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   bf16* cs_im = cs_re + Xp * SC;
 
   const size_t a_base = (static_cast<size_t>(bb) * K + k) * C * X * Y;
-  const size_t h_base = static_cast<size_t>(k) * C * J * I;
+  // Receptor group of this row: rows [g b/G, (g+1) b/G) share H[g].
+  const size_t h_base =
+      (static_cast<size_t>(bb / rows_per_group) * K + k) * C * J * I;
   const bf16 zero = __float2bfloat16_rn(0.f);
 
   // ---- stages 1-2: G rows j0.. in chunks of kIC columns ----
@@ -376,7 +378,8 @@ size_t smem_bytes(int P, int J, int I, int Xp) {
 
 template <int PK>
 int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
-           int X, int Y, int J, int I, int Xp, int Yp, cudaStream_t stream) {
+           int X, int Y, int J, int I, int Xp, int Yp, int G,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(16 * PK, J, I, Xp);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -395,7 +398,7 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
   fused_correlate_tc_kernel<PK><<<dim3(b, K), 32 * (J / 16), smem, stream>>>(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], static_cast<float*>(Dre), static_cast<float*>(Dim), K, C, X, Y,
-      J, I, Xp, Yp);
+      J, I, Xp, Yp, b / G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,7 +406,8 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
 }  // namespace dlpd
 
 // Returns a cudaError_t: 0 on a successful launch.  Operands are bf16:
-// Are/Aim [b, K, C, X, Y], Hre/Him [K, C, J, I], WyT [J, P], WxT [I, P]
+// Are/Aim [b, K, C, X, Y], Hre/Him [G, K, C, J, I] with G dividing b
+// (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]), WyT [J, P], WxT [I, P]
 // (P = max(X, Y) rounded up to 16, zero-padded), UxT [Xp, I],
 // UyT [Yp, J].  Takes X, Y <= 64 and I, J, Xp, Yp multiples of 16 up
 // to 128.
@@ -412,9 +416,10 @@ extern "C" int dlpd_fused_correlate_tc(
     const void* WyTRe, const void* WyTIm, const void* WxTRe,
     const void* WxTIm, const void* UxTRe, const void* UxTIm,
     const void* UyTRe, const void* UyTIm, void* Dre, void* Dim, int b, int K,
-    int C, int X, int Y, int J, int I, int Xp, int Yp, void* stream) {
+    int C, int X, int Y, int J, int I, int Xp, int Yp, int G, void* stream) {
   const int P = ((X > Y ? X : Y) + 15) / 16 * 16;
-  if (X < 1 || Y < 1 || P > 64 || C < 1 || K > 65535 || J % 16 ||
+  if (X < 1 || Y < 1 || P > 64 || C < 1 || G < 1 || b % G || K > 65535 ||
+      J % 16 ||
       I % 16 || Xp % 16 || Yp % 16 || J > 128 || I > 128 || Xp > 128 ||
       Yp > 128 || J < 16 || I < 16 || Xp < 16 || Yp < 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -424,12 +429,12 @@ extern "C" int dlpd_fused_correlate_tc(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P / 16) {
     case 1:
-      return dlpd::launch<1>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, s);
+      return dlpd::launch<1>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
     case 2:
-      return dlpd::launch<2>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, s);
+      return dlpd::launch<2>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
     case 3:
-      return dlpd::launch<3>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, s);
+      return dlpd::launch<3>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
     default:
-      return dlpd::launch<4>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, s);
+      return dlpd::launch<4>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
   }
 }

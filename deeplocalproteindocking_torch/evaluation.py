@@ -10,9 +10,11 @@ an interrupted run resumes where it stopped.
 Grading runs on the pipeline's device.  The native contact table and the
 interface masks are built once per complex; poses go through in batches
 whose atom-pair intermediate stays under a fixed budget, so peak memory
-does not grow with the number of poses.  ``run_benchmark_batched`` (groups
-of complexes docked as one batched sweep) waits for the port of batched
-docking.
+does not grow with the number of poses.  ``run_benchmark_batched`` is the
+throughput mode: groups of complexes padded to a shape bucket, their
+receptor halves built at once and their sweeps run as one
+complex-batched sweep (``parallel/batch_eval.py``), each complex graded
+and written as in ``run_benchmark``.
 """
 from __future__ import annotations
 
@@ -23,8 +25,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from deeplocalproteindocking_torch.data.benchmark import Complex
-from deeplocalproteindocking_torch.pipeline import DockingPipeline, PoseSet
+from deeplocalproteindocking_torch.data.benchmark import (
+    Complex, structure_to_device)
+from deeplocalproteindocking_torch.parallel import batch_eval
+from deeplocalproteindocking_torch.pipeline import (
+    DockingPipeline, PoseSet, dock_score_mask, stack_score_masks)
+from deeplocalproteindocking_torch.sweep.cluster import cluster_pose_set
+from deeplocalproteindocking_torch.sweep.resplat import auto_ligand_grid
 from deeplocalproteindocking_torch.structure.transforms import apply_pose
 from deeplocalproteindocking_torch.train.data_gen import native_voxel_shift
 from deeplocalproteindocking_torch.utils.logging import MetricsLogger
@@ -157,6 +164,28 @@ def evaluate_complex(pipeline: DockingPipeline, cplx: Complex,
                        grade_poses(cplx, poses, device=pipeline.device))
 
 
+def _write_result(out_dir: str, res: Dict) -> None:
+    """``<name>.json``, written whole or not at all (the resume marker)."""
+    path = os.path.join(out_dir, f"{res['name']}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def _summarize(out_dir: str, results: List[Dict],
+               logger: MetricsLogger) -> Dict:
+    n = max(len(results), 1)
+    summary = {
+        "num_complexes": len(results),
+        "top1_hit_rate": sum(r["hit_top1"] for r in results) / n,
+        "top10_hit_rate": sum(r["hit_top10"] for r in results) / n,
+    }
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    logger.log("benchmark_summary", **summary)
+    return summary
+
+
 def run_benchmark(pipeline: DockingPipeline,
                   complexes: Sequence[Complex],
                   out_dir: str,
@@ -177,21 +206,114 @@ def run_benchmark(pipeline: DockingPipeline,
             res = evaluate_complex(pipeline, cplx,
                                    refine_steps=refine_steps,
                                    rescore_top=rescore_top)
-            with open(path + ".tmp", "w") as f:
-                json.dump(res, f)
-            os.replace(path + ".tmp", path)  # atomic completion marker
+            _write_result(out_dir, res)
             logger.log("complex_done", name=cplx.name,
                        hit_top10=res["hit_top10"],
                        best_lrmsd=res["best_lrmsd"])
         results.append(res)
+    return _summarize(out_dir, results, logger)
 
-    n = max(len(results), 1)
-    summary = {
-        "num_complexes": len(results),
-        "top1_hit_rate": sum(r["hit_top1"] for r in results) / n,
-        "top10_hit_rate": sum(r["hit_top10"] for r in results) / n,
-    }
-    with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    logger.log("benchmark_summary", **summary)
-    return summary
+
+def batch_inputs(pipeline: DockingPipeline, group: Sequence[Complex],
+                 rotations: torch.Tensor):
+    """``(args, kwargs)`` of ``batch_eval.dock_batch`` for a group of
+    complexes, as ``run_benchmark_batched`` docks it.
+
+    The group is padded to a shape bucket: atoms to a multiple of
+    ``atom_bucket`` (or 64), the ligand box to the group's largest
+    ``auto_ligand_grid`` rounded up to 16 and capped at the grid, so
+    size-diverse groups share shapes; padding is masked, so scores do
+    not change.  The receptor halves run through
+    ``_batched_receptor_engine``; each complex keeps its wrap-around
+    guard and, under ``local_cone_deg``, the local protocol's mask.  The
+    rotation chunk shrinks to ``rotation_chunk // len(group)`` so a step
+    holds as many rows as one dock's.
+    """
+    cfg = pipeline.config
+    dev = pipeline.device
+    ab = cfg.atom_bucket or 64
+    max_atoms = max(max(len(c.receptor.typed()), len(c.ligand.typed()))
+                    for c in group)
+    max_atoms = max(ab, -(-max_atoms // ab) * ab)
+    lig_grid = max(auto_ligand_grid(c.ligand.centered().typed().coords,
+                                    cfg.resolution, cfg.sigma,
+                                    pipeline._receptive_field(),
+                                    cfg.grid_size) for c in group)
+    lig_grid = min(cfg.grid_size, -(-lig_grid // 16) * 16)
+
+    def padded(structures):
+        dev_t = [structure_to_device(s.centered(), max_atoms, device=dev)
+                 for s in structures]
+        return tuple(torch.stack([d[i] for d in dev_t]) for i in range(3))
+
+    impl, H_batch, rep_fn = pipeline._batched_receptor_engine(
+        *padded([c.receptor for c in group]))
+    masks = []
+    for c in group:
+        local = local_dock_kwargs(pipeline, c)
+        masks.append(dock_score_mask(
+            cfg, c.ligand.centered(), local.get("translation_center"),
+            local.get("max_shift"), device=dev))
+    score_mask = stack_score_masks(masks, cfg.grid_size, dev)
+    args = (H_batch,) + padded([c.ligand for c in group]) + (rotations,
+                                                              rep_fn)
+    return args, dict(
+        grid_size=cfg.grid_size, lig_grid=lig_grid,
+        resolution=cfg.resolution, sigma=cfg.sigma,
+        num_types=cfg.num_atom_types, top_k=cfg.top_k,
+        chunk=max(1, cfg.rotation_chunk // len(group)),
+        score_mask=score_mask, fft_impl=impl, dft_dtype=cfg.dft_dtype)
+
+
+def run_benchmark_batched(pipeline: DockingPipeline,
+                          complexes: Sequence[Complex],
+                          out_dir: str,
+                          group_size: int = 4,
+                          logger: Optional[MetricsLogger] = None,
+                          refine_steps: int = 0,
+                          rescore_top: int = 0) -> Dict:
+    """Throughput-mode benchmark: ``group_size`` complexes at a time
+    docked as one complex-batched sweep (``batch_eval.dock_batch`` on
+    :func:`batch_inputs`).  Then per complex, as ``run_benchmark``: NMS,
+    optional ``rescore_top`` and ``refine_steps``, grading, an atomic
+    ``<name>.json``; complexes that have a file are not recomputed.
+    """
+    cfg = pipeline.config
+    dev = pipeline.device
+    os.makedirs(out_dir, exist_ok=True)
+    logger = logger or MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    pending = [c for c in complexes
+               if not os.path.exists(os.path.join(out_dir, f"{c.name}.json"))]
+    rotations = torch.as_tensor(pipeline.rotation_set(), dtype=torch.float32,
+                                device=dev)
+    rot_np = rotations.cpu().numpy()
+    for g0 in range(0, len(pending), group_size):
+        group = pending[g0:g0 + group_size]
+        args, kw = batch_inputs(pipeline, group, rotations)
+        res = batch_eval.dock_batch(*args, **kw)
+        del args
+        scores, rot_idx = res.scores.cpu().numpy(), res.rot_idx.cpu().numpy()
+        shifts = res.shifts.cpu().numpy()
+        for i, c in enumerate(group):
+            poses = PoseSet(
+                scores=scores[i], rotations=rot_np[rot_idx[i]],
+                translations=shifts[i].astype(np.float32) * cfg.resolution,
+                rot_idx=rot_idx[i], shifts=shifts[i])
+            poses = cluster_pose_set(c.ligand.centered().coords, poses,
+                                     cfg.nms_rmsd)
+            if rescore_top:
+                poses = pipeline.rescore(c.receptor, c.ligand, poses,
+                                         top=rescore_top)
+            if refine_steps:
+                poses = pipeline.refine(c.receptor, c.ligand, poses,
+                                        steps=refine_steps)
+            out = hit_summary(c.name, grade_poses(c, poses, device=dev))
+            _write_result(out_dir, out)
+            logger.log("complex_done", name=c.name,
+                       hit_top10=out["hit_top10"])
+
+    results = []
+    for c in complexes:
+        with open(os.path.join(out_dir, f"{c.name}.json")) as f:
+            results.append(json.load(f))
+    return _summarize(out_dir, results, logger)

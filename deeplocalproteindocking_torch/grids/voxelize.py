@@ -17,15 +17,16 @@ import torch
 
 
 def _contract(coords, tsafe, mask, L, T, resolution, sigma, origin):
-    """Density of one atom set; ``coords [B, n, 3]`` -> ``[B, L, L, L, T]``."""
+    """Density of atom sets ``coords [B, n, 3]`` -> ``[B, L, L, L, T]``;
+    ``tsafe``/``mask`` are ``[n]`` (shared) or ``[B, n]`` (per row)."""
     g = (coords - origin) / resolution - 0.5          # voxel-unit centers
     centers = torch.arange(L, dtype=coords.dtype, device=coords.device)
     d = (g[..., None] - centers) * resolution           # [B, n, 3, L]
     prof = torch.exp(-(d * d) / (2.0 * sigma * sigma))
     px, py, pz = prof[..., 0, :], prof[..., 1, :], prof[..., 2, :]
-    px = px * mask[:, None]
+    px = px * mask[..., None]
     onehot = torch.nn.functional.one_hot(tsafe, T).to(coords.dtype)
-    W = px[..., :, None] * onehot[:, None, :]          # [B, n, L, T]
+    W = px[..., :, None] * onehot[..., None, :]        # [B, n, L, T]
     U = py[..., :, None] * pz[..., None, :]            # [B, n, L, L]
     B, n = coords.shape[:2]
     out = torch.bmm(U.reshape(B, n, L * L).transpose(1, 2),
@@ -43,7 +44,9 @@ def separable_splat(coords: torch.Tensor,
                     num_types: int = 11,
                     atom_chunk: Optional[int] = None) -> torch.Tensor:
     """Splat ``coords [..., n, 3]`` (one atom set, or a batch of rotated
-    copies of it) with shared ``types [n]`` / ``mask [n]`` into
+    copies of it) with shared ``types [n]`` / ``mask [n]``, or per-row
+    ``types [..., n]`` / ``mask [..., n]`` broadcast against the leading
+    axes of ``coords`` (a batch of different atom sets), into
     ``[..., L, L, L, T]`` float32 on a box centered on coordinate 0.
 
     ``atom_chunk`` bounds the ``[n, L^2]`` intermediate on big grids by
@@ -57,9 +60,14 @@ def separable_splat(coords: torch.Tensor,
     origin = torch.full((3,), -half, dtype=torch.float32,
                         device=coords.device)
     if mask is None:
-        mask = torch.ones(n, dtype=coords.dtype, device=coords.device)
+        mask = torch.ones(types.shape, dtype=coords.dtype,
+                          device=coords.device)
     mask = mask.to(coords.dtype) * (types >= 0).to(coords.dtype)
     tsafe = types.clamp(0, T - 1).long()
+    if tsafe.ndim > 1:                                 # per-row atom sets
+        tsafe = tsafe.broadcast_to(lead + (n,)).reshape(-1, n)
+    if mask.ndim > 1:
+        mask = mask.broadcast_to(lead + (n,)).reshape(-1, n)
     if atom_chunk is None or n <= atom_chunk:
         out = _contract(coords, tsafe, mask, L, T, resolution, sigma,
                         origin)
@@ -67,8 +75,8 @@ def separable_splat(coords: torch.Tensor,
         out = None
         for a0 in range(0, n, atom_chunk):
             part = _contract(coords[:, a0:a0 + atom_chunk],
-                             tsafe[a0:a0 + atom_chunk],
-                             mask[a0:a0 + atom_chunk], L, T, resolution,
-                             sigma, origin)
+                             tsafe[..., a0:a0 + atom_chunk],
+                             mask[..., a0:a0 + atom_chunk], L, T,
+                             resolution, sigma, origin)
             out = part if out is None else out + part
     return out.reshape(lead + (L, L, L, T))

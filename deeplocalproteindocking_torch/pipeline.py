@@ -8,7 +8,11 @@ Port of ``deeplocalproteindocking_tpu/pipeline.py``'s docking stages:
 then, as the two-stage protocol, ``rescore`` (a dense local cone sweep
 around each top head, all heads in one head-batched sweep) and
 ``refine`` (gradient ascent in continuous pose space,
-``sweep/refine.py``).
+``sweep/refine.py``).  ``dock_ensemble`` docks every pair of an NMR
+ensemble as complex-batched sweeps (``parallel/batch_eval.py``) and
+merges one ranked set; ``_batched_receptor_engine`` builds the receptor
+halves of a group of complexes at once for ``evaluation.
+run_benchmark_batched``.
 
 Receptor-side tensors (representations, the engine tuple) are built
 under ``torch.no_grad``, never ``inference_mode``: ``refine`` reuses
@@ -25,6 +29,8 @@ center; a pose is ``x -> R x + shift * resolution``.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import warnings
 from typing import NamedTuple, Optional
 
@@ -41,10 +47,12 @@ from deeplocalproteindocking_torch.grids.voxelize import separable_splat
 from deeplocalproteindocking_torch.models.representation import (
     conv3d_channels_last, shape_channels)
 from deeplocalproteindocking_torch.models.scoring import ScoringModel
+from deeplocalproteindocking_torch.parallel import batch_eval
 from deeplocalproteindocking_torch.structure.pdb import Structure
 from deeplocalproteindocking_torch.structure.so3 import (
     local_rotations, super_fibonacci_rotations)
-from deeplocalproteindocking_torch.sweep.cluster import cluster_pose_set
+from deeplocalproteindocking_torch.sweep.cluster import (
+    cluster_pose_set, nms_cluster, pose_pairwise_rmsd)
 from deeplocalproteindocking_torch.sweep.refine import refine_poses
 from deeplocalproteindocking_torch.sweep.resplat import (
     auto_ligand_grid, dock_sweep_resplat)
@@ -107,6 +115,16 @@ def dock_score_mask(cfg: DockConfig, lig_c: Structure,
     return score_mask
 
 
+def stack_score_masks(masks: list, grid_size: int,
+                      device: torch.device | str = "cuda"):
+    """``[n, L, L, L]`` bool of per-complex masks from ``dock_score_mask``
+    (None: every shift allowed), or None when every mask is None."""
+    if all(m is None for m in masks):
+        return None
+    full = torch.ones((grid_size,) * 3, dtype=torch.bool, device=device)
+    return torch.stack([full if m is None else m for m in masks])
+
+
 def coupling_deviation_capture(coupling, rank: int, *,
                                shape_prior: bool = False,
                                core_weight: float = 12.0):
@@ -143,6 +161,18 @@ def min_licensed_rank(coupling, *, shape_prior: bool = False,
         if dev <= 0 or kept >= threshold:
             return r
     return C
+
+
+def ensemble_pair_batch(H_example: torch.Tensor,
+                        budget_bytes: int = 512 * 1024 * 1024,
+                        cap: int = 32) -> int:
+    """Pairs per batched sweep of ``dock_ensemble``: as many as keep the
+    stacked receptor spectra (one ``H_example``-sized tensor per pair)
+    within ``budget_bytes``, at most ``cap``, at least 1.  The same
+    budget, cap and formula as the JAX package, so pair batches split
+    alike; ``H_example`` may be a ``meta`` tensor."""
+    per_pair = math.prod(H_example.shape) * H_example.element_size()
+    return max(1, min(cap, budget_bytes // max(per_pair, 1)))
 
 
 def _host(x) -> np.ndarray:
@@ -325,6 +355,32 @@ class DockingPipeline:
             cpl_eff, rep_fn = self._spectral_parts(coupling)
             return impl, coupled_receptor(rep_rec, cpl_eff, impl), rep_fn
 
+    def _batched_receptor_engine(self, coords: torch.Tensor,
+                                 types: torch.Tensor, mask: torch.Tensor):
+        """``(impl, H_batch, rep_fn)``: the receptor halves of a group of
+        complexes at once -- one splat of the padded receptors ``coords
+        [B, A, 3]``, ``types [B, A]``, ``mask [B, A]`` (atom-chunked above
+        4,096 atoms), one CNN call, the coupled spectra ``H_batch [B, L,
+        L, L//2+1, C']``; no per-complex ``voxelize``."""
+        cfg = self.config
+        impl = resolve_engine(cfg.fft_impl, cfg.grid_size)
+        if self.params is None:
+            coupling = shape_complementarity_reps(
+                torch.zeros((4, 4, 4, 1), device=self.device))[1]
+        else:
+            coupling = self.model.coupling
+        with torch.no_grad():
+            cpl_eff, rep_fn = self._spectral_parts(coupling)
+            vols = separable_splat(
+                coords, types, mask, grid_size=cfg.grid_size,
+                resolution=cfg.resolution, sigma=cfg.sigma,
+                num_types=cfg.num_atom_types,
+                atom_chunk=4096 if coords.shape[1] > 4096 else None)
+            reps = self._ligand_rep_fn()(vols)     # unprojected, batched
+            del vols
+            H = coupled_receptor(reps, cpl_eff, impl)
+        return impl, H, rep_fn
+
     def _receptive_field(self) -> int:
         if self.params is None:
             return 3                      # shape mode: 2-voxel dilation + 1
@@ -429,6 +485,139 @@ class DockingPipeline:
 
     def dock_complex(self, cplx: Complex, **kw) -> PoseSet:
         return self.dock(cplx.receptor, cplx.ligand, **kw)
+
+    # ---- NMR-ensemble docking ----
+    def dock_ensemble(self, rec_models: list, lig_models: list,
+                      pairing: str = "product", cluster: bool = True,
+                      **kw):
+        """Dock model pairs of NMR ensembles and merge one ranked set.
+
+        ``pairing`` is ``"product"`` (every receptor model x every ligand
+        model) or ``"zip"`` (model i with model i).  Keyword arguments:
+        ``rotations``, ``translation_center``, ``max_shift`` (as
+        ``dock``) and ``pair_batch`` (default ``ensemble_pair_batch``).
+
+        Returns ``(poses, pairs)``: the merged score-ranked ``PoseSet``
+        and an int ``[K, 2]`` array of 0-based (receptor_model,
+        ligand_model) per pose.  Cross-model NMS uses the first ligand
+        model's coordinates (ensembles share one frame).
+
+        Each receptor model's half (splat, CNN, coupled spectrum) is built
+        once and each ligand model padded once (R + L preparations, not
+        R x L); pairs then sweep ``pair_batch`` at a time as one
+        complex-batched sweep (``batch_eval.dock_batch``), whose rotation
+        chunk shrinks to ``rotation_chunk // pairs`` so a step holds as
+        many rows as one dock's.
+        """
+        if pairing == "product":
+            pair_list = list(itertools.product(range(len(rec_models)),
+                                               range(len(lig_models))))
+        elif pairing == "zip":
+            if len(rec_models) != len(lig_models):
+                raise ValueError(
+                    f"pairing='zip' needs equal model counts, got "
+                    f"{len(rec_models)} receptor vs {len(lig_models)} "
+                    f"ligand models")
+            pair_list = [(i, i) for i in range(len(rec_models))]
+        else:
+            raise ValueError(f"unknown pairing {pairing!r} "
+                             "(want 'product' or 'zip')")
+        if not pair_list:
+            raise ValueError("empty model ensemble")
+        cfg = self.config
+        rotations = kw.pop("rotations", None)
+        translation_center = kw.pop("translation_center", None)
+        max_shift = kw.pop("max_shift", None)
+        pair_batch = kw.pop("pair_batch", None)
+        if kw:
+            raise TypeError(f"dock_ensemble: unexpected kwargs {list(kw)}")
+        if cfg.sweep_mode != "resplat":
+            raise NotImplementedError(
+                f"sweep_mode={cfg.sweep_mode!r} is not ported yet")
+        if rotations is None:
+            rotations = self.rotation_set()
+        rotations = torch.as_tensor(rotations, dtype=torch.float32,
+                                    device=self.device)
+
+        # R receptor halves, once each.
+        engines = [self._engine_parts(rep, cpl) for _, rep, cpl in
+                   (self._receptor_half(r) for r in rec_models)]
+        impl, H0, rep_fn = engines[0]
+        if pair_batch is None:
+            pair_batch = ensemble_pair_batch(H0)
+        # L ligand halves: centered, padded to a common atom count, with
+        # their translation masks, once each.
+        lig_cs = []
+        for lig in lig_models:
+            lig_c = lig.centered()
+            if len(lig_c.typed()) == 0:
+                raise ValueError(
+                    "no typed atoms in ligand: every atom fell outside "
+                    "the 11-type table.")
+            lig_cs.append(lig_c)
+        max_atoms = max(len(lig_c.typed()) for lig_c in lig_cs)
+        if cfg.atom_bucket:
+            b = cfg.atom_bucket
+            max_atoms = max(b, ((max_atoms + b - 1) // b) * b)
+        lig_dev = [structure_to_device(lig_c, max_atoms, device=self.device)
+                   for lig_c in lig_cs]
+        lig_grid = cfg.lig_grid_size or max(
+            auto_ligand_grid(lig_c.typed().coords, cfg.resolution,
+                             cfg.sigma, self._receptive_field(),
+                             cfg.grid_size)
+            for lig_c in lig_cs)
+        masks = stack_score_masks(
+            [dock_score_mask(cfg, lig_c, translation_center, max_shift,
+                             device=self.device) for lig_c in lig_cs],
+            cfg.grid_size, self.device)
+
+        scores, rot_idx, shifts, tags = [], [], [], []
+        for start in range(0, len(pair_list), pair_batch):
+            batch = pair_list[start:start + pair_batch]
+            lig = [lig_dev[li] for _, li in batch]
+            res = batch_eval.dock_batch(
+                torch.stack([engines[ri][1] for ri, _ in batch]),
+                *(torch.stack([d[i] for d in lig]) for i in range(3)),
+                rotations, rep_fn, grid_size=cfg.grid_size,
+                lig_grid=lig_grid, resolution=cfg.resolution,
+                sigma=cfg.sigma, num_types=cfg.num_atom_types,
+                top_k=cfg.top_k,
+                chunk=max(1, cfg.rotation_chunk // len(batch)),
+                score_mask=(None if masks is None
+                            else masks[[li for _, li in batch]]),
+                fft_impl=impl, dft_dtype=cfg.dft_dtype)
+            scores.append(_host(res.scores).reshape(-1))
+            rot_idx.append(_host(res.rot_idx).reshape(-1))
+            shifts.append(_host(res.shifts).reshape(-1, 3))
+            for pair in batch:
+                tags.extend([pair] * res.scores.shape[1])
+        scores = np.concatenate(scores)
+        rot_idx = np.concatenate(rot_idx)
+        shifts = np.concatenate(shifts)
+        order = np.argsort(-scores, kind="stable")
+        merged = PoseSet(
+            scores=scores[order],
+            rotations=_host(rotations)[rot_idx[order]],
+            translations=shifts[order].astype(np.float32) * cfg.resolution,
+            rot_idx=rot_idx[order], shifts=shifts[order])
+        pairs = np.asarray(tags, dtype=np.int64)[order]
+        return self._merge_ensemble(merged, pairs, lig_models, cluster)
+
+    def _merge_ensemble(self, merged: PoseSet, pairs: np.ndarray,
+                        lig_models: list, cluster: bool):
+        """NMS of the merged set (at most ``top_k`` survivors), by pose
+        RMSD of the first ligand model; ``pairs`` follow the poses."""
+        if cluster and len(merged) > 1:
+            D = pose_pairwise_rmsd(
+                torch.as_tensor(lig_models[0].centered().coords),
+                torch.as_tensor(merged.rotations),
+                torch.as_tensor(merged.translations))
+            keep = nms_cluster(merged.scores, D.numpy(),
+                               self.config.nms_rmsd,
+                               max_out=self.config.top_k)
+            merged = PoseSet(*(np.asarray(f)[keep] for f in merged[:5]))
+            pairs = pairs[keep]
+        return merged, pairs
 
     # ---- hierarchical focused rescoring ----
     def rescore(self, rec: Structure, lig: Structure, poses: PoseSet,

@@ -76,7 +76,8 @@ def embed_small(rep_small: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 
 def _correlate_fused(Ht, reps, grid_size, lig_grid, dft_dtype):
-    """Score volumes ``[b, L, L, L]`` via K1 and the kz -> z einsum."""
+    """Score volumes ``[b, L, L, L]`` via K1 and the kz -> z einsum
+    (``Ht`` one receptor spectrum, or one per group of rows)."""
     corr = get_correlator(grid_size, lig_grid, dft_dtype, reps.device)
     return corr.scores_fused(Ht[0], Ht[1], reps)
 
@@ -86,7 +87,8 @@ def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
     """Per-rotation ``(vals, flat)`` top-K without forming the score
     volume: K1, then K2, then the drill-down.  ``score_mask`` is None,
     ``[L, L, L]``, or ``[G, L, L, L]`` for G groups of consecutive rows
-    (the heads of a head-batched sweep)."""
+    (the heads of a head-batched sweep, the complexes of a batched one,
+    whose G receptor spectra ``Ht`` carries)."""
     from deeplocalproteindocking_torch.correlate.invz_topk import (
         drill_topk, invz_blockmax)
     L = grid_size
@@ -106,7 +108,8 @@ def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
 
 def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype):
     """Score volumes ``[B, L, L, L]`` for small-box reps (``dft``,
-    ``dft_pallas`` or ``xla`` engine)."""
+    ``dft_pallas`` or ``xla`` engine); ``H`` one receptor spectrum, or
+    ``[G, ...]`` one per group of rows."""
     if fft_impl in ("dft", "dft_pallas"):
         corr = get_correlator(grid_size, reps.shape[-2], dft_dtype,
                               reps.device)
@@ -145,11 +148,18 @@ def dock_sweep_resplat(H: torch.Tensor,
     sweep's device; ``rep_fn`` maps density volumes ``[B, Ls, Ls, Ls, T]``
     to representations ``[B, Ls, Ls, Ls, C]``.
 
-    Head-batched form (``pipeline.rescore``; the JAX package vmaps this
-    function instead): ``rotations [n, R, 3, 3]`` and ``score_mask``
-    None or ``[n, L, L, L]`` sweep n independent rotation sets, each
-    with its own mask, as one loop whose steps hold ``chunk`` rotations
-    of every head; the result's fields gain a leading ``n`` axis.
+    Two batched forms (the JAX package vmaps this function instead),
+    one loop whose steps hold ``chunk`` rotations of each of n sweeps,
+    ``n * chunk`` rows; ``score_mask`` None or ``[n, L, L, L]`` gives
+    each sweep its own mask; the result's fields gain a leading ``n``:
+
+    - head-batched (``pipeline.rescore``): one receptor and ligand,
+      ``rotations [n, R, 3, 3]``, n rotation sets;
+    - complex-batched (``parallel.batch_eval.dock_batch``): ``H [n, L,
+      L, L//2+1, C]``, ``lig_coords [n, A, 3]``, ``lig_types [n, A]``,
+      ``lig_mask [n, A]``, one complex per sweep, ``rotations [R, 3,
+      3]`` shared (or ``[n, R, 3, 3]``).  K1 takes the n spectra as
+      receptor groups, K2 and ``drill_topk`` the n masks as bias groups.
     """
     if fft_impl not in ENGINES:
         raise NotImplementedError(
@@ -159,8 +169,14 @@ def dock_sweep_resplat(H: torch.Tensor,
             f"topk_impl={topk_impl!r} is not ported yet (exact is)")
     L = grid_size
     device = H.device
-    heads = rotations.ndim == 4
-    if not heads:
+    complexes = lig_coords.ndim == 3        # one receptor + ligand per sweep
+    if complexes and H.shape[0] != lig_coords.shape[0]:
+        raise ValueError(f"dock_sweep_resplat: {H.shape[0]} receptor "
+                         f"spectra for {lig_coords.shape[0]} ligands")
+    batched = complexes or rotations.ndim == 4
+    if complexes and rotations.ndim == 3:
+        rotations = rotations.expand(H.shape[0], -1, -1, -1)
+    if not batched:
         rotations = rotations[None]
         if score_mask is not None:
             score_mask = score_mask[None]
@@ -183,13 +199,20 @@ def dock_sweep_resplat(H: torch.Tensor,
     best_flat = torch.zeros((n, top_k), dtype=torch.int64, device=device)
     with torch.inference_mode():
         for base in range(0, rotations.shape[1], chunk):
-            Rc = rotations[:, base:base + chunk].reshape(n * chunk, 3, 3)
-            coords_r = torch.einsum("bij,nj->bni", Rc, lig_coords)
-            vols = separable_splat(coords_r, lig_types, lig_mask,
+            Rc = rotations[:, base:base + chunk]          # [n, chunk, 3, 3]
+            if complexes:
+                coords_r = torch.einsum("gbij,gnj->gbni", Rc, lig_coords)
+                types, mask = lig_types[:, None], lig_mask[:, None]
+            else:
+                coords_r = torch.einsum("bij,nj->bni",
+                                        Rc.reshape(n * chunk, 3, 3),
+                                        lig_coords)
+                types, mask = lig_types, lig_mask
+            vols = separable_splat(coords_r, types, mask,
                                    grid_size=lig_grid,
                                    resolution=resolution, sigma=sigma,
                                    num_types=num_types)
-            reps = rep_fn(vols)
+            reps = rep_fn(vols.reshape((n * chunk,) + vols.shape[-4:]))
             if fused:
                 vals, flat = _fused_correlate_topk(
                     Ht, reps, L, lig_grid, dft_dtype, score_mask, top_k)
@@ -217,4 +240,4 @@ def dock_sweep_resplat(H: torch.Tensor,
             best_flat = torch.gather(all_flat, 1, sel)
     res = DockResult(scores=best, rot_idx=best_rot,
                      shifts=flat_index_to_shift(best_flat, L))
-    return res if heads else DockResult(*(f[0] for f in res))
+    return res if batched else DockResult(*(f[0] for f in res))

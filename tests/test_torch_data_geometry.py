@@ -183,10 +183,11 @@ def test_pose_rmsd_and_nms():
 
 
 def test_port_imports_without_jax():
-    """The port's docking, screening, refinement and grading paths import
-    where jax, flax, optax and orbax are absent, never load the JAX
-    package itself, and open no file under it (no module of the JAX
-    package run on its own, as a file); a polymer complex builds there."""
+    """The port's docking, screening, refinement, grading and batched
+    docking paths import where jax, flax, optax and orbax are absent,
+    never load the JAX package itself, and open no file under it (no
+    module of the JAX package run on its own, as a file); a polymer
+    complex builds there."""
     code = (
         "import os, sys\n"
         "tpu = os.sep + 'deeplocalproteindocking_tpu' + os.sep\n"
@@ -206,6 +207,7 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.serving\n"
         "import deeplocalproteindocking_torch.eval_matrix\n"
         "import deeplocalproteindocking_torch.evaluation\n"
+        "import deeplocalproteindocking_torch.parallel.batch_eval\n"
         "import deeplocalproteindocking_torch.data.polymer\n"
         "import deeplocalproteindocking_torch.train.data_gen\n"
         "import deeplocalproteindocking_torch.utils.logging\n"

@@ -9,9 +9,10 @@ Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order), 2e-2 in bf16 (the same rounding points, where one bf16
 ulp is 2^-8 relative).  K1 runs bf16 boxes up to 64 on its tensor-core
 kernel and the rest on its SIMT kernel (``fused.k1_route``); both are
-held here, as are K2's and K3's FFT kernels (L = 64, 128) and dense
-kernels (other L; ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3
-are float32 only.
+held here, with one receptor spectrum or G of them, as are K2's and
+K3's FFT kernels (L = 64, 128) and dense kernels (other L;
+``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
+only.
 """
 import numpy as np
 import pytest
@@ -41,10 +42,14 @@ def _no_tf32():
     torch.backends.cudnn.allow_tf32 = conv_flag
 
 
-def _k1_args(dev, L, Ls, C, b, dtype_name, seed=0):
+def _k1_args(dev, L, Ls, C, b, dtype_name, seed=0, groups=None):
+    """K1's arguments; ``groups``: that many receptor spectra ``[G, K, C,
+    J, I]`` instead of one."""
     g = torch.Generator().manual_seed(seed)
     corr = get_correlator(L, Ls, dtype_name, dev)
-    H = receptor_transform(torch.randn(L, L, L, C, generator=g).to(dev))
+    lead = () if groups is None else (groups,)
+    H = receptor_transform(torch.randn(lead + (L, L, L, C),
+                                       generator=g).to(dev))
     v = torch.randn(b, Ls, Ls, Ls, C, generator=g).to(dev, corr.dtype)
     are = mm("bxyzc,zk->bkcxy", v, corr.WzRe).to(corr.dtype).contiguous()
     aim = mm("bxyzc,zk->bkcxy", v, corr.WzIm).to(corr.dtype).contiguous()
@@ -81,6 +86,32 @@ def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     want = fused.fused_correlate_reference(*args)
     for gt, wt in zip(got, want):
         assert _rel(gt, wt) <= tol
+
+
+@pytest.mark.parametrize("L,Ls,C,b,dtype_name,tol", [
+    (128, 32, 3, 8, "bfloat16", 2e-2),    # tensor cores, the batched step
+    (64, 40, 16, 4, "bfloat16", 2e-2),
+    (128, 32, 3, 8, "float32", 1e-4),     # SIMT
+    (64, 72, 2, 4, "bfloat16", 2e-2)])    # SIMT in bf16 (box above 64)
+def test_k1_groups_match_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
+    """Both K1 routes with G = 4 receptor spectra (rows [g b/4, (g+1)
+    b/4) against H[g]) against the plain version."""
+    _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name, groups=4)
+    assert args[2].shape == (4, L // 2 + 1, C, L, L)
+    tc = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L) == "tc"
+    n0, tc0 = fused.launches, fused.launches_tc
+    got = fused.fused_correlate(*args)
+    torch.cuda.synchronize()
+    assert (fused.launches, fused.launches_tc) == (n0 + 1, tc0 + int(tc))
+    want = fused.fused_correlate_reference(*args)
+    for gt, wt in zip(got, want):
+        assert _rel(gt, wt) <= tol
+    # Each group's rows differ from what H[0] gives them.
+    alone = fused.fused_correlate(args[0], args[1], args[2][0], args[3][0],
+                                  *args[4:])
+    assert _rel(alone[0][b // 4:], want[0][b // 4:]) > 10 * tol
+    with pytest.raises(ValueError, match="do not divide"):
+        fused.fused_correlate(args[0][:b - 1], args[1][:b - 1], *args[2:])
 
 
 def _k2_inputs(dev, L, b, groups, source, seed=3):
