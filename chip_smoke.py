@@ -93,6 +93,21 @@ phase that does not hold:
    with 4 receptor groups against plain (tensor cores at b = 128, the
    batched step; tf32 in float32 at b = 8; SIMT in float32 at box 96,
    b = 8) and times G = 4 against G = 1 in turns.
+9. training at the full width of the v9p config (its ``config.json`` as
+   committed: grid 64, box 40, C = 16, 24 decoys x 2 complexes, AdamW
+   lr 1e-4, wd 1e-4, cosine over 3,000 steps): the port's flagship
+   driver (``train_flagship.run``) for 12 steps from a seeded init on 8
+   training complexes (seeds 200+, unbound 1.2 A), mining every 4 steps
+   over 4 complexes at 320 rotations (top-K 24), validation at step 0
+   and step 12 on 2 complexes (seeds 50+) at 256 rotations; every loss
+   and accuracy finite, every K1 launch of mining and validation on the
+   tf32 kernel, every K2 launch on the FFT kernel, K3 idle, the first
+   mining K1 and K2 launches held against their plain versions; then 8
+   steps from the run's trained params on one fixed batch (with its
+   mined negatives) must lower the loss, one step (1 complex x 8
+   decoys, the run's trained params) on the card against the CPU (loss
+   and accuracy rtol 1e-4, every gradient within 1e-3 of its leaf's
+   largest), and a checkpoint saved and restored bit for bit.
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -129,6 +144,17 @@ GRADE_RTOL = 1e-3
 # same complexes swept alone, top-K values relative (the ensemble's
 # single docks may run a smaller ligand box than the pairs' shared one).
 BATCH_RTOL = 1e-3
+# Phase 9: the flagship driver's knobs (v9p's TRAINING.json: training
+# seeds 200+, size-diverse, unbound 1.2 A, mining at 320 rotations, EMA
+# 0.998), cut to 12 steps, 8 training and 2 validation complexes.
+TRAIN_STEPS = 12
+TRAIN_ENV = dict(TF_GRID="64", TF_SEEDS="8", TF_SEED0="200",
+                 TF_UNBOUND="1.2", TF_MINE_EVERY="4", TF_MINE_CHUNK="4",
+                 TF_NROT_MINE="320", TF_VAL_EVERY=str(TRAIN_STEPS),
+                 TF_VAL_NROT="256", TF_VAL_COMPLEXES="2", TF_VAL_SEED0="50",
+                 TF_EMA="0.998")
+TRAIN_RTOL = 1e-4           # loss and accuracy, card vs CPU
+GRAD_TOL = 1e-3             # each gradient leaf, x its largest component
 
 
 def emit(phase, **fields):
@@ -658,6 +684,221 @@ def check_batched(record):
         else:
             check(n["k3_fft"] == n["k3"] > 0,
                   f"dft_pallas dock_batch launches {n}")
+
+
+def training(dev):
+    """Phase 9: the flagship driver at the v9p config's full width, with
+    the launch counts set to 0 just before the run and read just after;
+    then the overfit, card-vs-CPU and checkpoint checks.  Returns the
+    phase's record."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from deeplocalproteindocking_torch import train_flagship
+    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.correlate import (dft, fused, idft,
+                                                         invz_topk)
+    from deeplocalproteindocking_torch.data.benchmark import synthetic_band
+    from deeplocalproteindocking_torch.train import Trainer
+    from deeplocalproteindocking_torch.train.data_gen import (
+        make_training_batch)
+    from deeplocalproteindocking_torch.train.mining import load_mined
+
+    # Spies keep the first K1 and K2 launch of mining and of validation
+    # (mining is told apart by a wrapper on the driver's miner) and
+    # launch as the path would.
+    k1_launch, k2_launch = dft.fused_correlate, invz_topk.invz_blockmax
+    mine = train_flagship.mine_hard_negatives
+    seen, stage = {}, ["val"]
+
+    def k1_spy(*args, **kw):
+        seen.setdefault(stage[0] + "_k1", args)
+        return k1_launch(*args, **kw)
+
+    def k2_spy(*args):
+        seen.setdefault(stage[0] + "_k2", args)
+        return k2_launch(*args)
+
+    def mine_spy(*args, **kw):
+        stage[0] = "mine"
+        try:
+            return mine(*args, **kw)
+        finally:
+            stage[0] = "val"
+
+    tmp = tempfile.mkdtemp(prefix="dlpd_train_")
+    try:
+        # The committed v9p config.json beside no checkpoint: the driver
+        # starts a run under it.
+        ckpt = os.path.join(tmp, "run")
+        os.makedirs(ckpt)
+        shutil.copy(os.path.join(V9P_DIR, "config.json"), ckpt)
+        settings = train_flagship.settings_from_env(TRAIN_ENV)
+        fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+        torch.cuda.synchronize(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dft.fused_correlate, invz_topk.invz_blockmax = k1_spy, k2_spy
+        train_flagship.mine_hard_negatives = mine_spy
+        try:
+            events = train_flagship.run(TRAIN_STEPS, ckpt, settings, dev)
+        finally:
+            dft.fused_correlate, invz_topk.invz_blockmax = (k1_launch,
+                                                            k2_launch)
+            train_flagship.mine_hard_negatives = mine
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(k1=fused.launches, k1_tc=fused.launches_tc,
+                        k1_tf32=fused.launches_tf32, k2=invz_topk.launches,
+                        k2_fft=invz_topk.launches_fft, k3=idft.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        # The first mining launches against their plain versions, after
+        # the counts were read.
+        vs_plain = {}
+        with torch.inference_mode():
+            for name in ("mine_k1", "mine_k2"):
+                if name in seen:
+                    (err, rel), route, _ = (k1_check if name.endswith("k1")
+                                            else k2_check)(seen[name])
+                    vs_plain[name] = dict(route=route, max_abs_err=err,
+                                          rel_err=rel,
+                                          shape=list(seen[name][0].shape))
+        del seen
+
+        with open(os.path.join(ckpt, "config.json")) as f:
+            cfg = DockConfig.from_json(f.read())
+        trainer = Trainer(cfg, dev)
+        state = trainer.restore(ckpt)
+        mined = load_mined(os.path.join(ckpt, "mined.npz"))
+        # Save -> restore, bit for bit.
+        trainer.save(os.path.join(tmp, "copy"), state)
+        back = trainer.restore(os.path.join(tmp, "copy"))
+        roundtrip = (back.step == state.step
+                     and back.opt_state["count"] == state.opt_state["count"]
+                     and torch.equal(back.rng, state.rng)
+                     and all(torch.equal(back.params[k], v)
+                             for k, v in state.params.items())
+                     and all(torch.equal(back.opt_state[p][k], v)
+                             for p in ("mu", "nu")
+                             for k, v in state.opt_state[p].items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    steps = [e for e in events if e["event"] == "train_step"]
+    mines = [e for e in events if e["event"] == "mine"]
+    vals = [e for e in events if e["event"] == "val"]
+    complexes = synthetic_band(settings["seed0"], settings["n_train"],
+                               widen=True, unbound=settings["unbound"])
+
+    # 8 steps on one fixed batch with the run's mined negatives, from
+    # the run's trained params and fresh moments (at the init, the shape
+    # prior ranks most batches without a mined pose at zero loss).
+    batch = make_training_batch(torch.Generator().manual_seed(0), complexes,
+                                cfg, mined=mined, device=dev)
+    st, overfit = trainer.init_state()._replace(params=state.params), []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        st, m = trainer.train_step(st, batch)
+        overfit.append(float(m["loss"]))
+    overfit_s = time.perf_counter() - t0
+    del batch, st
+
+    # One step on the card and on the CPU: the same host-built batch,
+    # the run's trained params (every leaf has a gradient), TF32 off.
+    one = cfg.replace(batch_complexes=1, num_decoys=8)
+    b1 = make_training_batch(torch.Generator().manual_seed(1), complexes, one,
+                             device="cpu")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for where in (dev, torch.device("cpu")):
+            tr = Trainer(one, where)
+            t0 = time.perf_counter()
+            loss, acc, grads = tr.value_and_grad(
+                {k: v.to(where) for k, v in state.params.items()},
+                b1.to(where))
+            out[where.type] = (loss.item(), acc.item(),
+                               {k: v.cpu() for k, v in grads.items()},
+                               time.perf_counter() - t0)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (gl, ga, gg, gs), (wl, wa, wg, ws) = out[dev.type], out["cpu"]
+    grad_rel = {k: float((gg[k] - w).abs().max() / w.abs().max())
+                for k, w in wg.items()}
+
+    return dict(
+        config="pretrained/synthetic-v9p/config.json", steps=TRAIN_STEPS,
+        settings={k: v for k, v in TRAIN_ENV.items()},
+        grid=cfg.grid_size, lig_grid=cfg.lig_grid_size,
+        decoys=cfg.num_decoys, batch_complexes=cfg.batch_complexes,
+        wall_seconds=wall, launches=launches, kernels_vs_plain=vs_plain,
+        losses=[e["loss"] for e in steps],
+        accuracies=[e["ranking_accuracy"] for e in steps],
+        step_seconds=[e["seconds"] for e in steps],
+        step_seconds_median=statistics.median(
+            e["seconds"] for e in steps[1:]),
+        mining=[dict(step=e["step"], seconds=e["seconds"],
+                     rotations=e["rotations"],
+                     rotations_per_second=e["rotations"] / e["seconds"],
+                     train_top24_hit=e["train_top24_hit"],
+                     buffer=e["buffer"]) for e in mines],
+        validation=[dict(step=e["step"], seconds=e["seconds"],
+                         top1=e["top1"], top10=e["top10"],
+                         best_lrmsd=e["best_lrmsd"]) for e in vals],
+        peak_bytes=peak, allocated_before_bytes=mem0,
+        train_peak_bytes=peak - mem0,
+        overfit_losses=overfit, overfit_seconds=overfit_s,
+        card_vs_cpu=dict(decoys=one.num_decoys, complexes=1, loss=[gl, wl],
+                         accuracy=[ga, wa],
+                         loss_rel_diff=abs(gl - wl) / abs(wl),
+                         accuracy_abs_diff=abs(ga - wa),
+                         grad_rel_err=grad_rel, card_seconds=gs,
+                         cpu_seconds=ws, rtol=TRAIN_RTOL,
+                         grad_tol=GRAD_TOL),
+        checkpoint_roundtrip=roundtrip, restored_step=state.step)
+
+
+def check_training(record):
+    """Phase 9's gates, applied after its line is printed."""
+    import math as _m
+    r = record
+    check(len(r["losses"]) == TRAIN_STEPS
+          and all(_m.isfinite(v) for v in r["losses"] + r["accuracies"]),
+          f"training: a loss or accuracy is not finite {r['losses']}")
+    n = r["launches"]
+    check(n["k1"] > 0 and n["k1_tf32"] == n["k1"],
+          f"training: K1 not all on the tf32 kernel {n}")
+    check(n["k2"] > 0 and n["k2_fft"] == n["k2"] and n["k3"] == 0,
+          f"training: K2 not all FFT, or K3 ran {n}")
+    p = r["kernels_vs_plain"]
+    check(sorted(p) == ["mine_k1", "mine_k2"]
+          and p["mine_k1"]["route"] == "tf32"
+          and p["mine_k2"]["route"] == "fft"
+          and all(e["rel_err"] <= TOL_F32 for e in p.values()),
+          f"training: mining launches against plain {p}")
+    check(len(r["mining"]) == 2 and len(r["validation"]) == 2,
+          f"training: {len(r['mining'])} mining rounds, "
+          f"{len(r['validation'])} validations")
+    check(0 < r["overfit_losses"][-1] < r["overfit_losses"][0],
+          f"training: 8 steps on one batch did not lower the loss "
+          f"{r['overfit_losses']}")
+    c = r["card_vs_cpu"]
+    check(c["loss_rel_diff"] <= TRAIN_RTOL
+          and c["accuracy_abs_diff"] <= TRAIN_RTOL
+          and max(c["grad_rel_err"].values()) <= GRAD_TOL,
+          f"training: card vs CPU {c}")
+    check(r["checkpoint_roundtrip"] and r["restored_step"] == TRAIN_STEPS,
+          "training: a checkpoint did not restore bit for bit")
 
 
 def main():
@@ -1501,6 +1742,13 @@ def main():
     check_batched(phase8)
     batched_launches = phase8["batched"]["launches"]
 
+    # ---- phase 9: training at the v9p config's full width ----
+    train = training(dev)
+    emit("training", card=card, **train)
+    check_training(train)
+    train_launches = train["launches"]
+    train_plain = train["kernels_vs_plain"]
+
     def band_count(name):
         return sum(n[name] for n in band_launches.values())
 
@@ -1542,6 +1790,11 @@ def main():
              errs["k1_f32_G4"][0],
              "batched_first_launch": phase8["batched"]["k1_first"][
                  "max_abs_err"]},
+         "launches_train": {"tc": train_launches["k1_tc"],
+                            "tf32": train_launches["k1_tf32"],
+                            "simt": train_launches["k1"]
+                            - train_launches["k1_tc"]
+                            - train_launches["k1_tf32"]},
          "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
          "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
@@ -1564,6 +1817,9 @@ def main():
          "launches_band100": band_count("k1_tf32"),
          "launches_dock_batch_float32":
              phase8["card_vs_cpu"]["dft_fused"]["launches"]["k1_tf32"],
+         "launches_train": train_launches["k1_tf32"],
+         "max_abs_err_train_first_mining_launch":
+             train_plain["mine_k1"]["max_abs_err"],
          "max_abs_err": k1_f32_errs["tf32"][0],
          "max_abs_err_b8": errs["k1_float32"][0],
          "max_abs_err_G4_b8": errs["k1_f32_G4"][0],
@@ -1581,6 +1837,9 @@ def main():
          "launches": main_launches["invz_blockmax_fft"],
          "launches_band100": band_count("k2_fft"),
          "launches_batched": batched_launches["k2_fft"],
+         "launches_train": train_launches["k2_fft"],
+         "max_abs_err_train_first_mining_launch":
+             train_plain["mine_k2"]["max_abs_err"],
          "max_abs_err": errs["k2_fft"][0],
          "max_abs_err_L64": errs["k2_fft_L64"][0],
          "max_abs_err_b128": k2_errs["fft"][0],
@@ -1595,6 +1854,7 @@ def main():
          "launches": dense_path["k2_launches"],
          "launches_path": "one dock request at grid 96 (K2's dense route)",
          "launches_band100": band_count("k2") - band_count("k2_fft"),
+         "launches_train": train_launches["k2"] - train_launches["k2_fft"],
          "max_abs_err": errs["k2_dense_L96"][0],
          "max_abs_err_b128": k2_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",

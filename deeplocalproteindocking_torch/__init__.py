@@ -15,7 +15,9 @@ follow the JAX package so each function's counterpart is easy to find:
 * ``sweep/``     — exact two-level top-K, the resplat rotation sweep,
   pose clustering;
 * ``pipeline.py`` — ``DockingPipeline.dock``: structures in, ranked
-  poses out.
+  poses out;
+* ``train/``     — ranking-loss training: decoys, batches, the trainer,
+  FFT-mined hard negatives; ``train_flagship.py`` is its driver.
 
 The package imports ``torch`` and numpy only; CUDA kernels are compiled
 from ``csrc/`` with ``nvcc`` on first use (``_build.py``).

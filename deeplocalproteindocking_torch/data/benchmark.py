@@ -147,6 +147,22 @@ def synthetic_complex(seed: int = 0, n_res_rec: int = 30,
     return Complex(name=f"synth{seed}", receptor=rec, ligand=lig)
 
 
+def synthetic_band(seed0: int, n: int, widen: bool = False,
+                   unbound: float = 0.0, backbone: bool = False) -> list:
+    """Complexes of seeds ``seed0 .. seed0 + n - 1``, the JAX tools'
+    bands (training 200+, validation 50+, held-out report 100+).
+    ``widen`` draws sizes from a 9 x 5 grid (receptors 12..20, ligands
+    6..10 residues); otherwise receptors 14..18 and ligands 7..9."""
+    if widen:
+        return [synthetic_complex(seed=seed0 + s, n_res_rec=12 + s % 9,
+                                  n_res_lig=6 + (s // 9) % 5,
+                                  unbound_rmsd=unbound, backbone=backbone)
+                for s in range(n)]
+    return [synthetic_complex(seed=seed0 + s, n_res_rec=14 + s % 5,
+                              n_res_lig=7 + s % 3, unbound_rmsd=unbound,
+                              backbone=backbone) for s in range(n)]
+
+
 def structure_to_device(s: Structure, max_atoms: Optional[int] = None,
                         bucket: Optional[int] = None,
                         device: torch.device | str = "cpu"):

@@ -41,7 +41,7 @@ import torch
 
 from deeplocalproteindocking_torch import weights
 from deeplocalproteindocking_torch.config import DockConfig
-from deeplocalproteindocking_torch.data import synthetic_complex
+from deeplocalproteindocking_torch.data.benchmark import synthetic_band
 from deeplocalproteindocking_torch.evaluation import (grade_poses,
                                                       hit_summary,
                                                       local_dock_kwargs)
@@ -55,16 +55,8 @@ def heldout_complexes(n, widen=False, seed0=100, unbound=0.0,
     the same 9x5 (receptor 12..20, ligand 6..10 residue) grid as
     training/validation, the harder, size-diverse benchmark.  ``seed0``
     selects an alternative disjoint band."""
-    if widen:
-        return [synthetic_complex(seed=seed0 + s,
-                                  n_res_rec=12 + s % 9,
-                                  n_res_lig=6 + (s // 9) % 5,
-                                  unbound_rmsd=unbound,
-                                  backbone=backbone)
-                for s in range(n)]
-    return [synthetic_complex(seed=seed0 + s, n_res_rec=14 + s % 5,
-                              n_res_lig=7 + s % 3, unbound_rmsd=unbound,
-                              backbone=backbone) for s in range(n)]
+    return synthetic_band(seed0, n, widen=widen, unbound=unbound,
+                          backbone=backbone)
 
 
 def eval_row(dock_fn, complexes, label, partial=None, on_progress=None,

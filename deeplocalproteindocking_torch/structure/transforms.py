@@ -35,6 +35,13 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def random_rotations(n: int, generator: torch.Generator) -> torch.Tensor:
+    """``n`` rotations uniform on SO(3) via Gaussian quaternions, drawn
+    from ``generator`` on its device."""
+    q = torch.randn((n, 4), generator=generator, device=generator.device)
+    return quat_to_matrix(q)
+
+
 def axis_angle_to_matrix(axis: torch.Tensor,
                          angle: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula; ``axis [..., 3]`` need not be normalized."""

@@ -14,7 +14,8 @@ on the ``dft_fused`` engine; the ``dft_pallas`` engine forms the score
 volume with the forward DFT einsums and K3 (``correlate/idft.py``) and
 takes ``exact_block_topk`` of it.  The JAX ``lax.scan`` is a Python loop over chunks whose top-K carry stays
 on the device: no per-chunk host synchronization.  Padding rotations are
-identities, masked out by ``num_valid``.
+identities, masked out by ``num_valid``.  ``score_decoys_resplat`` is
+training's differentiable form: the same model's scores of given poses.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from deeplocalproteindocking_torch.correlate.dft import get_correlator
 from deeplocalproteindocking_torch.correlate.fft import (
     correlate_scores, flat_index_to_shift)
 from deeplocalproteindocking_torch.grids.voxelize import separable_splat
+from deeplocalproteindocking_torch.sweep.refine import continuous_score
 from deeplocalproteindocking_torch.sweep.topk import (
     DockResult, exact_block_topk)
 
@@ -241,3 +243,47 @@ def dock_sweep_resplat(H: torch.Tensor,
     res = DockResult(scores=best, rot_idx=best_rot,
                      shifts=flat_index_to_shift(best_flat, L))
     return res if batched else DockResult(*(f[0] for f in res))
+
+
+def score_decoys_resplat(H: torch.Tensor,
+                         lig_coords: torch.Tensor,
+                         lig_types: torch.Tensor,
+                         lig_mask: torch.Tensor,
+                         rotations: torch.Tensor,
+                         shifts: torch.Tensor,
+                         rep_fn: Callable[[torch.Tensor], torch.Tensor],
+                         *,
+                         grid_size: int,
+                         lig_grid: int,
+                         resolution: float,
+                         sigma: float,
+                         num_types: int,
+                         fft_impl: str = "dft") -> torch.Tensor:
+    """Training path: differentiable scores ``[D]`` of the decoy poses
+    ``(rotations [D, 3, 3], shifts [D, 3])``, by the sweep's own model
+    (rotate coords -> splat -> CNN -> correlate), all D in one call.
+
+    The ``dft*`` engines evaluate each pose's score by the shift theorem
+    (``sweep/refine.continuous_score``: three phase contractions, no
+    inverse transform, always float32; shifts may be off the lattice);
+    ``xla`` forms the score volumes and gathers each pose's lattice cell
+    (shifts rounded).
+    """
+    if fft_impl in ("dft", "dft_fused", "dft_pallas"):
+        return continuous_score(
+            H, lig_coords, lig_types, lig_mask, rotations,
+            shifts.to(torch.float32), rep_fn, grid_size=grid_size,
+            lig_grid=lig_grid, resolution=resolution, sigma=sigma,
+            num_types=num_types)
+    if fft_impl != "xla":
+        raise NotImplementedError(
+            f"score_decoys_resplat: fft_impl={fft_impl!r} is not ported "
+            f"yet (the block engine is ROADMAP Queue A 5)")
+    coords_r = torch.einsum("dij,nj->dni", rotations, lig_coords)
+    vols = separable_splat(coords_r, lig_types, lig_mask,
+                           grid_size=lig_grid, resolution=resolution,
+                           sigma=sigma, num_types=num_types)
+    S = correlate_scores(H, embed_small(rep_fn(vols), grid_size))
+    idx = torch.remainder(torch.round(shifts).long(), grid_size)
+    return S[torch.arange(S.shape[0], device=S.device), idx[:, 0],
+             idx[:, 1], idx[:, 2]]

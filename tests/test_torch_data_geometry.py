@@ -183,8 +183,9 @@ def test_pose_rmsd_and_nms():
 
 
 def test_port_imports_without_jax():
-    """The port's docking, screening, refinement, grading and batched
-    docking paths import where jax, flax, optax and orbax are absent,
+    """The port's docking, screening, refinement, grading, batched
+    docking and training paths import where jax, flax, optax and orbax
+    are absent,
     never load the JAX package itself, and open no file under it (no
     module of the JAX package run on its own, as a file); a polymer
     complex builds there."""
@@ -210,6 +211,10 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.parallel.batch_eval\n"
         "import deeplocalproteindocking_torch.data.polymer\n"
         "import deeplocalproteindocking_torch.train.data_gen\n"
+        "import deeplocalproteindocking_torch.train.mining\n"
+        "import deeplocalproteindocking_torch.train_flagship\n"
+        "from deeplocalproteindocking_torch.weights import (\n"
+        "    train_state_from_numpy)\n"
         "import deeplocalproteindocking_torch.utils.logging\n"
         "from deeplocalproteindocking_torch.eval_matrix import (\n"
         "    heldout_complexes)\n"

@@ -13,7 +13,7 @@ kernel) and larger boxes on its SIMT kernel (``fused.k1_route``); all
 three are held here, with one receptor spectrum or G of them, as are K2's and
 K3's FFT kernels (L = 64, 128) and dense kernels (other L;
 ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
-only.
+only.  One train step is held against the same step on the CPU.
 """
 import numpy as np
 import pytest
@@ -313,3 +313,50 @@ def test_sweep_card_matches_cpu(cuda_device, fft_impl):
                                rtol=1e-4, atol=1e-3)
     assert c.rot_idx[0].item() == a.rot_idx[0].item()
     assert c.shifts[0].tolist() == a.shifts[0].tolist()
+
+
+def test_train_step_matches_cpu(cuda_device):
+    """One train step at the v9p model's widths (grid 32, box 24, 8
+    decoys): the same host-built batch and params on the card and on the
+    CPU give the loss within rtol 1e-4, every gradient within 1e-3 of
+    its leaf's largest, and the updated params within 1e-2 lr (2 lr
+    where a gradient is below 1e-3 of its leaf's largest: Adam's first
+    step is lr times its sign)."""
+    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.train import Trainer
+    from deeplocalproteindocking_torch.train.data_gen import (
+        make_training_batch)
+    lr = 1e-4
+    cfg = DockConfig(grid_size=32, resolution=1.25, rep_features=(32, 14),
+                     shape_prior=True, lig_grid_size=24, num_decoys=8,
+                     batch_complexes=1, learning_rate=lr, weight_decay=1e-4,
+                     lr_decay_steps=3000, near_native_rmsd=5.0,
+                     hinge_margin=20.0, decoy_global_frac=0.5)
+    cplx = [synthetic_complex(seed=s, n_res_rec=8, n_res_lig=4)
+            for s in range(2)]
+    batch = make_training_batch(torch.Generator().manual_seed(0), cplx, cfg,
+                                device="cpu")
+    state = Trainer(cfg, device="cpu").init_state(0)
+    # A coupled learned block, so every leaf has a gradient.
+    g = torch.Generator().manual_seed(1)
+    state.params["coupling"] += 0.1 * torch.randn(
+        state.params["coupling"].shape, generator=g)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tr = Trainer(cfg, device=dev)
+        st = state.to(dev)
+        loss, acc, grads = tr.value_and_grad(st.params, batch.to(dev))
+        new = tr.apply_gradients(st, grads)
+        out[str(dev)] = (loss.item(), acc.item(),
+                         {k: v.cpu() for k, v in grads.items()},
+                         {k: v.cpu() for k, v in new.params.items()})
+    (l0, a0, g0, p0), (l1, a1, g1, p1) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-4)
+    np.testing.assert_allclose(a1, a0, rtol=0, atol=1e-6)
+    for k, w in g0.items():
+        assert float(w.abs().max()) > 0, k
+        assert (g1[k] - w).abs().max() <= 1e-3 * w.abs().max(), k
+        small = w.abs() < 1e-3 * w.abs().max()
+        tol = torch.where(small, 2 * lr, 1e-2 * lr)
+        assert bool(((p1[k] - p0[k]).abs() <= tol).all()), k

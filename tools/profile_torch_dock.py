@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a warm query's time goes on the card, per stage.
+"""Where a warm query's (and a train step's) time goes on the card.
 
     python3 tools/profile_torch_dock.py      # from the repository root
 
@@ -9,6 +9,10 @@ model, rank-3 folded coupling, bf16, grid 128, top-K 64, chunk 128,
 ``dft_pallas``) one ``DockingService`` docks the receptor of seed 0
 against the ligand of seed 0 (warm-up), then, under ``torch.profiler``,
 against the ligand of seed 1: ``dock`` and ``rescore(top=16, nrot=48)``.
+Then the training cell of ``chip_smoke.py`` phase 9 (the committed v9p
+``config.json``: grid 64, box 40, 24 decoys x 2 complexes, float32):
+after one warm-up step, one train step with its batch assembly, and one
+mining round (4 training complexes x 320 rotations, top-K 24).
 Prints one JSON line per stage: host-clock wall (profiler overhead
 included), device busy time (the union of kernel intervals), the idle
 share, the largest kernels by total device time, and every kernel of
@@ -28,7 +32,13 @@ sys.path.insert(0, ROOT)
 from deeplocalproteindocking_torch import weights  # noqa: E402
 from deeplocalproteindocking_torch.config import DockConfig  # noqa: E402
 from deeplocalproteindocking_torch.data import synthetic_complex  # noqa: E402
+from deeplocalproteindocking_torch.data.benchmark import synthetic_band  # noqa: E402
 from deeplocalproteindocking_torch.serving import DockingService  # noqa: E402
+from deeplocalproteindocking_torch.train import Trainer  # noqa: E402
+from deeplocalproteindocking_torch.train.data_gen import (  # noqa: E402
+    make_training_batch)
+from deeplocalproteindocking_torch.train.mining import (  # noqa: E402
+    mine_hard_negatives)
 
 
 def busy_ms(kernels):
@@ -96,6 +106,25 @@ def main():
         poses = stage(f"{engine} dock", lambda: svc.dock(rec, lig1))
         stage(f"{engine} rescore ({min(16, len(poses))} heads x 48)",
               lambda: svc.rescore(rec, lig1, poses, top=16, nrot=48))
+
+    # The training cell: phase 9's config and training band.
+    with open(os.path.join(ROOT, "pretrained", "synthetic-v9p",
+                           "config.json")) as f:
+        tcfg = DockConfig.from_json(f.read())
+    band = synthetic_band(200, 8, widen=True, unbound=1.2)
+    trainer = Trainer(tcfg, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def step(state):
+        return trainer.train_step(state, make_training_batch(
+            gen, band, tcfg, device="cuda"))[0]
+
+    state = step(trainer.init_state())
+    stage("train step (v9p config, 2 x 24 decoys)", lambda: step(state))
+    model = trainer.bind(state.params)
+    mine_hard_negatives(model, tcfg, band[:1], n_rotations=320, top_k=24)
+    stage("mining round (4 x 320 rotations)", lambda: mine_hard_negatives(
+        model, tcfg, band[4:], n_rotations=320, top_k=24))
 
 
 if __name__ == "__main__":
