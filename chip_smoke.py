@@ -108,6 +108,30 @@ phase that does not hold:
    decoys, the run's trained params) on the card against the CPU (loss
    and accuracy rtol 1e-4, every gradient within 1e-3 of its leaf's
    largest), and a checkpoint saved and restored bit for bit.
+10. the CLI (``deeplocalproteindocking_torch.cli.main``, in process),
+   each command with the launch counts set to 0 just before it and read
+   just after, one JSON line each: ``generate-dataset`` (3 polymer
+   complexes, unbound 1.2 A; one ligand rewritten as mmCIF, one as two
+   NMR models); ``dock --checkpoint pretrained/synthetic-v9p`` at the
+   checkpoint's own config, the full 13,000 rotations (grid 64, box 40,
+   float32, chunk 16: 813 K1 launches, all tf32, and 813 K2, all FFT),
+   cold then warm, and at 256 rotations on the card (profiled:
+   ``--profile`` must write a trace) against the CPU (top-K within rtol
+   1e-3, the same top-1); ``dock --preset full-sweep`` without a
+   checkpoint (the shape channels, as the JAX CLI docks; grid 128,
+   13,000 rotations, chunk 128: 102 K1 tf32, 102 K2 FFT), cold then
+   warm; v9p docks of 2,048 rotations with ``--rescore-top 4
+   --refine-steps 5`` and with ``--ensemble product --max-models 2``;
+   ``screen --fft-impl dft_pallas --rescore-top 4`` of one receptor
+   against 3 ligands (one mmCIF; every K3 launch FFT; one receptor
+   preparation); ``evaluate --batch-size 3`` of the generated directory
+   (K1 with 3 receptor groups); ``train`` 4 steps, then ``--resume`` to
+   6 (every loss finite), and a dock from its ``state.pt``; ``doctor``
+   (the card named; K1 tf32, K2 and K3 FFT at grid 64).  Phase 10 runs
+   under torch's TF32 defaults (cuDNN on, matmul off), as a user's CLI
+   does; the earlier phases turn both off.  The full-depth
+   request's first K1 and K2 launches and the screen's first K3 launch
+   are held against their plain versions.
 
 Each phase prints one JSON line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -899,6 +923,372 @@ def check_training(record):
           f"training: card vs CPU {c}")
     check(r["checkpoint_roundtrip"] and r["restored_step"] == TRAIN_STEPS,
           "training: a checkpoint did not restore bit for bit")
+
+
+# Phase 10: the CLI's commands; the full-depth requests keep the JAX
+# bench's 13,000 rotations, the others run 2,048.
+CLI_ROTATIONS = 2048
+CLI_CMP_ROTATIONS = 256     # the CLI's card-vs-CPU dock
+V9P_CHUNK = 16              # the v9p config's rotation_chunk
+FULL_SWEEP_CHUNK = 128      # PRESETS["full-sweep"].rotation_chunk
+
+
+def _write_mmcif(path, s):
+    """``s`` as an mmCIF ``_atom_site`` loop (auth_* columns, model 1)."""
+    cols = ("group_PDB", "id", "auth_atom_id", "auth_comp_id",
+            "auth_asym_id", "auth_seq_id", "Cartn_x", "Cartn_y", "Cartn_z",
+            "occupancy", "pdbx_PDB_model_num")
+    with open(path, "w") as f:
+        f.write("data_ligand\n#\nloop_\n"
+                + "".join(f"_atom_site.{c}\n" for c in cols))
+        for i, (x, y, z) in enumerate(s.coords):
+            f.write(f"ATOM {i + 1} {s.atom_names[i]} {s.res_names[i]} "
+                    f"{s.chain_ids[i]} {int(s.res_ids[i])} {x:.3f} {y:.3f} "
+                    f"{z:.3f} 1.00 1\n")
+        f.write("#\n")
+
+
+def _write_two_models(path, pdb_path, dx=0.5):
+    """A two-MODEL PDB: the file's ATOM records, then them moved by
+    ``dx`` Angstrom along x."""
+    with open(pdb_path) as f:
+        atoms = [l for l in f if l.startswith("ATOM")]
+    moved = [l[:30] + f"{float(l[30:38]) + dx:8.3f}" + l[38:] for l in atoms]
+    with open(path, "w") as f:
+        f.write("MODEL        1\n" + "".join(atoms) + "ENDMDL\n"
+                "MODEL        2\n" + "".join(moved) + "ENDMDL\nEND\n")
+
+
+def cli_commands(dev):
+    """Phase 10: the port's CLI in process (``cli.main``) on ``dev``, each
+    command with the launch counts set to 0 just before it and read just
+    after, one JSON line per command.  Returns the phase's record."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch import cli
+    from deeplocalproteindocking_torch.correlate import (dft, fused, idft,
+                                                         invz_topk)
+    from deeplocalproteindocking_torch.structure.mmcif import (
+        count_models, parse_structure)
+
+    k1_launch, k2_launch = dft.fused_correlate, invz_topk.invz_blockmax
+    k3_launch = idft.idft_bc
+    seen, stage = {}, [None]
+
+    def k1_spy(*args, **kw):
+        seen.setdefault((stage[0], "k1"), args)
+        return k1_launch(*args, **kw)
+
+    def k2_spy(*args):
+        seen.setdefault((stage[0], "k2"), args)
+        return k2_launch(*args)
+
+    def k3_spy(*args):
+        seen.setdefault((stage[0], "k3"), args)
+        return k3_launch(*args)
+
+    commands = {}
+
+    def h_groups(name):
+        """Receptor groups of ``name``'s first K1 launch (1: one H)."""
+        args = seen.get((name, "k1"))
+        return None if args is None else (
+            int(args[2].shape[0]) if args[2].dim() == 5 else 1)
+
+    def run(name, argv):
+        """One command: ``(record, captured stdout)``."""
+        fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+        stage[0] = name
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        rec = dict(seconds=time.perf_counter() - t0, rc=rc, launches=dict(
+            k1=fused.launches, k1_tc=fused.launches_tc,
+            k1_tf32=fused.launches_tf32, k2=invz_topk.launches,
+            k2_fft=invz_topk.launches_fft, k3=idft.launches,
+            k3_fft=idft.launches_fft))
+        commands[name] = rec
+        return rec, out.getvalue()
+
+    def poses(out):
+        with open(os.path.join(out, "poses.json")) as f:
+            table = json.load(f)
+        check(len(table) > 0 and all(math.isfinite(p["score"])
+                                     for p in table),
+              f"{out}: no poses or a non-finite score")
+        return table
+
+    def on_route(name, k1=None, k2=None, k3=None):
+        """Every launch of ``name`` on the stated route (None: none)."""
+        n = commands[name]["launches"]
+        want = {"k1": (n["k1_tf32"] if k1 == "tf32" else 0),
+                "k2": (n["k2_fft"] if k2 == "fft" else 0),
+                "k3": (n["k3_fft"] if k3 == "fft" else 0)}
+        check(all(n[k] == want[k] for k in want)
+              and all((n[k] > 0) == (r is not None)
+                      for k, r in (("k1", k1), ("k2", k2), ("k3", k3))),
+              f"cli {name}: launches {n}, expected K1 {k1}, K2 {k2}, "
+              f"K3 {k3}")
+
+    tmp = tempfile.mkdtemp(prefix="dlpd_cli_")
+    data, ligs = os.path.join(tmp, "data"), os.path.join(tmp, "ligands")
+    rec_pdb = os.path.join(data, "synth0_r_u.pdb")
+    lig_pdb = os.path.join(data, "synth0_l_u.pdb")
+    pair = ["--receptor", rec_pdb, "--ligand", lig_pdb]
+    v9p = ["--checkpoint", V9P_DIR]
+    record = {}
+    # The CLI as a user runs it: under torch's TF32 defaults (cuDNN on,
+    # matmul off), not the TF32-off of the earlier phases.
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    dft.fused_correlate, invz_topk.invz_blockmax = k1_spy, k2_spy
+    idft.idft_bc = k3_spy
+    try:
+        # 1. Three polymer complexes; one ligand as mmCIF, one ligand as
+        # two NMR models.
+        run("generate_dataset", ["generate-dataset", "--out", data,
+                                 "--num-complexes", "3", "--backbone",
+                                 "--unbound-rmsd", "1.2"])
+        os.makedirs(ligs)
+        for i in (0, 1):
+            shutil.copy(os.path.join(data, f"synth{i}_l_u.pdb"), ligs)
+        cif = os.path.join(ligs, "synth2_l_u.cif")
+        pdb2 = parse_structure(os.path.join(data, "synth2_l_u.pdb"))
+        _write_mmcif(cif, pdb2)
+        from_cif = parse_structure(cif)
+        two = os.path.join(tmp, "two_models.pdb")
+        _write_two_models(two, lig_pdb)
+        files = dict(files=sorted(os.listdir(data)), mmcif_atoms=len(from_cif),
+                     two_model_count=count_models(two))
+        emit("cli_generate_dataset", **commands["generate_dataset"], **files)
+        check(len(files["files"]) == 6 and files["two_model_count"] == 2
+              and list(from_cif.atom_names) == list(pdb2.atom_names)
+              and np.allclose(from_cif.coords, pdb2.coords, atol=1e-3),
+              f"cli generate-dataset: files or mmCIF round trip {files}")
+
+        # 2. The v9p checkpoint at its own config: 13,000 rotations, grid
+        # 64, box 40, float32, chunk 16.  Cold, then warm.
+        for tag in ("cold", "warm"):
+            name = f"dock_v9p_{tag}"
+            out = os.path.join(tmp, name)
+            run(name, ["dock", "--out", out] + pair + v9p)
+            top = poses(out)[0]
+            r = commands[name]
+            r.update(rotations=BENCH_ROTATIONS, top1_score=top["score"],
+                     rotations_per_second=BENCH_ROTATIONS / r["seconds"])
+            emit("cli_" + name, **r)
+            on_route(name, k1="tf32", k2="fft")
+            want = math.ceil(BENCH_ROTATIONS / V9P_CHUNK)
+            check(r["launches"]["k1"] == want == r["launches"]["k2"],
+                  f"cli {name}: {r['launches']}, expected {want} of each")
+        # Card against CPU at 256 rotations, the card's run profiled.
+        trace = os.path.join(tmp, "trace")
+        cmp = {}
+        for where in ("cuda", "cpu"):
+            name = f"dock_v9p_{CLI_CMP_ROTATIONS}_{where}"
+            out = os.path.join(tmp, name)
+            extra = ["--profile", trace] if where == "cuda" else []
+            run(name, ["dock", "--out", out, "--num-rotations",
+                       str(CLI_CMP_ROTATIONS), "--device", where] + pair
+                + v9p + extra)
+            cmp[where] = poses(out)
+        g = np.sort([p["score"] for p in cmp["cuda"]])
+        w = np.sort([p["score"] for p in cmp["cpu"]])
+        same_n = len(g) == len(w)
+        traces = sorted(os.listdir(trace)) if os.path.isdir(trace) else []
+        record["card_vs_cpu"] = dict(
+            rotations=CLI_CMP_ROTATIONS, rtol=1e-3, poses=[len(g), len(w)],
+            max_rel_diff=(float(np.max(np.abs(g - w) / np.abs(w)))
+                          if same_n else None),
+            top1_cuda=[cmp["cuda"][0]["rot_idx"]] + cmp["cuda"][0]["shift"],
+            top1_cpu=[cmp["cpu"][0]["rot_idx"]] + cmp["cpu"][0]["shift"],
+            cuda_seconds=commands[f"dock_v9p_{CLI_CMP_ROTATIONS}_cuda"][
+                "seconds"],
+            cpu_seconds=commands[f"dock_v9p_{CLI_CMP_ROTATIONS}_cpu"][
+                "seconds"],
+            profile_files=traces,
+            profile_bytes=sum(os.path.getsize(os.path.join(trace, t))
+                              for t in traces))
+        emit("cli_dock_card_vs_cpu", **record["card_vs_cpu"])
+        c = record["card_vs_cpu"]
+        check(same_n and np.allclose(g, w, rtol=1e-3, atol=0)
+              and c["top1_cuda"] == c["top1_cpu"],
+              f"cli dock: card against CPU {c}")
+        check(len(traces) == 1 and traces[0].endswith(".json")
+              and c["profile_bytes"] > 0, f"cli --profile: {traces}")
+
+        # 3. --preset full-sweep, no checkpoint: grid 128, 13,000
+        # rotations, chunk 128, top-K 64, float32 (the JAX CLI docks
+        # without a checkpoint on the shape channels: params None).
+        for tag in ("cold", "warm"):
+            name = f"dock_full_sweep_{tag}"
+            out = os.path.join(tmp, name)
+            run(name, ["dock", "--out", out, "--preset", "full-sweep"]
+                + pair)
+            top = poses(out)[0]
+            r = commands[name]
+            r.update(rotations=BENCH_ROTATIONS, top1_score=top["score"],
+                     rotations_per_second=BENCH_ROTATIONS / r["seconds"])
+            emit("cli_" + name, **r)
+            on_route(name, k1="tf32", k2="fft")
+            want = math.ceil(BENCH_ROTATIONS / FULL_SWEEP_CHUNK)
+            check(r["launches"]["k1"] == want == r["launches"]["k2"],
+                  f"cli {name}: {r['launches']}, expected {want} of each")
+
+        # 4. Rescore and refine; an NMR ensemble of two ligand models.
+        rot = ["--num-rotations", str(CLI_ROTATIONS)]
+        out = os.path.join(tmp, "dock_rescore_refine")
+        run("dock_rescore_refine", ["dock", "--out", out, "--rescore-top",
+                                    "4", "--refine-steps", "5"]
+            + pair + v9p + rot)
+        commands["dock_rescore_refine"]["poses"] = len(poses(out))
+        emit("cli_dock_rescore_refine", **commands["dock_rescore_refine"])
+        on_route("dock_rescore_refine", k1="tf32", k2="fft")
+        out = os.path.join(tmp, "dock_ensemble")
+        run("dock_ensemble", ["dock", "--out", out, "--receptor", rec_pdb,
+                              "--ligand", two, "--ensemble", "product",
+                              "--max-models", "2"] + v9p + rot)
+        table = poses(out)
+        commands["dock_ensemble"].update(
+            poses=len(table),
+            ligand_models=sorted({p["ligand_model"] for p in table}),
+            h_groups=h_groups("dock_ensemble"))
+        emit("cli_dock_ensemble", **commands["dock_ensemble"])
+        on_route("dock_ensemble", k1="tf32", k2="fft")
+        check(commands["dock_ensemble"]["ligand_models"] in ([1], [2], [1, 2])
+              and commands["dock_ensemble"]["h_groups"] == 2,
+              f"cli ensemble: {commands['dock_ensemble']}")
+
+        # 5. Screening on dft_pallas: one receptor, three ligands (one
+        # mmCIF), each docked then rescored through the service's cache.
+        out = os.path.join(tmp, "screen")
+        run("screen", ["screen", "--receptor", rec_pdb, "--ligands", ligs,
+                       "--out", out, "--fft-impl", "dft_pallas",
+                       "--rescore-top", "4"] + v9p + rot)
+        with open(os.path.join(out, "screen.json")) as f:
+            scr = json.load(f)
+        commands["screen"].update(
+            cache=scr["cache"], ranking=[r["ligand"] for r in scr["ranking"]],
+            best_scores=[r["best_score"] for r in scr["ranking"]])
+        emit("cli_screen", **commands["screen"])
+        on_route("screen", k3="fft")
+        check(scr["cache"]["misses"] == 1 and scr["cache"]["hits"] == 2 + 3
+              and sorted(commands["screen"]["ranking"]) == [
+                  "synth0_l_u", "synth1_l_u", "synth2_l_u"]
+              and all(math.isfinite(v)
+                      for v in commands["screen"]["best_scores"]),
+              f"cli screen: {commands['screen']}")
+
+        # 6. Batched evaluation of the generated directory.
+        out = os.path.join(tmp, "evaluate")
+        _, text = run("evaluate", ["evaluate", "--data-dir", data, "--out",
+                                   out, "--batch-size", "3"] + v9p + rot)
+        with open(os.path.join(out, "summary.json")) as f:
+            summary = json.load(f)
+        commands["evaluate"].update(summary=summary,
+                                    h_groups=h_groups("evaluate"))
+        emit("cli_evaluate", **commands["evaluate"])
+        on_route("evaluate", k1="tf32", k2="fft")
+        check(summary["num_complexes"] == 3
+              and commands["evaluate"]["h_groups"] == 3,
+              f"cli evaluate: {commands['evaluate']}")
+
+        # 7. Train, stop, resume; then dock with the run's state.pt.
+        ck = os.path.join(tmp, "run")
+        train = ["train", "--synthetic", "2", "--ckpt-dir", ck,
+                 "--ckpt-every", "2", "--grid-size", "64", "--mine-every",
+                 "2", "--mine-rotations", "64"]
+        run("train", train + ["--steps", "4"])
+        run("train_resume", train + ["--steps", "6", "--resume"])
+        with open(os.path.join(ck, "train.jsonl")) as f:
+            events = [json.loads(l) for l in f]
+        losses = [e["loss"] for e in events if e["event"] == "train_step"]
+        for name in ("train", "train_resume"):
+            emit("cli_" + name, **commands[name])
+            on_route(name, k1="tf32", k2="fft")
+        out = os.path.join(tmp, "dock_trained")
+        run("dock_trained", ["dock", "--out", out, "--checkpoint", ck,
+                             "--num-rotations", str(CLI_CMP_ROTATIONS)]
+            + pair)
+        commands["dock_trained"]["poses"] = len(poses(out))
+        commands["train_resume"].update(
+            losses=losses, steps=[e["step"] for e in events
+                                  if e["event"] == "train_step"],
+            checkpoints=sorted(d for d in os.listdir(ck)
+                               if d.startswith("step_")))
+        emit("cli_dock_trained", **commands["dock_trained"])
+        check(commands["train_resume"]["steps"] == list(range(6))
+              and all(math.isfinite(v) for v in losses)
+              and commands["train_resume"]["checkpoints"][-1]
+              == "step_00000006", f"cli train: {commands['train_resume']}")
+        on_route("dock_trained", k1="tf32", k2="fft")
+
+        # 8. Doctor on the v9p checkpoint.
+        _, text = run("doctor", ["doctor"] + v9p)
+        rep = json.loads(text.strip().splitlines()[-1])
+        commands["doctor"].update(doctor_ok=rep["doctor_ok"],
+                                  device0=rep["backend"].get("device0"),
+                                  routes=rep["routes"], tf32=rep["tf32"],
+                                  native=[rep["pdb_native"]["ok"],
+                                          rep["cif_native"]["ok"]],
+                                  license=rep.get("license"))
+        emit("cli_doctor", **commands["doctor"])
+        d = commands["doctor"]
+        check(d["rc"] == 0 and d["doctor_ok"]
+              and d["device0"] == torch.cuda.get_device_name(0)
+              and (d["routes"]["k1"], d["routes"]["k2"]) == ("tf32", "fft")
+              and d["routes"]["k3"].startswith("fft"),
+              f"cli doctor: {d}")
+    finally:
+        dft.fused_correlate, invz_topk.invz_blockmax = k1_launch, k2_launch
+        idft.idft_bc = k3_launch
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The first K1 and K2 launch of the full-depth v9p request and the
+    # first K3 launch of the screen, against their plain versions.
+    firsts = [("dock_v9p_cold", "k1"), ("dock_v9p_cold", "k2"),
+              ("screen", "k3")]
+    check(all(k in seen for k in firsts), f"cli: launches not seen {seen}")
+    if not all(k in seen for k in firsts):    # reached only in a rehearsal
+        return dict(record, commands=commands)
+    k1_err, k1_route, _ = k1_check(seen[("dock_v9p_cold", "k1")])
+    k2_err, k2_route, _ = k2_check(seen[("dock_v9p_cold", "k2")])
+    k3_args = seen[("screen", "k3")]
+    f0 = idft.launches_fft
+    got = idft.idft_bc(*k3_args)
+    torch.cuda.synchronize(dev)
+    k3_err = rel_err(got, idft.idft_bc_reference(*k3_args))
+    record["kernels_vs_plain"] = {
+        "dock_v9p_k1": dict(route=k1_route, max_abs_err=k1_err[0],
+                            rel_err=k1_err[1]),
+        "dock_v9p_k2": dict(route=k2_route, max_abs_err=k2_err[0],
+                            rel_err=k2_err[1]),
+        "screen_k3": dict(route="fft" if idft.launches_fft > f0 else "dense",
+                          max_abs_err=k3_err[0], rel_err=k3_err[1])}
+    check(all(e["rel_err"] <= TOL_F32
+              for e in record["kernels_vs_plain"].values())
+          and (k1_route, k2_route) == ("tf32", "fft")
+          and record["kernels_vs_plain"]["screen_k3"]["route"] == "fft",
+          f"cli: first launches against plain {record['kernels_vs_plain']}")
+    record["commands"] = commands
+    record["launches"] = {k: sum(c["launches"][k] for c in commands.values())
+                          for k in ("k1", "k1_tc", "k1_tf32", "k2", "k2_fft",
+                                    "k3", "k3_fft")}
+    return record
 
 
 def main():
@@ -1749,6 +2139,17 @@ def main():
     train_launches = train["launches"]
     train_plain = train["kernels_vs_plain"]
 
+    # ---- phase 10: the CLI, full-depth requests included ----
+    clir = cli_commands(dev)
+    emit("cli", card=card, launches=clir["launches"],
+         kernels_vs_plain=clir["kernels_vs_plain"],
+         seconds={k: c["seconds"] for k, c in clir["commands"].items()})
+
+    def cli_count(name):
+        """Phase 10's launches of counter ``name``, by command."""
+        return {k: c["launches"][name] for k, c in clir["commands"].items()
+                if c["launches"][name]}
+
     def band_count(name):
         return sum(n[name] for n in band_launches.values())
 
@@ -1795,6 +2196,8 @@ def main():
                             "simt": train_launches["k1"]
                             - train_launches["k1_tc"]
                             - train_launches["k1_tf32"]},
+         "launches_cli": {"tc": cli_count("k1_tc"),
+                          "tf32": cli_count("k1_tf32")},
          "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
          "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
@@ -1820,6 +2223,9 @@ def main():
          "launches_train": train_launches["k1_tf32"],
          "max_abs_err_train_first_mining_launch":
              train_plain["mine_k1"]["max_abs_err"],
+         "launches_cli": cli_count("k1_tf32"),
+         "max_abs_err_cli_full_depth_v9p_first_launch":
+             clir["kernels_vs_plain"]["dock_v9p_k1"]["max_abs_err"],
          "max_abs_err": k1_f32_errs["tf32"][0],
          "max_abs_err_b8": errs["k1_float32"][0],
          "max_abs_err_G4_b8": errs["k1_f32_G4"][0],
@@ -1840,6 +2246,9 @@ def main():
          "launches_train": train_launches["k2_fft"],
          "max_abs_err_train_first_mining_launch":
              train_plain["mine_k2"]["max_abs_err"],
+         "launches_cli": cli_count("k2_fft"),
+         "max_abs_err_cli_full_depth_v9p_first_launch":
+             clir["kernels_vs_plain"]["dock_v9p_k2"]["max_abs_err"],
          "max_abs_err": errs["k2_fft"][0],
          "max_abs_err_L64": errs["k2_fft_L64"][0],
          "max_abs_err_b128": k2_errs["fft"][0],
@@ -1867,6 +2276,9 @@ def main():
          "launches": screen_fft_launches,
          "launches_path": "the screening service at grid 128 (phase 5)",
          "launches_band100": band_count("k3_fft"),
+         "launches_cli": cli_count("k3_fft"),
+         "max_abs_err_cli_screen_first_launch":
+             clir["kernels_vs_plain"]["screen_k3"]["max_abs_err"],
          "max_abs_err": errs["k3"][0],
          "max_abs_err_L64": errs["k3_fft_L64"][0],
          "max_abs_err_b128": k3_errs["fft"][0],

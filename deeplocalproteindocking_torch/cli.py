@@ -1,0 +1,665 @@
+"""Command-line entry points of the port.
+
+    python -m deeplocalproteindocking_torch.cli <command> ...
+
+Port of ``deeplocalproteindocking_tpu/cli.py``: the same commands, flags
+and output files (``poses.json``, ``pose_NNN.pdb``, ``screen.json``,
+``train.jsonl``, ``<name>_decoys.npz``, the final JSON line of
+``doctor``).  What differs:
+
+* ``--device {cuda,cpu}`` (default ``cuda``) is where every tensor lives;
+  ``cuda`` without a visible card raises, it never falls back.
+* ``--checkpoint DIR`` loads the port's own ``DIR/step_*/state.pt`` (the
+  latest step, as the JAX restore takes) or else ``DIR/best_params.npz``
+  (``tools/export_torch_weights.py``'s export of an Orbax checkpoint).
+  Its ``config.json`` is the base config, as in the JAX CLI.
+* ``--mesh-rot``/``mesh_batch`` > 1 raise: multi-GPU is not ported.
+* ``--debug-nans`` raises ``FloatingPointError`` on a NaN or +inf score
+  and on a non-finite loss or gradient (``jax_debug_nans``' role).
+* ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
+* ``generate-dataset --decoys`` draws on a torch generator seeded with
+  ``--seed + i``: JAX's PRNG streams cannot be reproduced, so the files
+  match the JAX CLI's in layout and labels, not in samples.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _add_config_args(p: argparse.ArgumentParser):
+    p.add_argument("--preset", default=None,
+                   help="named preset from config.PRESETS")
+    p.add_argument("--grid-size", type=int, default=None)
+    p.add_argument("--resolution", type=float, default=None)
+    p.add_argument("--num-rotations", type=int, default=None)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--local-cone-deg", type=float, default=None)
+    p.add_argument("--mesh-rot", type=int, default=None,
+                   help="rotation shards across cards (not ported: > 1 "
+                        "raises)")
+    p.add_argument("--sweep-mode", default=None,
+                   choices=["resplat", "resample"])
+    p.add_argument("--fft-impl", default=None,
+                   choices=["dft_fused", "dft", "dft_pallas", "xla",
+                            "block"])
+    p.add_argument("--fft-block", type=int, default=None,
+                   help="translation-block edge for --fft-impl block "
+                        "(must divide grid size)")
+    p.add_argument("--coupling-rank", type=int, default=None,
+                   help="SVD-truncate the learned channel coupling to "
+                        "this rank before the sweep (0/unset = full rank)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError on a NaN score or a "
+                        "non-finite loss or gradient")
+    p.add_argument("--profile", default=None,
+                   help="directory for a torch.profiler Chrome trace")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where every tensor lives (cuda needs a card)")
+
+
+def _device(args) -> torch.device:
+    """The device of ``--device``; ``cuda`` without a card raises."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA card is visible "
+                         "(torch.cuda.is_available() is false); pass "
+                         "--device cpu to run on the CPU")
+    return torch.device(args.device)
+
+
+def _build_config(args):
+    """Preset, then the checkpoint's ``config.json``, then the flags."""
+    from deeplocalproteindocking_torch.config import DockConfig, PRESETS
+    cfg = PRESETS[args.preset] if args.preset else DockConfig()
+    # A checkpoint carries the config it was trained with: it is the base,
+    # so scoring semantics match the weights; explicit flags overlay it.
+    ckpt = getattr(args, "checkpoint", None)
+    if ckpt:
+        ckpt_cfg_path = os.path.join(ckpt, "config.json")
+        if os.path.exists(ckpt_cfg_path):
+            with open(ckpt_cfg_path) as f:
+                cfg = DockConfig.from_json(f.read())
+    overrides = {k: getattr(args, k) for k in (
+        "grid_size", "resolution", "num_rotations", "top_k",
+        "local_cone_deg", "mesh_rot", "sweep_mode", "fft_impl",
+        "fft_block") if getattr(args, k, None) is not None}
+    cr = getattr(args, "coupling_rank", None)
+    if cr is not None:
+        overrides["coupling_rank"] = cr or None   # 0 -> full rank
+    if getattr(args, "debug_nans", False):
+        overrides["debug_nans"] = True
+    if getattr(args, "global_frac", None) is not None:
+        overrides["decoy_global_frac"] = args.global_frac
+    if ckpt:
+        # Geometry flags change scoring semantics relative to training.
+        for geom in ("resolution", "grid_size"):
+            if geom in overrides and overrides[geom] != getattr(cfg, geom):
+                print(f"warning: --{geom.replace('_', '-')}="
+                      f"{overrides[geom]} differs from the checkpoint's "
+                      f"training value {getattr(cfg, geom)}; scores may "
+                      f"not match training semantics", file=sys.stderr)
+    cfg = cfg.replace(**overrides)
+    if cfg.mesh_rot > 1 or cfg.mesh_batch > 1:
+        raise SystemExit(
+            f"mesh (rot={cfg.mesh_rot}, batch={cfg.mesh_batch}): the "
+            f"multi-GPU sweep is not ported; run with --mesh-rot 1")
+    return cfg
+
+
+def load_checkpoint_params(ckpt: str, cfg, device) -> dict:
+    """Params of checkpoint directory ``ckpt``: the latest
+    ``step_*/state.pt`` (``Trainer.save``), else ``best_params.npz``."""
+    from deeplocalproteindocking_torch import weights
+    from deeplocalproteindocking_torch.train.trainer import Trainer
+    steps = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+    if any(os.path.exists(os.path.join(ckpt, d, "state.pt")) for d in steps):
+        return Trainer(cfg, device).restore(ckpt).params
+    npz = os.path.join(ckpt, "best_params.npz")
+    if os.path.exists(npz):
+        return weights.load_npz(npz)
+    if steps:
+        raise SystemExit(f"checkpoint {ckpt}: its steps ({steps[-1]}, ...) "
+                         f"hold no state.pt (an Orbax checkpoint of the JAX "
+                         f"package?) and there is no best_params.npz; "
+                         f"convert it with `python tools/export_torch_"
+                         f"weights.py {ckpt} {ckpt}/best_params.npz` where "
+                         f"JAX is installed")
+    raise SystemExit(f"checkpoint {ckpt}: no step_*/state.pt and no "
+                     f"best_params.npz")
+
+
+def _build_pipeline(cfg, checkpoint, device):
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline
+    params = (load_checkpoint_params(checkpoint, cfg, device)
+              if checkpoint else None)
+    return DockingPipeline(cfg, params=params, device=device)
+
+
+def _check_scores(cfg, scores):
+    """``--debug-nans``: a NaN or +inf score raises (a -inf score is a
+    masked translation)."""
+    s = np.asarray(scores)
+    if cfg.debug_nans and bool(np.any(np.isnan(s) | (s == np.inf))):
+        raise FloatingPointError(f"non-finite docking score: {s}")
+
+
+def _write_poses(out, poses, lig_models, num_out, pairs=None):
+    """``pose_NNN.pdb`` for the first ``num_out`` poses and ``poses.json``
+    for all, the JAX CLI's layout."""
+    from deeplocalproteindocking_torch.structure.pdb import write_pdb
+    os.makedirs(out, exist_ok=True)
+    n = min(len(poses), num_out)
+    for i in range(n):
+        src = lig_models[0 if pairs is None else int(pairs[i, 1])]
+        s = dataclasses.replace(src)
+        s.coords = poses.ligand_coords(src.coords, i).astype(np.float32)
+        write_pdb(os.path.join(out, f"pose_{i:03d}.pdb"), s)
+    table = []
+    for i in range(len(poses)):
+        row = dict(rank=i, score=float(poses.scores[i]),
+                   rot_idx=int(poses.rot_idx[i]),
+                   shift=[int(v) for v in poses.shifts[i]])
+        if pairs is not None:
+            row.update(receptor_model=int(pairs[i, 0]) + 1,
+                       ligand_model=int(pairs[i, 1]) + 1)
+        table.append(row)
+    with open(os.path.join(out, "poses.json"), "w") as f:
+        json.dump(table, f, indent=2)
+    return n
+
+
+def cmd_dock(args):
+    from deeplocalproteindocking_torch.structure.mmcif import (
+        count_models, parse_structure)
+    from deeplocalproteindocking_torch.utils.profiling import maybe_trace
+    device = _device(args)
+    cfg = _build_config(args)
+    pipe = _build_pipeline(cfg, args.checkpoint, device)
+
+    def load(path, model, chain_sel):
+        s = parse_structure(path, model=model).typed()
+        return s.chains(list(chain_sel)) if chain_sel else s
+
+    if args.ensemble:
+        if args.rescore_top or args.refine_steps:
+            raise SystemExit(
+                "--ensemble is incompatible with --rescore-top/"
+                "--refine-steps (rescoring is defined per model pair); "
+                "dock a single model pair instead")
+        n_rec = count_models(args.receptor)
+        n_lig = count_models(args.ligand)
+        if args.max_models:
+            n_rec = min(n_rec, args.max_models)
+            n_lig = min(n_lig, args.max_models)
+        recs = [load(args.receptor, m + 1, args.receptor_chains)
+                for m in range(n_rec)]
+        ligs = [load(args.ligand, m + 1, args.ligand_chains)
+                for m in range(n_lig)]
+        print(f"ensemble dock: {n_rec} receptor x {n_lig} ligand "
+              f"models ({args.ensemble} pairing)")
+        with maybe_trace(args.profile):
+            poses, pairs = pipe.dock_ensemble(recs, ligs,
+                                              pairing=args.ensemble)
+        _check_scores(cfg, poses.scores)
+        n = _write_poses(args.out, poses, [l.centered() for l in ligs],
+                         args.num_out, pairs)
+        print(f"wrote {n} pose PDBs + poses.json to {args.out}")
+        return
+    rec = load(args.receptor, args.receptor_model, args.receptor_chains)
+    lig = load(args.ligand, args.ligand_model, args.ligand_chains)
+    with maybe_trace(args.profile):
+        poses = pipe.dock(rec, lig)
+        if args.rescore_top:
+            poses = pipe.rescore(rec, lig, poses, top=args.rescore_top)
+        if args.refine_steps:
+            poses = pipe.refine(rec, lig, poses, steps=args.refine_steps)
+    _check_scores(cfg, poses.scores)
+    n = _write_poses(args.out, poses, [lig.centered()], args.num_out)
+    print(f"wrote {n} pose PDBs + poses.json to {args.out}")
+
+
+def cmd_generate_dataset(args):
+    from deeplocalproteindocking_torch.data.benchmark import (
+        synthetic_complex)
+    from deeplocalproteindocking_torch.structure.pdb import write_pdb
+    os.makedirs(args.out, exist_ok=True)
+    for i in range(args.num_complexes):
+        c = synthetic_complex(seed=args.seed + i, backbone=args.backbone,
+                              unbound_rmsd=args.unbound_rmsd)
+        write_pdb(os.path.join(args.out, f"{c.name}_r_u.pdb"), c.receptor)
+        write_pdb(os.path.join(args.out, f"{c.name}_l_u.pdb"), c.ligand)
+        if args.decoys:
+            # Labelled decoy pose sets for interchange and inspection
+            # (training draws its own on the fly).
+            from deeplocalproteindocking_torch.train.data_gen import (
+                native_voxel_shift)
+            from deeplocalproteindocking_torch.train.decoys import (
+                generate_decoys)
+            lig_c = c.ligand.centered().typed()
+            ds = generate_decoys(
+                torch.Generator().manual_seed(args.seed + i),
+                torch.as_tensor(lig_c.coords), torch.ones(len(lig_c)),
+                torch.as_tensor(native_voxel_shift(c, 1.25)),
+                n=args.decoys, resolution=1.25,
+                max_angle=float(np.deg2rad(50.0)), max_shift=8.0)
+            np.savez(os.path.join(args.out, f"{c.name}_decoys.npz"),
+                     rotations=ds.rotations.numpy(),
+                     shifts=ds.shifts.numpy(), lrmsd=ds.lrmsd.numpy())
+    print(f"wrote {args.num_complexes} synthetic complexes to {args.out}"
+          + (f" (+{args.decoys}-pose decoy sets)" if args.decoys else ""))
+
+
+def _ligand_paths(spec: str):
+    if os.path.isdir(spec):
+        return sorted(os.path.join(spec, f) for f in os.listdir(spec)
+                      if f.endswith((".pdb", ".cif", ".mmcif")))
+    return spec.split(",")
+
+
+def cmd_screen(args):
+    from deeplocalproteindocking_torch.serving import DockingService
+    from deeplocalproteindocking_torch.structure.mmcif import (
+        parse_structure)
+    from deeplocalproteindocking_torch.utils.profiling import maybe_trace
+    device = _device(args)
+    cfg = _build_config(args)
+    params = (load_checkpoint_params(args.checkpoint, cfg, device)
+              if args.checkpoint else None)
+    svc = DockingService(cfg, params=params, device=device)
+    rec = parse_structure(args.receptor).typed()
+    paths = _ligand_paths(args.ligands)
+    os.makedirs(args.out, exist_ok=True)
+    ranking = []
+    with maybe_trace(args.profile):
+        for path in paths:
+            lig = parse_structure(path).typed()
+            poses = svc.dock(rec, lig)
+            if args.rescore_top:
+                poses = svc.rescore(rec, lig, poses, top=args.rescore_top)
+            _check_scores(cfg, poses.scores)
+            name = os.path.splitext(os.path.basename(path))[0]
+            ranking.append(dict(
+                ligand=name, best_score=float(poses.scores[0]),
+                poses=[dict(rank=i, score=float(poses.scores[i]),
+                            shift=[int(v) for v in poses.shifts[i]])
+                       for i in range(min(len(poses), args.num_out))]))
+    ranking.sort(key=lambda r: -r["best_score"])
+    with open(os.path.join(args.out, "screen.json"), "w") as f:
+        json.dump(dict(receptor=args.receptor, cache=svc.stats,
+                       ranking=ranking), f, indent=2)
+    print(f"screened {len(paths)} ligands "
+          f"(receptor prepared {svc.stats['misses']}x, "
+          f"served {svc.stats['hits']}x from cache); "
+          f"ranking -> {args.out}/screen.json")
+
+
+def _load_complexes(args):
+    from deeplocalproteindocking_torch.data.benchmark import (
+        list_benchmark, load_complex, synthetic_complex)
+    if args.data_dir:
+        return [load_complex(args.data_dir, c)
+                for c in list_benchmark(args.data_dir)]
+    return [synthetic_complex(seed=i) for i in range(args.synthetic)]
+
+
+def cmd_evaluate(args):
+    from deeplocalproteindocking_torch.evaluation import (
+        run_benchmark, run_benchmark_batched)
+    from deeplocalproteindocking_torch.utils.profiling import maybe_trace
+    device = _device(args)
+    cfg = _build_config(args)
+    pipe = _build_pipeline(cfg, args.checkpoint, device)
+    complexes = _load_complexes(args)
+    with maybe_trace(args.profile):
+        if args.batch_size > 1:
+            summary = run_benchmark_batched(
+                pipe, complexes, args.out, group_size=args.batch_size,
+                refine_steps=args.refine_steps, rescore_top=args.rescore_top)
+        else:
+            summary = run_benchmark(
+                pipe, complexes, args.out, refine_steps=args.refine_steps,
+                rescore_top=args.rescore_top)
+    print(json.dumps(summary, indent=2))
+
+
+def _checked_step(trainer, state, batch):
+    """``Trainer.train_step`` with ``--debug-nans``' checks between the
+    gradient and the update."""
+    loss, acc, grads = trainer.value_and_grad(state.params, batch)
+    for name, v in [("loss", loss)] + sorted(grads.items()):
+        if not bool(torch.isfinite(torch.as_tensor(v)).all()):
+            raise FloatingPointError(f"non-finite {name} in a train step")
+    return (trainer.apply_gradients(state, grads),
+            {"loss": loss, "ranking_accuracy": acc})
+
+
+def cmd_train(args):
+    """Train, or resume from ``--ckpt-dir``.  As in the JAX CLI, whose
+    checkpoints keep the run's first PRNG key, every checkpoint keeps the
+    data generator's state of ``Trainer.init_state``: a resumed run draws
+    its batches again from the run's first one."""
+    from deeplocalproteindocking_torch.train.data_gen import (
+        fit_lig_grid, make_training_batch)
+    from deeplocalproteindocking_torch.train.trainer import Trainer
+    from deeplocalproteindocking_torch.utils.logging import MetricsLogger
+    from deeplocalproteindocking_torch.utils.profiling import maybe_trace
+    device = _device(args)
+    cfg = _build_config(args)
+    complexes = _load_complexes(args)
+    cfg = fit_lig_grid(complexes, cfg)   # auto-size for big ligands
+    trainer = Trainer(cfg, device)
+    if args.resume and os.path.isdir(args.ckpt_dir) and any(
+            d.startswith("step_") for d in os.listdir(args.ckpt_dir)):
+        state = trainer.restore(args.ckpt_dir)
+        print(f"resumed from step {state.step}")
+    else:
+        state = trainer.init_state()
+    gen = torch.Generator()
+    if state.rng is None:    # a JAX state: its key cannot be reproduced
+        gen.manual_seed(cfg.seed)
+    else:
+        gen.set_state(state.rng)
+    logger = MetricsLogger(os.path.join(args.ckpt_dir, "train.jsonl"))
+    mined = None
+    with maybe_trace(args.profile):
+        for step in range(state.step, args.steps):
+            if args.mine_every and step % args.mine_every == 0:
+                from deeplocalproteindocking_torch.train.mining import (
+                    mine_hard_negatives)
+                mined = mine_hard_negatives(
+                    trainer.bind(state.params), cfg, complexes,
+                    n_rotations=args.mine_rotations)
+                logger.log("mined_hard_negatives", step=step,
+                           complexes=len(mined))
+            batch = make_training_batch(gen, complexes, cfg, mined=mined,
+                                        device=device)
+            if cfg.debug_nans:
+                state, metrics = _checked_step(trainer, state, batch)
+            else:
+                state, metrics = trainer.train_step(state, batch)
+            logger.log("train_step", step=step, **metrics)
+            if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
+                trainer.save(args.ckpt_dir, state)
+    logger.close()
+    print(f"trained to step {state.step}; checkpoints in {args.ckpt_dir}")
+
+
+def _probe_backend(timeout: float):
+    """The card's identity and count, from a subprocess that can be
+    killed: a CUDA initialisation that hangs must not hang the
+    diagnostics.  ``ok=False`` carries the reason."""
+    import subprocess
+    code = ("import json, torch; ok = torch.cuda.is_available(); "
+            "print(json.dumps({'backend': 'cuda' if ok else 'cpu', "
+            "'n_devices': torch.cuda.device_count() if ok else 0, "
+            "'device0': torch.cuda.get_device_name(0) if ok else 'cpu', "
+            "'torch': torch.__version__, 'cuda': torch.version.cuda}))")
+    try:
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return dict(ok=False, error=f"device probe hung >{timeout:.0f}s")
+    if r.returncode != 0:
+        return dict(ok=False, error=(r.stderr or "").strip()[-400:])
+    try:
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        return dict(ok=False, error=f"probe emitted no JSON (stdout tail: "
+                                    f"{(r.stdout or '')[-200:]!r})")
+    out["ok"] = True
+    return out
+
+
+def cmd_info(args):
+    from deeplocalproteindocking_torch.config import PRESETS
+    probe = _probe_backend(timeout=60.0)
+    if probe.get("ok"):
+        print(f"devices: {probe['n_devices']} x {probe['device0']} "
+              f"({probe['backend']}; torch {probe['torch']}, CUDA "
+              f"{probe['cuda']})")
+    else:
+        print(f"devices: UNAVAILABLE - {probe['error']}")
+    print("presets:")
+    for name, cfg in PRESETS.items():
+        print(f"  {name}: grid={cfg.grid_size} rot={cfg.num_rotations} "
+              f"topk={cfg.top_k} mesh=({cfg.mesh_rot},{cfg.mesh_batch})")
+
+
+def _routes(cfg, device_type: str) -> dict:
+    """The engine, the fused top-K tail and each kernel's route at the
+    configured geometry, by the rules the sweep itself applies."""
+    from deeplocalproteindocking_torch.correlate import fused, idft
+    from deeplocalproteindocking_torch.correlate import invz_topk
+    from deeplocalproteindocking_torch.correlate.fft import resolve_engine
+    from deeplocalproteindocking_torch.sweep.resplat import (
+        fused_topk_engaged)
+    L = cfg.grid_size
+    engine = resolve_engine(cfg.fft_impl, L)
+    dt = torch.float32 if cfg.dft_dtype == "float32" else torch.bfloat16
+    ls = cfg.lig_grid_size
+    if ls is None:
+        k1 = (f"box from the ligand: {fused.k1_route(dt, 64, 64, L, L, L, L)}"
+              f" up to 64, {fused.k1_route(dt, 72, 72, L, L, L, L)} above")
+    else:
+        k1 = fused.k1_route(dt, ls, ls, L, L, L, L)
+    return dict(grid=L, lig_grid=ls, dtype=cfg.dft_dtype, engine=engine,
+                fused_topk=fused_topk_engaged(
+                    None, engine, cfg.topk_impl, L, torch.device(device_type)),
+                k1=k1 if engine == "dft_fused" else "not launched",
+                k2=(invz_topk.k2_route(L) if engine == "dft_fused"
+                    else "not launched"),
+                k3=idft.k3_route(L) if engine == "dft_pallas"
+                else f"{idft.k3_route(L)} (launched by dft_pallas only)")
+
+
+def _say(tag: str, msg: str):
+    print(f"[{tag}]".ljust(7) + msg)
+
+
+def cmd_doctor(args):
+    """Diagnostics that never hang: the card (a subprocess probe with a
+    timeout), the native parsers, the kernel library, the TF32 flags, the
+    routes at the configured geometry, the checkpoint's rank licence."""
+    from deeplocalproteindocking_torch import _build, native
+    report = {}
+    probe = _probe_backend(timeout=args.timeout)
+    report["backend"] = probe
+    card = probe.get("ok") and probe.get("backend") == "cuda"
+    if card:
+        _say("ok", f"card: {probe['device0']} ({probe['n_devices']} "
+                   f"device(s), torch {probe['torch']}, CUDA "
+                   f"{probe['cuda']})")
+    elif probe.get("ok"):
+        _say("ok" if args.device == "cpu" else "FAIL",
+             f"card: none visible (torch {probe['torch']}); the entry "
+             f"points need --device cpu")
+    else:
+        _say("FAIL", f"card: {probe['error']}")
+
+    # Native parsers (host; pure-Python fallbacks exist).
+    st = native.status()
+    for mod, syms in [("pdb_native", ["pdb_count_atoms", "pdb_parse_v2"]),
+                      ("cif_native", ["cif_tokenize_v1",
+                                      "cif_atom_site_v1"])]:
+        if st["ok"]:
+            lib = native.library()
+            missing = [s for s in syms if not hasattr(lib, s)]
+            report[mod] = dict(ok=not missing, path=st["path"],
+                               missing=missing)
+            _say("warn" if missing else "ok", f"native {mod}: " + (
+                f"missing {missing} (pure-Python fallback)" if missing
+                else ", ".join(syms)))
+        else:
+            report[mod] = dict(ok=False, error=st["error"])
+            _say("warn", f"native {mod}: unavailable ({st['error']}); "
+                         f"pure-Python fallback")
+
+    lib_path = _build.library_path()
+    built = os.path.exists(lib_path)
+    report["kernels"] = dict(built=built, path=lib_path)
+    _say("ok", f"kernel library: {lib_path} (" + (
+        "built" if built else "not built yet: nvcc builds it at the "
+        "first launch on the card") + ")")
+
+    # torch's defaults: float32 convs on cuDNN's TF32, matmuls not.
+    tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+    report["tf32"] = tf32
+    _say("ok", f"TF32: matmul {tf32['matmul']}, cuDNN conv {tf32['cudnn']}")
+
+    cfg = _build_config(args)
+    routes = _routes(cfg, "cuda" if card else "cpu")
+    report["routes"] = routes
+    _say("ok", f"routes at grid {routes['grid']} ({routes['dtype']}, "
+               f"{routes['engine']}, fused top-K "
+               f"{'on' if routes['fused_topk'] else 'off'}): K1 "
+               f"{routes['k1']}, K2 {routes['k2']}, K3 {routes['k3']}")
+
+    if args.checkpoint:
+        from deeplocalproteindocking_torch.pipeline import (
+            coupling_deviation_capture, min_licensed_rank)
+        try:
+            params = load_checkpoint_params(args.checkpoint, cfg, "cpu")
+            A = params["coupling"].detach().cpu().numpy()
+            sp = bool(cfg.shape_prior)
+            lic = min_licensed_rank(A, shape_prior=sp)
+            kept, dev = coupling_deviation_capture(A, lic, shape_prior=sp)
+            report["license"] = dict(shape=list(A.shape), licensed_rank=lic,
+                                     kept=kept, deviation=dev)
+            _say("ok", f"checkpoint coupling {tuple(A.shape)}: licensed "
+                       f"rank >= {lic} (keeps {kept:.0%} of the learned "
+                       f"deviation ||A-prior||={dev:.4f})")
+        except (Exception, SystemExit) as e:  # noqa: BLE001 -- a report
+            _say("warn", f"checkpoint license: {e}")
+            report["license"] = dict(ok=False, error=str(e))
+
+    ok = bool(probe.get("ok")) and (card or args.device == "cpu")
+    print(json.dumps(dict(doctor_ok=ok, **report)))
+    return 0 if ok else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="deeplocalproteindocking_torch")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("dock", help="dock one receptor/ligand pair")
+    p.add_argument("--receptor", required=True)
+    p.add_argument("--ligand", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--num-out", type=int, default=10)
+    p.add_argument("--receptor-model", type=int, default=1,
+                   help="NMR model of the receptor file to dock "
+                        "(1-based; PDB MODEL records or mmCIF "
+                        "pdbx_PDB_model_num)")
+    p.add_argument("--ligand-model", type=int, default=1,
+                   help="NMR model of the ligand file to dock")
+    p.add_argument("--ensemble", choices=["product", "zip"], default=None,
+                   help="dock ALL NMR models of both files and merge "
+                        "the ranked poses (product: every pair; zip: "
+                        "model i vs model i)")
+    p.add_argument("--max-models", type=int, default=0,
+                   help="with --ensemble, cap the models taken from "
+                        "each file (0 = all)")
+    p.add_argument("--receptor-chains", default="",
+                   help="chain letters to keep, e.g. 'AB'")
+    p.add_argument("--ligand-chains", default="")
+    p.add_argument("--refine-steps", type=int, default=0,
+                   help="continuous pose refinement iterations")
+    p.add_argument("--rescore-top", type=int, default=0,
+                   help="hierarchical rescoring: dense local cone "
+                        "sweep around each of the top-N cluster heads")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_dock)
+
+    p = sub.add_parser("generate-dataset",
+                       help="write synthetic benchmark complexes")
+    p.add_argument("--out", required=True)
+    p.add_argument("--num-complexes", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--backbone", action="store_true",
+                   help="polymer covalent geometry (data/polymer.py)")
+    p.add_argument("--unbound-rmsd", type=float, default=0.0,
+                   help="deform receptor+ligand in place by this "
+                        "per-atom RMSD (unbound protocol)")
+    p.add_argument("--decoys", type=int, default=0,
+                   help="also write an N-pose labelled decoy set per "
+                        "complex (<name>_decoys.npz: rotations, voxel "
+                        "shifts, LRMSD labels)")
+    p.set_defaults(fn=cmd_generate_dataset)
+
+    p = sub.add_parser("evaluate", help="benchmark sweep + hit-rate table")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--synthetic", type=int, default=4)
+    p.add_argument("--out", required=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--refine-steps", type=int, default=0)
+    p.add_argument("--rescore-top", type=int, default=0,
+                   help="hierarchical rescoring of the top-N cluster "
+                        "heads before grading")
+    p.add_argument("--batch-size", type=int, default=1,
+                   help=">1: dock groups of complexes as one batched "
+                        "sweep (throughput mode)")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("train", help="train the representation model")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--synthetic", type=int, default=4)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--ckpt-every", type=int, default=25)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--mine-every", type=int, default=0,
+                   help=">0: refresh FFT-mined hard negatives every N "
+                        "steps (train/mining.py)")
+    p.add_argument("--mine-rotations", type=int, default=256)
+    p.add_argument("--global-frac", type=float, default=None,
+                   help="fraction of decoys sampled globally "
+                        "(config.decoy_global_frac)")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser(
+        "screen",
+        help="dock ONE receptor against MANY ligands (the receptor half "
+             "is computed once and cached: serving.DockingService)")
+    p.add_argument("--receptor", required=True)
+    p.add_argument("--ligands", required=True,
+                   help="directory of ligand .pdb/.cif files, or a "
+                        "comma-separated file list")
+    p.add_argument("--out", required=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--num-out", type=int, default=5)
+    p.add_argument("--rescore-top", type=int, default=0)
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_screen)
+
+    p = sub.add_parser("info", help="devices and presets")
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "doctor",
+        help="diagnostics: the card (hang-proof probe), native parsers, "
+             "kernel library, TF32 flags, kernel routes, checkpoint rank "
+             "licence")
+    p.add_argument("--checkpoint", default=None,
+                   help="also report this checkpoint's coupling-rank "
+                        "licence (dir containing config.json)")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="device probe timeout seconds")
+    _add_config_args(p)
+    p.set_defaults(fn=cmd_doctor)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,18 @@
-"""Synthetic docked complexes and padded device tensors.
+"""Benchmark directories, synthetic docked complexes, padded tensors.
 
-Port of the synthetic part of ``deeplocalproteindocking_tpu/data/
-benchmark.py``: the deterministic carved complexes, from residue blobs or
-from polymer chains (numpy, the same draws from the same seed), and
-``structure_to_device``.
+Port of ``deeplocalproteindocking_tpu/data/benchmark.py``: Docking
+Benchmark 4/5-style directories (``<code>_r_u`` receptor and
+``<code>_l_u`` ligand files, ``_b`` for bound forms, PDB or mmCIF) with a
+hash-stable train/val/test split; the deterministic carved complexes,
+from residue blobs or from polymer chains (numpy, the same draws from the
+same seed); and ``structure_to_device``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import hashlib
+import os
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -161,6 +165,52 @@ def synthetic_band(seed0: int, n: int, widen: bool = False,
     return [synthetic_complex(seed=seed0 + s, n_res_rec=14 + s % 5,
                               n_res_lig=7 + s % 3, unbound_rmsd=unbound,
                               backbone=backbone) for s in range(n)]
+
+
+_STRUCT_EXTS = (".pdb", ".cif", ".mmcif")
+
+
+def _find_structure(root: str, stem: str) -> str:
+    for ext in _STRUCT_EXTS:
+        p = os.path.join(root, stem + ext)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no {stem}.[pdb|cif|mmcif] in {root}")
+
+
+def load_complex(root: str, code: str, bound: bool = False) -> Complex:
+    """The pair ``<code>_r_[ub]`` / ``<code>_l_[ub]`` of ``root`` (PDB or
+    mmCIF, by extension), typed."""
+    from deeplocalproteindocking_torch.structure.mmcif import (
+        parse_structure)
+    tag = "b" if bound else "u"
+    rec = parse_structure(_find_structure(root, f"{code}_r_{tag}")).typed()
+    lig = parse_structure(_find_structure(root, f"{code}_l_{tag}")).typed()
+    return Complex(name=code, receptor=rec, ligand=lig)
+
+
+def list_benchmark(root: str) -> List[str]:
+    """Complex codes present in a benchmark directory."""
+    codes = set()
+    for fn in os.listdir(root):
+        stem, ext = os.path.splitext(fn)
+        if ext in _STRUCT_EXTS and (stem.endswith("_r_u")
+                                    or stem.endswith("_r_b")):
+            codes.add(fn.split("_")[0])
+    return sorted(codes)
+
+
+def split_benchmark(codes, fractions=(0.7, 0.15, 0.15), seed: int = 0):
+    """Deterministic train/val/test split of complex codes, hash-stable:
+    a code keeps its split when the benchmark grows."""
+    names = ("train", "val", "test")
+    edges = np.cumsum(fractions) / float(np.sum(fractions))
+    out = {n: [] for n in names}
+    for code in sorted(codes):
+        h = hashlib.sha256(f"{seed}:{code}".encode()).digest()
+        u = int.from_bytes(h[:8], "big") / 2.0 ** 64
+        out[names[int(np.searchsorted(edges, u, side="right"))]].append(code)
+    return out
 
 
 def structure_to_device(s: Structure, max_atoms: Optional[int] = None,

@@ -1,14 +1,16 @@
 """PDB parsing and writing (host side, numpy).
 
-Copy of ``deeplocalproteindocking_tpu/structure/pdb.py`` without the
-ctypes native fast path: the pure-Python fixed-column parser is the rule
-here.  Parsing runs once per structure, off the per-rotation hot path.
+Port of ``deeplocalproteindocking_tpu/structure/pdb.py``.  ``parse_pdb``
+reads a file's first model through the C++ parser of ``native/``
+(``native/pdb_native.py``) when its library builds, else through the
+pure-Python fixed-column parser below, which has the same rules.
+Parsing runs once per structure, off the per-rotation hot path.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -166,8 +168,21 @@ def parse_pdb_text(text: str, include_hetatm: bool = False,
     )
 
 
+def count_models_pdb_text(text: str) -> int:
+    """Number of NMR models declared by MODEL records (>= 1); a file
+    without MODEL records is one implicit model, as ``parse_pdb_text``
+    selects ``model=1``."""
+    n = sum(1 for line in text.splitlines()
+            if line[:6].startswith("MODEL"))
+    return max(n, 1)
+
+
 def parse_pdb(path: str | os.PathLike, include_hetatm: bool = False,
               model: int = 1) -> Structure:
+    if model == 1:       # the native parser reads the first model only
+        native = _try_native(path, include_hetatm)
+        if native is not None:
+            return native
     with open(path) as f:
         return parse_pdb_text(f.read(), include_hetatm=include_hetatm,
                               model=model)
@@ -187,3 +202,14 @@ def write_pdb(path: str | os.PathLike, s: Structure) -> None:
                 f"{s.chain_ids[i]:1s}{int(s.res_ids[i]):4d}{icode:1s}   "
                 f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}\n")
         f.write("END\n")
+
+
+def _try_native(path, include_hetatm) -> Optional[Structure]:
+    """The C++ parser's result, or None when its library cannot be built
+    or loaded (the pure-Python parser then runs)."""
+    from deeplocalproteindocking_torch.native import pdb_native
+    try:
+        pdb_native.library()
+    except Exception:  # noqa: BLE001 -- no compiler, no library
+        return None
+    return pdb_native.parse_pdb(os.fspath(path), include_hetatm)

@@ -78,9 +78,20 @@ def embed_small(rep_small: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 
 def _correlate_fused(Ht, reps, grid_size, lig_grid, dft_dtype):
-    """Score volumes ``[b, L, L, L]`` via K1 and the kz -> z einsum
-    (``Ht`` one receptor spectrum, or one per group of rows)."""
+    """Score volumes ``[b, L, L, L]`` (``Ht`` one receptor spectrum, or
+    one per group of rows) through K1 and the kz -> z einsum.
+
+    Off the TPU the JAX package scores ``dft_fused`` through the einsum
+    path of ``DFTCorrelator.scores``, which in bf16 rounds at other
+    points than K1 (the ligand spectrum before the coupling, where K1
+    rounds the coupled product).  So a bf16 sweep on the CPU takes that
+    path, as the JAX package's CPU does, and the card K1, as its TPU
+    does.  In float32 no cast rounds and both run K1's formulas."""
     corr = get_correlator(grid_size, lig_grid, dft_dtype, reps.device)
+    if reps.device.type == "cpu" and corr.dtype != torch.float32:
+        perm = (3, 2, 0, 1) if Ht[0].ndim == 4 else (0, 4, 3, 1, 2)
+        Hre, Him = (h.permute(perm).to(torch.float32) for h in Ht)
+        return corr.scores(Hre, Him, reps)
     return corr.scores_fused(Ht[0], Ht[1], reps)
 
 

@@ -21,9 +21,10 @@ Curriculum for global-docking wins, as the JAX script runs it:
 A run resumes from ``ckpt_dir``: the latest ``step_*`` checkpoint under
 the run's saved ``config.json``, the EMA weights (``ema/``), the mined
 buffer and ``best.json``.  A ``config.json`` with no checkpoint beside
-it starts a run under that configuration.  The data generator's state is
-part of each checkpoint, so a resumed run draws the batches the
-uninterrupted run would have.  Events go to ``train.jsonl`` (with each
+it starts a run under that configuration.  As in the JAX script, whose
+checkpoints keep the run's first PRNG key, each checkpoint keeps the data
+generator's state from ``Trainer.init_state``: a resumed run draws its
+batches again from the run's first one.  Events go to ``train.jsonl`` (with each
 step's, mining round's and validation's seconds), a summary to
 ``TRAINING.json``.
 
@@ -196,8 +197,8 @@ def run(steps: int, ckpt_dir: str, settings: Dict,
               f"poses)", flush=True)
 
     gen = torch.Generator()
-    if state.rng is None:            # a state carried over from JAX
-        gen.manual_seed(cfg.seed + state.step)
+    if state.rng is None:   # a JAX state: its key cannot be reproduced
+        gen.manual_seed(cfg.seed)
     else:
         gen.set_state(state.rng)
     ema_decay = s["ema"]
@@ -227,7 +228,6 @@ def run(steps: int, ckpt_dir: str, settings: Dict,
         batch = make_training_batch(gen, complexes, cfg, mined=mined,
                                     device=device)
         state, metrics = trainer.train_step(state, batch)
-        state = state._replace(rng=gen.get_state())
         if ema_decay > 0:
             # Warmup-capped decay: early on the EMA tracks the raw params.
             d = min(ema_decay, (step + 1.0) / (step + 10.0))

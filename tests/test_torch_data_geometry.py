@@ -184,11 +184,12 @@ def test_pose_rmsd_and_nms():
 
 def test_port_imports_without_jax():
     """The port's docking, screening, refinement, grading, batched
-    docking and training paths import where jax, flax, optax and orbax
-    are absent,
-    never load the JAX package itself, and open no file under it (no
-    module of the JAX package run on its own, as a file); a polymer
-    complex builds there."""
+    docking and training paths, the CLI, the native parsers' bindings,
+    mmCIF, the map writers and the profiling hooks import where jax,
+    flax, optax and orbax are absent, never load the JAX package itself,
+    and open no file under it (no module of the JAX package run on its
+    own, as a file); a polymer complex builds there, and its PDB and an
+    mmCIF file parse."""
     code = (
         "import os, sys\n"
         "tpu = os.sep + 'deeplocalproteindocking_tpu' + os.sep\n"
@@ -218,7 +219,24 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.utils.logging\n"
         "from deeplocalproteindocking_torch.eval_matrix import (\n"
         "    heldout_complexes)\n"
-        "heldout_complexes(1, widen=True, unbound=1.2, backbone=True)\n"
+        "import deeplocalproteindocking_torch.cli\n"
+        "import deeplocalproteindocking_torch.native.pdb_native\n"
+        "import deeplocalproteindocking_torch.native.cif_native\n"
+        "import deeplocalproteindocking_torch.grids.xplor\n"
+        "import deeplocalproteindocking_torch.grids.ccp4\n"
+        "import deeplocalproteindocking_torch.utils.profiling\n"
+        "from deeplocalproteindocking_torch.structure import mmcif, pdb\n"
+        "c = heldout_complexes(1, widen=True, unbound=1.2, backbone=True)[0]\n"
+        "import tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "pdb.write_pdb(os.path.join(d, 'l.pdb'), c.ligand)\n"
+        "with open(os.path.join(d, 'l.cif'), 'w') as f:\n"
+        "    f.write('data_l\\nloop_\\n_atom_site.group_PDB\\n'\n"
+        "            '_atom_site.auth_atom_id\\n_atom_site.Cartn_x\\n'\n"
+        "            '_atom_site.Cartn_y\\n_atom_site.Cartn_z\\n'\n"
+        "            'ATOM CA 1.0 2.0 3.0\\n')\n"
+        "assert len(mmcif.parse_structure(os.path.join(d, 'l.pdb'))) > 0\n"
+        "assert len(mmcif.parse_structure(os.path.join(d, 'l.cif'))) == 1\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('deeplocalproteindocking_tpu')]\n"
         "assert not bad, bad\n"

@@ -248,3 +248,66 @@ def test_main_reads_the_em_knobs_and_defaults_to_the_card(tmp_path,
     assert seen[0]["settings"] == tem.settings_from_env(BAND100_ENV)
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"row_seconds": {"shape_local": 1.5}}
+
+
+def test_bf16_dft_fused_rounds_where_jax_rounds_on_the_cpu():
+    """Band 100's ``learned_local`` row (v9p, bf16) on synth129, the
+    complex whose best LRMSD moved most (8.41 -> 7.48 A) while the CPU
+    sweep rounded as the TPU kernel does.  Off the TPU the JAX package
+    scores ``dft_fused`` through ``DFTCorrelator.scores``
+    (``sweep/resplat.py:300-304``), which rounds the ligand spectrum to
+    bf16 before the coupling; K1 rounds the coupled product instead.  On
+    the complex's own receptor spectrum and ligand representations (4
+    rotations of its local cone), the port's CPU correlation must round
+    where the JAX package's does: within float32 summation order."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from torch_parity import jax_config, np_
+
+    from deeplocalproteindocking_torch import weights
+    from deeplocalproteindocking_torch.evaluation import local_dock_kwargs
+    from deeplocalproteindocking_torch.grids.voxelize import separable_splat
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline
+    from deeplocalproteindocking_torch.sweep import resplat as tresplat
+    from deeplocalproteindocking_tpu.correlate.dft import (
+        get_correlator as jget)
+    from deeplocalproteindocking_tpu.sweep import resplat as jresplat
+
+    s = tem.settings_from_env(BAND100_ENV)
+    cfg = tem.learned_config(V9P_CKPT, s, "local")
+    c = tem.heldout_complexes(30, widen=True, seed0=100, unbound=1.2,
+                              backbone=True)[29]
+    assert c.name == "synth129"
+    pipe = DockingPipeline(cfg, params=weights.load_npz(
+        tem.params_path(V9P_CKPT)), device="cpu")
+    lig_c, (impl, H, rep_fn), (lc, lt, lm), Ls = pipe._stage_inputs(
+        c.receptor, c.ligand, None, None)
+    assert impl == "dft_fused"
+    rots = local_dock_kwargs(pipe, c)["rotations"][:4]
+    with torch.no_grad():
+        vols = torch.stack([separable_splat(
+            torch.einsum("ij,nj->ni", R, lc), lt, lm, grid_size=Ls,
+            resolution=cfg.resolution, sigma=cfg.sigma,
+            num_types=cfg.num_atom_types) for R in rots])
+        reps = rep_fn(vols)
+        corr = tresplat.get_correlator(cfg.grid_size, Ls, "bfloat16", "cpu")
+        Ht = corr.prep_H(H)
+        got = tresplat._correlate_fused(Ht, reps, cfg.grid_size, Ls,
+                                        "bfloat16")
+    jHt = tuple(jnp.asarray(np_(h.float())).astype(jnp.bfloat16)
+                for h in Ht)
+    jfn = jax.jit(jresplat._correlate_fused, static_argnums=(2, 3, 4))
+    want = np_(jfn(jHt, jnp.asarray(np_(reps)), cfg.grid_size, Ls,
+                   "bfloat16"))
+    assert jax_config(cfg).compute_dtype == "bfloat16"
+    assert jget(cfg.grid_size, Ls, "bfloat16").dtype == jnp.bfloat16
+    # Relative to the largest score.  Summation order alone leaves most
+    # scores within float32 rounding; where it flips one bf16 rounding of
+    # an intermediate, that score moves by a part in 10^4.  Rounding at
+    # K1's points instead moves the median score by 3e-4 (measured).
+    d = np.abs(np_(got) - want) / np.abs(want).max()
+    assert np.median(d) < 1e-6, np.median(d)
+    assert np.quantile(d, 0.99) < 5e-5, np.quantile(d, 0.99)
+    assert d.max() < 1e-3, d.max()

@@ -521,10 +521,28 @@ def _flagship_env(**kw):
     return env
 
 
-def test_train_flagship_resume_is_bit_equal(tmp_path):
+def test_train_flagship_resume_is_bit_equal(tmp_path, monkeypatch):
     """Grid 24 (the smallest box that holds the training band's ligands
     at 1.25 A): 2 straight steps, against 1 step, stop, resume, 1 step
-    under the first run's config."""
+    under the first run's config.  As in the JAX script, whose
+    checkpoints keep the run's first key, the resumed step draws the
+    run's first batch again, and it starts from the params and Adam
+    moments the stopped run saved, bit for bit."""
+    drawn, stepped = [], []
+    make_batch = train_flagship.make_training_batch
+    train_step = Trainer.train_step
+
+    def spy_batch(gen, *a, **kw):
+        drawn.append(gen.get_state().clone())
+        return make_batch(gen, *a, **kw)
+
+    def spy_step(self, state, batch):
+        out = train_step(self, state, batch)
+        stepped.append((state, out[0]))
+        return out
+
+    monkeypatch.setattr(train_flagship, "make_training_batch", spy_batch)
+    monkeypatch.setattr(Trainer, "train_step", spy_step)
     s = train_flagship.settings_from_env(_flagship_env())
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     ev_a = train_flagship.run(2, a, s, device="cpu")
@@ -538,9 +556,26 @@ def test_train_flagship_resume_is_bit_equal(tmp_path):
     kinds = [e["event"] for e in ev_a]
     assert kinds == ["val", "train_step", "val", "mine", "train_step", "val"]
     assert [e["event"] for e in ev_b] == kinds
+    # Draws: a0, a1 (straight), b0 (before the stop), b1 (resumed).
+    assert len(drawn) == 4
+    a0, a1, b0, b1 = drawn
+    assert torch.equal(a0, b0) and torch.equal(b1, a0)
+    assert not torch.equal(a1, a0)
+    # The resumed step starts from the stopped run's state, bit for bit.
+    saved, resumed = stepped[2][1], stepped[3][0]
+    assert resumed.step == saved.step == 1
+    assert resumed.opt_state["count"] == saved.opt_state["count"] == 1
+    for k in saved.params:
+        assert torch.equal(resumed.params[k], saved.params[k]), k
+        for m in ("mu", "nu"):
+            assert torch.equal(resumed.opt_state[m][k],
+                               saved.opt_state[m][k]), (m, k)
+    # The straight run's first step and the stopped run's are one step.
+    for k in saved.params:
+        assert torch.equal(stepped[0][1].params[k], saved.params[k]), k
     steps = [e for e in ev_a if e["event"] == "train_step"]
-    assert [e["loss"] for e in steps] == [
-        e["loss"] for e in ev_b if e["event"] == "train_step"]
+    assert steps[0]["loss"] == next(
+        e["loss"] for e in ev_b if e["event"] == "train_step")
     assert all(np.isfinite(e["loss"]) and e["seconds"] > 0 for e in steps)
     cfg = DockConfig.from_json(cfg_text)
     assert cfg.lig_grid_size == 24 and cfg.lr_decay_steps == 2
@@ -549,8 +584,8 @@ def test_train_flagship_resume_is_bit_equal(tmp_path):
         x, y = (t.restore(os.path.join(d, sub)) for t, d in ((ta, a),
                                                                (tb, b)))
         assert x.step == y.step
-        for k in x.params:
-            assert torch.equal(x.params[k], y.params[k]), (sub, k)
+        # Every checkpoint keeps the run's first generator state.
+        assert torch.equal(x.rng, a0) and torch.equal(y.rng, a0), sub
     assert ta.restore(a).step == 2
     for d in (a, b):
         assert os.path.exists(os.path.join(d, "mined.npz"))
