@@ -132,8 +132,33 @@ phase that does not hold:
    does; the earlier phases turn both off.  The full-depth
    request's first K1 and K2 launches and the screen's first K3 launch
    are held against their plain versions.
+11. grids above 128^3 and the resample sweep (no kernel on either
+   path: ``torch.fft`` and ``torch`` gathers, as the JAX package runs
+   them outside Pallas), TF32 off, the v9p hybrid unless a step says
+   otherwise, one JSON line per step, the launch counts set to 0 before
+   each request and read after it: the checkpoint's ``config.json`` at
+   grid 128 (float32, full rank, 256 rotations) under ``fft_impl=
+   "block"`` (block 32; no K1, K2 or K3) against ``dft_fused`` (16 tf32
+   K1, 16 FFT K2), top-K within rtol 1e-3 and the same top-1;
+   ``measure_256`` at grids 192 and 256 (shape mode, bf16, block 64,
+   64 rotations) and v9p at grid 256 (block 64, 256 rotations, cold and
+   warm) through the default engine, which resolves to block, with
+   seconds, rotations/s, ms per rotation, peak MB and one chunk's
+   full-grid spectra beside it; card against CPU under block at grid 64
+   (dock -> rescore(4 x 16) -> refine(5), rtol 1e-3, the same top-1);
+   resample: ``tests/golden_sweep.json``'s protocol under its gate, the
+   checkpoint's config and ``PRESETS["full-sweep"]`` (shape channels)
+   at 2,048 rotations, timed warm after a cold request of 256, card
+   against CPU at grid 64 (256
+   rotations), a 2 x 2 ensemble against four single docks merged;
+   ``topk_impl="approx"`` on the bench config (2,048 rotations: K1, no
+   K2) against exact (rtol 2e-2, the same top-1); one train step under
+   resample and under block card against CPU (phase 9's gates); the CLI
+   docking v9p at grid 192 (the geometry warning prints) and in resample
+   mode.  Rotation counts are cut below 13,000 (``reduced`` in each
+   line); widths are not.
 
-Each phase prints one JSON line.  The last line is
+Each phase prints one JSON line (phase 11 one per step).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 import json
@@ -1291,6 +1316,421 @@ def cli_commands(dev):
     return record
 
 
+# Phase 11: grids above 128^3 (the overlap-save block engine) and the
+# resample sweep; rotation counts cut from the JAX bench's 13,000.
+P11_ROTATIONS = 256         # block requests and card-vs-CPU requests
+P11_RESAMPLE_ROTATIONS = 2048
+P11_RTOL = 1e-3             # top-K values, float32, card vs CPU / engines
+P11_BF16_RTOL = 2e-2        # approx against exact top-K (bf16, as phase 4)
+GOLDEN_PATH = os.path.join(ROOT, "tests", "golden_sweep.json")
+
+
+def large_grids_and_resample(dev, params):
+    """Phase 11: the block engine (grid 128 against the kernel path,
+    ``measure_256`` at 192 and 256, v9p at 256, card against CPU) and the
+    resample sweep (the golden snapshot, v9p and full-sweep requests,
+    card against CPU, an ensemble), ``topk_impl="approx"``, one train
+    step under each mode card against CPU, and two CLI docks; each
+    request with the launch counts set to 0 just before it and read just
+    after, one JSON line per step.  Returns the phase's record."""
+    import contextlib
+    import io
+    import itertools
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch import cli, measure_256, weights
+    from deeplocalproteindocking_torch.config import DockConfig, PRESETS
+    from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
+    from deeplocalproteindocking_torch.correlate.fft import resolve_engine
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.data.benchmark import synthetic_band
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline, PoseSet
+    from deeplocalproteindocking_torch.structure.pdb import write_pdb
+    from deeplocalproteindocking_torch.structure.so3 import (
+        super_fibonacci_rotations)
+    from deeplocalproteindocking_torch.sweep.resplat import (
+        APPROX_TOPK_WARNING)
+    from deeplocalproteindocking_torch.train import Trainer
+    from deeplocalproteindocking_torch.train.data_gen import (
+        make_training_batch)
+
+    def reset():
+        fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+
+    def counts():
+        return dict(k1=fused.launches, k1_tc=fused.launches_tc,
+                    k1_tf32=fused.launches_tf32, k2=invz_topk.launches,
+                    k2_fft=invz_topk.launches_fft, k3=idft.launches,
+                    k3_fft=idft.launches_fft)
+
+    def request(fn, where=dev):
+        """``(result, seconds, launches)`` of one request."""
+        reset()
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+        t0 = time.perf_counter()
+        out = fn()
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+        return out, time.perf_counter() - t0, counts()
+
+    def max_rel(a, b):
+        a, b = np.sort(np.asarray(a)), np.sort(np.asarray(b))
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    def top1(p):
+        return [int(p.rot_idx[0])] + [int(v) for v in p.shifts[0]]
+
+    def no_kernels(n):
+        return n["k1"] == n["k2"] == n["k3"] == 0
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(V9P_DIR, "config.json")) as f:
+        v9p = DockConfig.from_json(f.read())
+    cplx = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30)
+    record, phase_launches = {}, []
+    cpu = torch.device("cpu")
+
+    # 1. Block against the kernel path at grid 128 (v9p, float32, full
+    # rank): the block engine launches no kernel, dft_fused 16 tf32 K1
+    # and 16 FFT K2 (256 rotations, chunk 16).
+    cfg128 = v9p.replace(grid_size=128, num_rotations=P11_ROTATIONS)
+    out = {}
+    for impl in ("block", "dft_fused"):
+        p = DockingPipeline(cfg128.replace(fft_impl=impl, fft_block=32),
+                            params=params, device=dev)
+        p.dock_complex(cplx, cluster=False)                   # warm-up
+        out[impl] = request(lambda: p.dock_complex(cplx, cluster=False))
+    (bp, bs, bn), (fp, fs, fn_) = out["block"], out["dft_fused"]
+    phase_launches.append(bn)
+    step = dict(grid=128, lig_grid=cfg128.lig_grid_size, fft_block=32,
+                rotations=P11_ROTATIONS, reduced="rotations 13,000 -> 256",
+                dtype="float32", channels=16, block_seconds=bs,
+                dft_fused_seconds=fs, launches_block=bn,
+                launches_dft_fused=fn_,
+                max_rel_diff=max_rel(bp.scores, fp.scores),
+                top1_block=top1(bp), top1_dft_fused=top1(fp))
+    emit("p11_block_vs_kernels", **step)
+    record["block_vs_kernels"] = step
+
+    # 2. Large grids: measure_256's protocol, then v9p at 256 through the
+    # default engine (dft_fused resolves to block above 128).
+    reset()
+    rows = measure_256.measure(64, (192, 256), dev)
+    n = counts()
+    phase_launches.append(n)
+    for r in rows:
+        L = r["grid"]
+        r["rotations_per_second"] = r["n_rot"] / r["warm_s"]
+        r["chunk_spectra_mb"] = r["chunk"] * L * L * (L // 2 + 1) * 2 * 8 \
+            / 2 ** 20
+    step = dict(rows=rows, launches=n, channels=2,
+                reduced="rotations 13,000 -> 64 (measure_256's default)")
+    emit("p11_measure_256", **step)
+    record["measure_256"] = step
+    c256 = v9p.replace(grid_size=256, num_rotations=P11_ROTATIONS,
+                       fft_block=64)
+    engine = resolve_engine(c256.fft_impl, 256)
+    p = DockingPipeline(c256, params=params, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cold = request(lambda: p.dock_complex(cplx))
+    warm = request(lambda: p.dock_complex(cplx))
+    phase_launches += [cold[2], warm[2]]
+    step = dict(grid=256, config_fft_impl=c256.fft_impl, engine=engine,
+                fft_block=64, lig_grid=c256.lig_grid_size, channels=16,
+                dtype="float32", rotations=P11_ROTATIONS,
+                reduced="rotations 13,000 -> 256", chunk=c256.rotation_chunk,
+                cold_seconds=cold[1], warm_seconds=warm[1],
+                rotations_per_second=P11_ROTATIONS / warm[1],
+                ms_per_rotation=warm[1] / P11_ROTATIONS * 1e3,
+                peak_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+                chunk_spectra_mb=c256.rotation_chunk * 256 * 256 * 129 * 16
+                * 8 / 2 ** 20,
+                launches=[cold[2], warm[2]], top_score=float(warm[0].scores[0]),
+                poses=len(warm[0]))
+    emit("p11_v9p_grid256", **step)
+    record["v9p_grid256"] = step
+    del p
+
+    # 3. Card against CPU under block: dock -> rescore -> refine.
+    cfg64 = v9p.replace(fft_impl="block", num_rotations=P11_ROTATIONS)
+    out = {}
+    for where in (dev, cpu):
+        p = DockingPipeline(cfg64, params=params, device=where)
+
+        def path():
+            d = p.dock_complex(cplx, cluster=False)
+            r = p.rescore(cplx.receptor, cplx.ligand, d, top=4, nrot=16)
+            f = p.refine(cplx.receptor, cplx.ligand,
+                         PoseSet(*(x[:4] for x in r[:5])), steps=5)
+            return d, r, f
+        out[where.type] = request(path, where)
+    (gd, gr, gf), gs, gn = out[dev.type]
+    (wd, wr, wf), ws, _ = out["cpu"]
+    phase_launches.append(gn)
+    step = dict(grid=64, fft_block=32, rotations=P11_ROTATIONS,
+                reduced="rotations 13,000 -> 256", dtype="float32",
+                cuda_seconds=gs, cpu_seconds=ws, launches=gn,
+                dock_max_rel_diff=max_rel(gd.scores, wd.scores),
+                rescore_max_rel_diff=max_rel(gr.scores, wr.scores),
+                refine_max_rel_diff=max_rel(gf.scores, wf.scores),
+                top1_cuda=top1(gd), top1_cpu=top1(wd),
+                rescored_top1_same=bool(
+                    np.allclose(gr.rotations[0], wr.rotations[0], atol=1e-5)
+                    and list(gr.shifts[0]) == list(wr.shifts[0])))
+    emit("p11_block_card_vs_cpu", **step)
+    record["block_card_vs_cpu"] = step
+
+    # 4. Resample: the golden snapshot, two requests, card against CPU,
+    # an ensemble.
+    gcfg = DockConfig(grid_size=32, resolution=1.5, num_rotations=12,
+                      rotation_chunk=4, top_k=8, rep_features=(8,),
+                      sweep_mode="resample")
+    gp = DockingPipeline(gcfg, device=dev)
+    got, _, n = request(lambda: gp.dock_complex(
+        synthetic_complex(seed=42, n_res_rec=10, n_res_lig=5),
+        rotations=super_fibonacci_rotations(12, dev), cluster=False))
+    phase_launches.append(n)
+    with open(GOLDEN_PATH) as f:
+        want = json.load(f)
+    scores = [round(float(s), 3) for s in got.scores]
+    golden = dict(
+        rot_idx_equal=[int(v) for v in got.rot_idx] == want["rot_idx"],
+        shifts_equal=[[int(v) for v in s] for s in got.shifts]
+        == want["shifts"],
+        scores_within=bool(np.allclose(scores, want["scores"], rtol=1e-3,
+                                       atol=2e-3)),
+        max_abs_score_diff=float(np.max(np.abs(np.subtract(
+            scores, want["scores"])))), launches=n)
+    requests = {}
+    for name, cfg, prm in (
+            ("v9p", v9p.replace(sweep_mode="resample",
+                                num_rotations=P11_RESAMPLE_ROTATIONS),
+             params),
+            ("full_sweep", PRESETS["full-sweep"].replace(
+                sweep_mode="resample", num_rotations=P11_RESAMPLE_ROTATIONS),
+             None)):
+        p = DockingPipeline(cfg, params=prm, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # A cold request of 256 rotations, then the timed warm one.
+        cold = request(lambda: p.dock_complex(
+            cplx, rotations=p.rotation_set()[:P11_ROTATIONS]))
+        warm = request(lambda: p.dock_complex(cplx))
+        phase_launches += [cold[2], warm[2]]
+        requests[name] = dict(
+            grid=cfg.grid_size, chunk=cfg.rotation_chunk,
+            channels=16 if prm is not None else 2,
+            rotations=P11_RESAMPLE_ROTATIONS,
+            reduced="rotations 13,000 -> 2,048",
+            cold_rotations=P11_ROTATIONS, cold_seconds=cold[1],
+            warm_seconds=warm[1],
+            rotations_per_second=P11_RESAMPLE_ROTATIONS / warm[1],
+            peak_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            launches=[cold[2], warm[2]], top_score=float(warm[0].scores[0]))
+        del p
+    rcfg = v9p.replace(sweep_mode="resample", num_rotations=P11_ROTATIONS)
+    out = {}
+    for where in (dev, cpu):
+        p = DockingPipeline(rcfg, params=params, device=where)
+        out[where.type] = request(
+            lambda: p.dock_complex(cplx, cluster=False), where)
+    (gd, gs, gn), (wd, ws, _) = out[dev.type], out["cpu"]
+    phase_launches.append(gn)
+    vs_cpu = dict(grid=64, rotations=P11_ROTATIONS, cuda_seconds=gs,
+                  cpu_seconds=ws, launches=gn,
+                  max_rel_diff=max_rel(gd.scores, wd.scores),
+                  top1_cuda=top1(gd), top1_cpu=top1(wd))
+    ub = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30,
+                           unbound_rmsd=1.2)
+    recs, ligs = [cplx.receptor, ub.receptor], [cplx.ligand, ub.ligand]
+    p = DockingPipeline(rcfg, params=params, device=dev)
+    (merged, pairs), es, en = request(
+        lambda: p.dock_ensemble(recs, ligs, cluster=False))
+    phase_launches.append(en)
+    singles, tags = [], []
+    for ri, li in itertools.product(range(2), range(2)):
+        s = p.dock(recs[ri], ligs[li], cluster=False)
+        singles.append(s.scores)
+        tags += [(ri, li)] * len(s)
+    single = np.concatenate(singles)
+    ensemble = dict(pairs=4, rotations=P11_ROTATIONS, seconds=es,
+                    launches=en, poses=len(merged),
+                    max_rel_diff_vs_single_docks=max_rel(merged.scores,
+                                                         single),
+                    top1_pair=[int(v) for v in pairs[0]],
+                    top1_pair_single=list(tags[int(np.argmax(single))]))
+    step = dict(golden=golden, requests=requests, card_vs_cpu=vs_cpu,
+                ensemble=ensemble)
+    emit("p11_resample", **step)
+    record["resample"] = step
+
+    # 5. topk_impl="approx" on the bench config (grid 128, bf16, rank 3):
+    # K1, then the score-volume top-K, no K2.
+    bench = DockConfig(
+        grid_size=128, resolution=1.25, rep_features=(32, 14),
+        shape_prior=True, compute_dtype="bfloat16", dft_dtype="bfloat16",
+        coupling_rank=3, top_k=64, rotation_chunk=128,
+        num_rotations=P11_RESAMPLE_ROTATIONS, fft_impl="dft_fused")
+    out = {}
+    for impl in ("exact", "approx"):
+        p = DockingPipeline(bench.replace(topk_impl=impl), params=params,
+                            device=dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p.dock_complex(cplx, cluster=False)               # warm-up
+            out[impl] = request(lambda: p.dock_complex(cplx, cluster=False))
+        out[impl] += (APPROX_TOPK_WARNING in [str(w.message)
+                                              for w in caught],)
+    (ep, es_, en_, _), (ap, as_, an, warned) = out["exact"], out["approx"]
+    step = dict(grid=128, dtype="bfloat16", rotations=P11_RESAMPLE_ROTATIONS,
+                reduced="rotations 13,000 -> 2,048", exact_seconds=es_,
+                approx_seconds=as_, launches_exact=en_, launches_approx=an,
+                warned=warned, max_rel_diff=max_rel(ap.scores, ep.scores),
+                top1_exact=top1(ep), top1_approx=top1(ap))
+    emit("p11_topk_approx", **step)
+    record["topk_approx"] = step
+
+    # 6. One train step (v9p config, grid 64, 1 complex x 8 decoys, the
+    # checkpoint's trained params) on the card and on the CPU under each
+    # mode.
+    complexes = synthetic_band(200, 1, widen=True, unbound=1.2)
+    trained = weights.load_npz(os.path.join(V9P_DIR, "best_params.npz"))
+    steps = {}
+    for name, mode in (("resample", dict(sweep_mode="resample")),
+                       ("block", dict(fft_impl="block"))):
+        one = v9p.replace(batch_complexes=1, num_decoys=8, **mode)
+        b1 = make_training_batch(torch.Generator().manual_seed(1), complexes,
+                                 one, device="cpu")
+        res = {}
+        for where in (dev, cpu):
+            tr = Trainer(one, where)
+            (loss, acc, grads), secs, n = request(
+                lambda: tr.value_and_grad(
+                    {k: v.to(where) for k, v in trained.items()},
+                    b1.to(where)), where)
+            res[where.type] = (loss.item(), acc.item(),
+                               {k: v.cpu() for k, v in grads.items()}, secs,
+                               n)
+        (gl, ga, gg, gs, gn), (wl, wa, wg, ws, _) = res[dev.type], res["cpu"]
+        phase_launches.append(gn)
+        steps[name] = dict(
+            loss=[gl, wl], accuracy=[ga, wa],
+            loss_rel_diff=abs(gl - wl) / abs(wl),
+            accuracy_abs_diff=abs(ga - wa),
+            grad_rel_err={k: float((gg[k] - w).abs().max() / w.abs().max())
+                          for k, w in wg.items()},
+            card_seconds=gs, cpu_seconds=ws, launches=gn)
+    step = dict(config="pretrained/synthetic-v9p/config.json", grid=64,
+                complexes=1, decoys=8, rtol=TRAIN_RTOL, grad_tol=GRAD_TOL,
+                **steps)
+    emit("p11_train_step", **step)
+    record["train_step"] = step
+
+    # 7. The CLI in process: a v9p dock at grid 192 (the engine resolves
+    # to block, the geometry warning prints) and one in resample mode.
+    tmp = tempfile.mkdtemp(prefix="dlpd_p11_")
+    try:
+        rec_pdb, lig_pdb = (os.path.join(tmp, n) for n in ("r.pdb", "l.pdb"))
+        write_pdb(rec_pdb, cplx.receptor)
+        write_pdb(lig_pdb, cplx.ligand)
+        base = ["dock", "--receptor", rec_pdb, "--ligand", lig_pdb,
+                "--checkpoint", V9P_DIR, "--num-rotations",
+                str(P11_ROTATIONS)]
+        clis = {}
+        for name, extra in (("grid192", ["--grid-size", "192"]),
+                            ("resample", ["--sweep-mode", "resample"])):
+            out_dir = os.path.join(tmp, name)
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err):
+                rc, secs, n = request(lambda: cli.main(
+                    base + extra + ["--out", out_dir]))
+            phase_launches.append(n)
+            with open(os.path.join(out_dir, "poses.json")) as f:
+                table = json.load(f)
+            clis[name] = dict(
+                rc=rc, seconds=secs, launches=n, poses=len(table),
+                scores_finite=all(math.isfinite(q["score"]) for q in table),
+                geometry_warning="differs from the checkpoint" in
+                err.getvalue(), top_score=table[0]["score"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("p11_cli", rotations=P11_ROTATIONS,
+         reduced="rotations 13,000 -> 256", **clis)
+    record["cli"] = clis
+    record["launches"] = {k: sum(n[k] for n in phase_launches)
+                          for k in phase_launches[0]}
+    return record
+
+
+def check_large_grids(record):
+    """Phase 11's gates, applied after its lines are printed."""
+    r = record
+    b = r["block_vs_kernels"]
+    check(b["max_rel_diff"] <= P11_RTOL
+          and b["top1_block"] == b["top1_dft_fused"],
+          f"block against dft_fused at grid 128: {b}")
+    n = b["launches_dft_fused"]
+    check(n["k1"] == n["k1_tf32"] == 16 and n["k2"] == n["k2_fft"] == 16
+          and n["k3"] == 0, f"dft_fused at grid 128: launches {n}")
+    check(r["launches"]["k1"] == r["launches"]["k2"]
+          == r["launches"]["k3"] == 0,
+          f"phase 11: a block or resample request launched a kernel "
+          f"{r['launches']}")
+    for row in r["measure_256"]["rows"]:
+        check(math.isfinite(row["top_score"]) and row["peak_mb"] > 0,
+              f"measure_256: {row}")
+    g = r["v9p_grid256"]
+    check(g["engine"] == "block" and g["poses"] > 0
+          and math.isfinite(g["top_score"]), f"v9p at grid 256: {g}")
+    c = r["block_card_vs_cpu"]
+    check(c["dock_max_rel_diff"] <= P11_RTOL
+          and c["rescore_max_rel_diff"] <= P11_RTOL
+          and c["refine_max_rel_diff"] <= P11_RTOL
+          and c["top1_cuda"] == c["top1_cpu"] and c["rescored_top1_same"],
+          f"block card vs CPU: {c}")
+    s = r["resample"]
+    check(s["golden"]["rot_idx_equal"] and s["golden"]["shifts_equal"]
+          and s["golden"]["scores_within"],
+          f"resample: the golden snapshot differs {s['golden']}")
+    check(s["card_vs_cpu"]["max_rel_diff"] <= P11_RTOL
+          and s["card_vs_cpu"]["top1_cuda"] == s["card_vs_cpu"]["top1_cpu"],
+          f"resample card vs CPU: {s['card_vs_cpu']}")
+    e = s["ensemble"]
+    check(e["max_rel_diff_vs_single_docks"] <= BATCH_RTOL
+          and e["top1_pair"] == e["top1_pair_single"],
+          f"resample ensemble against four single docks: {e}")
+    for name, q in s["requests"].items():
+        check(math.isfinite(q["top_score"]), f"resample {name}: {q}")
+    a = r["topk_approx"]
+    check(a["warned"] and a["max_rel_diff"] <= P11_BF16_RTOL
+          and a["top1_exact"] == a["top1_approx"],
+          f"topk_impl='approx': {a}")
+    check(a["launches_approx"]["k1"] > 0 and a["launches_approx"]["k2"] == 0
+          and a["launches_exact"]["k2_fft"] > 0,
+          f"approx runs K1 without K2: {a['launches_approx']}")
+    for name in ("resample", "block"):
+        t = r["train_step"][name]
+        check(t["loss_rel_diff"] <= TRAIN_RTOL
+              and t["accuracy_abs_diff"] <= TRAIN_RTOL
+              and max(t["grad_rel_err"].values()) <= GRAD_TOL,
+              f"train step under {name}, card vs CPU: {t}")
+    for name, q in r["cli"].items():
+        check(q["rc"] in (0, None) and q["poses"] > 0 and q["scores_finite"],
+              f"cli dock {name}: {q}")
+    check(r["cli"]["grid192"]["geometry_warning"],
+          "cli dock at grid 192: no geometry warning")
+
+
 def main():
     import numpy as np
     import torch
@@ -2145,6 +2585,20 @@ def main():
          kernels_vs_plain=clir["kernels_vs_plain"],
          seconds={k: c["seconds"] for k, c in clir["commands"].items()})
 
+    # ---- phase 11: grids above 128^3 and the resample sweep ----
+    t11 = time.perf_counter()
+    p11 = large_grids_and_resample(dev, params)
+    emit("large_grids_and_resample", card=card,
+         seconds=time.perf_counter() - t11, launches=p11["launches"])
+    check_large_grids(p11)
+    p11_block = p11["block_vs_kernels"]["launches_dft_fused"]
+    p11_approx = p11["topk_approx"]["launches_approx"]
+
+    def p11_count(name, **extra):
+        """Phase 11's launches of counter ``name``: 0 on every block and
+        resample request; ``extra`` the kernel-path requests beside."""
+        return dict(block_and_resample=p11["launches"][name], **extra)
+
     def cli_count(name):
         """Phase 10's launches of counter ``name``, by command."""
         return {k: c["launches"][name] for k, c in clir["commands"].items()
@@ -2198,6 +2652,9 @@ def main():
                             - train_launches["k1_tf32"]},
          "launches_cli": {"tc": cli_count("k1_tc"),
                           "tf32": cli_count("k1_tf32")},
+         "launches_phase11": p11_count(
+             "k1", dft_fused_grid128_tf32=p11_block["k1_tf32"],
+             topk_approx_tc=p11_approx["k1_tc"]),
          "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
          "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
@@ -2224,6 +2681,8 @@ def main():
          "max_abs_err_train_first_mining_launch":
              train_plain["mine_k1"]["max_abs_err"],
          "launches_cli": cli_count("k1_tf32"),
+         "launches_phase11": p11_count(
+             "k1_tf32", dft_fused_grid128=p11_block["k1_tf32"]),
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k1"]["max_abs_err"],
          "max_abs_err": k1_f32_errs["tf32"][0],
@@ -2247,6 +2706,9 @@ def main():
          "max_abs_err_train_first_mining_launch":
              train_plain["mine_k2"]["max_abs_err"],
          "launches_cli": cli_count("k2_fft"),
+         "launches_phase11": p11_count(
+             "k2_fft", dft_fused_grid128=p11_block["k2_fft"],
+             topk_approx=p11_approx["k2_fft"]),
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k2"]["max_abs_err"],
          "max_abs_err": errs["k2_fft"][0],
@@ -2264,6 +2726,7 @@ def main():
          "launches_path": "one dock request at grid 96 (K2's dense route)",
          "launches_band100": band_count("k2") - band_count("k2_fft"),
          "launches_train": train_launches["k2"] - train_launches["k2_fft"],
+         "launches_phase11": p11_count("k2", topk_approx=p11_approx["k2"]),
          "max_abs_err": errs["k2_dense_L96"][0],
          "max_abs_err_b128": k2_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
@@ -2277,6 +2740,7 @@ def main():
          "launches_path": "the screening service at grid 128 (phase 5)",
          "launches_band100": band_count("k3_fft"),
          "launches_cli": cli_count("k3_fft"),
+         "launches_phase11": p11_count("k3_fft"),
          "max_abs_err_cli_screen_first_launch":
              clir["kernels_vs_plain"]["screen_k3"]["max_abs_err"],
          "max_abs_err": errs["k3"][0],
@@ -2294,6 +2758,7 @@ def main():
          "launches_path": "one dft_pallas dock at grid 96 (K3's dense "
                           "route)",
          "launches_band100": band_count("k3") - band_count("k3_fft"),
+         "launches_phase11": p11_count("k3"),
          "max_abs_err": errs["k3_dense_L96"][0],
          "max_abs_err_b128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",

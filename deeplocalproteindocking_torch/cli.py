@@ -13,7 +13,8 @@ and output files (``poses.json``, ``pose_NNN.pdb``, ``screen.json``,
   latest step, as the JAX restore takes) or else ``DIR/best_params.npz``
   (``tools/export_torch_weights.py``'s export of an Orbax checkpoint).
   Its ``config.json`` is the base config, as in the JAX CLI.
-* ``--mesh-rot``/``mesh_batch`` > 1 raise: multi-GPU is not ported.
+* ``--mesh-rot``/``mesh_batch`` > 1 raise: multi-GPU is not ported
+  (ROADMAP Queue A 4).
 * ``--debug-nans`` raises ``FloatingPointError`` on a NaN or +inf score
   and on a non-finite loss or gradient (``jax_debug_nans``' role).
 * ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
@@ -108,7 +109,8 @@ def _build_config(args):
     if cfg.mesh_rot > 1 or cfg.mesh_batch > 1:
         raise SystemExit(
             f"mesh (rot={cfg.mesh_rot}, batch={cfg.mesh_batch}): the "
-            f"multi-GPU sweep is not ported; run with --mesh-rot 1")
+            f"multi-GPU sweep is not ported (ROADMAP Queue A 4); run "
+            f"with --mesh-rot 1")
     return cfg
 
 
@@ -432,8 +434,10 @@ def cmd_info(args):
 
 
 def _routes(cfg, device_type: str) -> dict:
-    """The engine, the fused top-K tail and each kernel's route at the
-    configured geometry, by the rules the sweep itself applies."""
+    """The sweep, the engine, the fused top-K tail and each kernel's
+    route at the configured geometry, by the rules the sweep itself
+    applies.  The ``block`` engine and the ``resample`` sweep correlate
+    with ``torch.fft`` and launch none of K1, K2, K3."""
     from deeplocalproteindocking_torch.correlate import fused, idft
     from deeplocalproteindocking_torch.correlate import invz_topk
     from deeplocalproteindocking_torch.correlate.fft import resolve_engine
@@ -441,6 +445,15 @@ def _routes(cfg, device_type: str) -> dict:
         fused_topk_engaged)
     L = cfg.grid_size
     engine = resolve_engine(cfg.fft_impl, L)
+    if cfg.sweep_mode != "resplat" or engine == "block":
+        off = ("not on this path (" + ("resample sweep"
+               if cfg.sweep_mode != "resplat" else "block engine") + ")")
+        return dict(grid=L, lig_grid=cfg.lig_grid_size,
+                    dtype=cfg.dft_dtype, sweep_mode=cfg.sweep_mode,
+                    engine=("full-grid torch.fft" if cfg.sweep_mode
+                            != "resplat" else engine),
+                    fft_block=cfg.fft_block if engine == "block" else None,
+                    fused_topk=False, k1=off, k2=off, k3=off)
     dt = torch.float32 if cfg.dft_dtype == "float32" else torch.bfloat16
     ls = cfg.lig_grid_size
     if ls is None:
@@ -448,7 +461,8 @@ def _routes(cfg, device_type: str) -> dict:
               f" up to 64, {fused.k1_route(dt, 72, 72, L, L, L, L)} above")
     else:
         k1 = fused.k1_route(dt, ls, ls, L, L, L, L)
-    return dict(grid=L, lig_grid=ls, dtype=cfg.dft_dtype, engine=engine,
+    return dict(grid=L, lig_grid=ls, dtype=cfg.dft_dtype,
+                sweep_mode=cfg.sweep_mode, engine=engine, fft_block=None,
                 fused_topk=fused_topk_engaged(
                     None, engine, cfg.topk_impl, L, torch.device(device_type)),
                 k1=k1 if engine == "dft_fused" else "not launched",
@@ -517,7 +531,9 @@ def cmd_doctor(args):
     routes = _routes(cfg, "cuda" if card else "cpu")
     report["routes"] = routes
     _say("ok", f"routes at grid {routes['grid']} ({routes['dtype']}, "
-               f"{routes['engine']}, fused top-K "
+               f"{routes['sweep_mode']}, {routes['engine']}"
+               + (f" block {routes['fft_block']}" if routes['fft_block']
+                  else "") + ", fused top-K "
                f"{'on' if routes['fused_topk'] else 'off'}): K1 "
                f"{routes['k1']}, K2 {routes['k2']}, K3 {routes['k3']}")
 

@@ -45,11 +45,19 @@ def resolve_engine(fft_impl: str, grid_size: int) -> str:
 def coupled_receptor(rep_rec: torch.Tensor,
                      coupling: Optional[torch.Tensor],
                      fft_impl: str) -> torch.Tensor:
-    """The receptor-side tensor ``H`` a spectral engine consumes."""
+    """The receptor-side tensor ``H`` each engine consumes.
+
+    Spectral engines take the coupled rfft half-spectrum
+    (:func:`receptor_transform`).  The ``block`` engine never forms a
+    full-grid spectrum, so the coupling (or the rank-r receptor
+    projection) folds into the real-space receptor rep ``[..., L, L, L,
+    C]`` instead, in the rep's dtype: the score is bilinear.
+    """
     if fft_impl == "block":
-        raise NotImplementedError(
-            "fft_impl='block' is not ported yet (dft_fused, dft, "
-            "dft_pallas and xla are)")
+        if coupling is None:
+            return rep_rec
+        return torch.einsum("...c,cd->...d", rep_rec,
+                            coupling.to(rep_rec.device, rep_rec.dtype))
     return receptor_transform(rep_rec, coupling)
 
 
@@ -69,6 +77,18 @@ def correlate_scores(H: torch.Tensor, lig_rep: torch.Tensor
     G = torch.sum(H * torch.conj(F_lig), dim=-1)
     S = torch.fft.irfftn(G, s=(L, L, L), dim=(-3, -2, -1))
     return S.flatten(0, 1) if grouped else S
+
+
+def score_at(H: torch.Tensor, lig_rep: torch.Tensor,
+             shifts: torch.Tensor) -> torch.Tensor:
+    """Scores at signed integer ``shifts [K, 3]`` (voxels, rounded) of a
+    full-grid ligand rep ``[L, L, L, C]``: the cells of its score volume,
+    gathered so gradients flow through the correlation (training's
+    ``resample`` path)."""
+    S = correlate_scores(H, lig_rep)
+    L = S.shape[0]
+    idx = torch.remainder(torch.round(shifts).long(), L)
+    return S[idx[..., 0], idx[..., 1], idx[..., 2]]
 
 
 def flat_index_to_shift(flat: torch.Tensor, L: int) -> torch.Tensor:

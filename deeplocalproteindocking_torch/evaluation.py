@@ -262,7 +262,8 @@ def batch_inputs(pipeline: DockingPipeline, group: Sequence[Complex],
         resolution=cfg.resolution, sigma=cfg.sigma,
         num_types=cfg.num_atom_types, top_k=cfg.top_k,
         chunk=max(1, cfg.rotation_chunk // len(group)),
-        score_mask=score_mask, fft_impl=impl, dft_dtype=cfg.dft_dtype)
+        score_mask=score_mask, fft_impl=impl, dft_dtype=cfg.dft_dtype,
+        fft_block=cfg.fft_block)
 
 
 def run_benchmark_batched(pipeline: DockingPipeline,

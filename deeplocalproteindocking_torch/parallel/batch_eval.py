@@ -36,10 +36,13 @@ def dock_batch(H_batch: torch.Tensor,
                score_mask: Optional[torch.Tensor] = None,
                fft_impl: str = "dft",
                dft_dtype: str = "float32",
+               fft_block: int = 32,
                fused_topk: Optional[bool] = None) -> DockResult:
     """Dock ``B`` complexes against one rotation set in one sweep.
 
-    ``H_batch [B, L, L, L//2+1, C]`` coupled receptor spectra;
+    ``H_batch [B, L, L, L//2+1, C]`` coupled receptor spectra (under
+    ``fft_impl="block"``: ``[B, L, L, L, C]`` real-space coupled receptor
+    reps, one per complex);
     ``lig_coords [B, A, 3]``, ``lig_types [B, A]``, ``lig_mask [B, A]``
     padded ligands; ``rotations [R, 3, 3]``; ``score_mask [B, L, L, L]``
     optional per-complex translation masks (the wrap-around guard and
@@ -48,7 +51,7 @@ def dock_batch(H_batch: torch.Tensor,
     ``B * chunk`` rows.
     """
     if H_batch.ndim != 5 or lig_coords.ndim != 3:
-        raise ValueError(f"dock_batch: H_batch [B, L, L, L//2+1, C] and "
+        raise ValueError(f"dock_batch: H_batch [B, L, L, L', C] and "
                          f"lig_coords [B, A, 3], got {tuple(H_batch.shape)}"
                          f" and {tuple(lig_coords.shape)}")
     if rotations.ndim != 3:
@@ -59,4 +62,4 @@ def dock_batch(H_batch: torch.Tensor,
         grid_size=grid_size, lig_grid=lig_grid, resolution=resolution,
         sigma=sigma, num_types=num_types, top_k=top_k, chunk=chunk,
         score_mask=score_mask, fft_impl=fft_impl, dft_dtype=dft_dtype,
-        fused_topk=fused_topk)
+        fft_block=fft_block, fused_topk=fused_topk)

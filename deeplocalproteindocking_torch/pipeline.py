@@ -5,6 +5,8 @@ Port of ``deeplocalproteindocking_tpu/pipeline.py``'s docking stages:
     parse/type (structure/) -> splat (grids/) -> represent (models/)
     -> resplat sweep (sweep/resplat.py) -> cluster (sweep/cluster.py)
 
+(under ``sweep_mode="resample"`` the sweep rotates the full-grid ligand
+representation instead, as the reference does: ``sweep/docker.py``),
 then, as the two-stage protocol, ``rescore`` (a dense local cone sweep
 around each top head, all heads in one head-batched sweep) and
 ``refine`` (gradient ascent in continuous pose space,
@@ -53,6 +55,7 @@ from deeplocalproteindocking_torch.structure.so3 import (
     local_rotations, super_fibonacci_rotations)
 from deeplocalproteindocking_torch.sweep.cluster import (
     cluster_pose_set, nms_cluster, pose_pairwise_rmsd)
+from deeplocalproteindocking_torch.sweep.docker import dock_sweep
 from deeplocalproteindocking_torch.sweep.refine import refine_poses
 from deeplocalproteindocking_torch.sweep.resplat import (
     auto_ligand_grid, dock_sweep_resplat)
@@ -449,28 +452,36 @@ class DockingPipeline:
 
         ``engine`` is an optional precomputed ``_engine_parts`` tuple —
         the receptor half of the correlator, reusable across ligand
-        queries against one receptor.
+        queries against one receptor.  Under ``sweep_mode="resample"``
+        the full-grid reps of ``prep`` and the full coupling go to
+        ``sweep/docker.dock_sweep`` instead, and ``engine`` is unused.
         """
         cfg = self.config
-        if cfg.sweep_mode != "resplat":
-            raise NotImplementedError(
-                f"sweep_mode={cfg.sweep_mode!r} is not ported yet")
-        lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
-            rec, lig, prep, engine)
-        impl, H, rep_fn = engine
         if rotations is None:
             rotations = self.rotation_set()
         rotations = torch.as_tensor(rotations, dtype=torch.float32,
                                     device=self.device)
+        if prep is None:
+            prep = self._prepare(rec, lig)
+        _, lig_c, rep_rec, rep_lig, coupling = prep
         score_mask = dock_score_mask(cfg, lig_c, translation_center,
                                      max_shift, device=self.device)
-        res = dock_sweep_resplat(
-            H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
-            lig_grid=lig_grid, resolution=cfg.resolution,
-            sigma=cfg.sigma, num_types=cfg.num_atom_types,
-            top_k=cfg.top_k, chunk=cfg.rotation_chunk,
-            score_mask=score_mask, fft_impl=impl,
-            dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl)
+        if cfg.sweep_mode == "resplat":
+            _, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+                rec, lig, prep, engine)
+            impl, H, rep_fn = engine
+            res = dock_sweep_resplat(
+                H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
+                lig_grid=lig_grid, resolution=cfg.resolution,
+                sigma=cfg.sigma, num_types=cfg.num_atom_types,
+                top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+                score_mask=score_mask, fft_impl=impl,
+                dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl,
+                fft_block=cfg.fft_block)
+        else:
+            res = dock_sweep(rep_rec, rep_lig, rotations, coupling,
+                             top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+                             score_mask=score_mask)
         scores = _host(res.scores)
         rot_idx = _host(res.rot_idx)
         shifts = _host(res.shifts)
@@ -531,13 +542,18 @@ class DockingPipeline:
         pair_batch = kw.pop("pair_batch", None)
         if kw:
             raise TypeError(f"dock_ensemble: unexpected kwargs {list(kw)}")
-        if cfg.sweep_mode != "resplat":
-            raise NotImplementedError(
-                f"sweep_mode={cfg.sweep_mode!r} is not ported yet")
         if rotations is None:
             rotations = self.rotation_set()
         rotations = torch.as_tensor(rotations, dtype=torch.float32,
                                     device=self.device)
+        if cfg.sweep_mode != "resplat":
+            # The resample sweep has no batched pair form: one dock per
+            # pair, then the same merge.
+            return self._dock_ensemble_sequential(
+                rec_models, lig_models, pair_list, cluster,
+                rotations=rotations,
+                translation_center=translation_center,
+                max_shift=max_shift)
 
         # R receptor halves, once each.
         engines = [self._engine_parts(rep, cpl) for _, rep, cpl in
@@ -585,7 +601,8 @@ class DockingPipeline:
                 chunk=max(1, cfg.rotation_chunk // len(batch)),
                 score_mask=(None if masks is None
                             else masks[[li for _, li in batch]]),
-                fft_impl=impl, dft_dtype=cfg.dft_dtype)
+                fft_impl=impl, dft_dtype=cfg.dft_dtype,
+                fft_block=cfg.fft_block)
             scores.append(_host(res.scores).reshape(-1))
             rot_idx.append(_host(res.rot_idx).reshape(-1))
             shifts.append(_host(res.shifts).reshape(-1, 3))
@@ -600,6 +617,27 @@ class DockingPipeline:
             rotations=_host(rotations)[rot_idx[order]],
             translations=shifts[order].astype(np.float32) * cfg.resolution,
             rot_idx=rot_idx[order], shifts=shifts[order])
+        pairs = np.asarray(tags, dtype=np.int64)[order]
+        return self._merge_ensemble(merged, pairs, lig_models, cluster)
+
+    def _dock_ensemble_sequential(self, rec_models, lig_models, pair_list,
+                                  cluster, **kw):
+        """``dock_ensemble`` one pair at a time (``sweep_mode=
+        "resample"``): each pair docked unclustered, the union sorted
+        by score (stable), then the ensemble's NMS."""
+        parts, tags = [], []
+        for ri, li in pair_list:
+            poses = self.dock(rec_models[ri], lig_models[li], cluster=False,
+                              **kw)
+            parts.append(poses)
+            tags.extend([(ri, li)] * len(poses))
+
+        def cat(field):
+            return np.concatenate([getattr(p, field) for p in parts])
+
+        scores = cat("scores")
+        order = np.argsort(-scores, kind="stable")
+        merged = PoseSet(*(cat(f)[order] for f in PoseSet._fields[:5]))
         pairs = np.asarray(tags, dtype=np.int64)[order]
         return self._merge_ensemble(merged, pairs, lig_models, cluster)
 
@@ -669,7 +707,7 @@ class DockingPipeline:
             lig_grid=lig_grid, resolution=cfg.resolution, sigma=cfg.sigma,
             num_types=cfg.num_atom_types, top_k=K, chunk=chunk,
             score_mask=head_masks, fft_impl=impl, dft_dtype=cfg.dft_dtype,
-            topk_impl=cfg.topk_impl)
+            topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
         scores = _host(res.scores)                      # [n, K]
         rot_idx = _host(res.rot_idx)
         shifts = _host(res.shifts)                      # [n, K, 3]
@@ -712,7 +750,8 @@ class DockingPipeline:
         Returns a re-ranked PoseSet with continuous translations
         (``shifts`` hold the nearest lattice point).  Shares the engine
         dispatch with ``dock``/``rescore``: ``H`` is the engine's coupled
-        spectrum, made complex.
+        spectrum, made complex, unless the engine is ``block``, whose
+        real-space receptor rep the spectrum-free continuous score takes.
         """
         cfg = self.config
         lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(

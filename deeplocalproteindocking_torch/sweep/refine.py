@@ -120,12 +120,49 @@ def continuous_score(H: torch.Tensor,
     return s / (L ** 3)
 
 
-def continuous_score_block(*args, **kwargs):
-    """The block engine's real-space continuous score: not ported yet
-    (it needs the ``block`` engine)."""
-    raise NotImplementedError(
-        "continuous_score_block needs fft_impl='block', which is not "
-        "ported yet")
+def continuous_score_block(H_real: torch.Tensor,
+                           lig_coords: torch.Tensor,
+                           lig_types: torch.Tensor,
+                           lig_mask: torch.Tensor,
+                           R: torch.Tensor,
+                           t_vox: torch.Tensor,
+                           rep_fn: Callable,
+                           *,
+                           grid_size: int,
+                           lig_grid: int,
+                           resolution: float,
+                           sigma: float,
+                           num_types: int) -> torch.Tensor:
+    """Spectrum-free scores ``[K]`` of continuous poses for the ``block``
+    engine, differentiable in ``R [K, 3, 3]`` and ``t_vox [K, 3]``.
+
+    ``H_real [L, L, L, C]`` is the real-space receptor rep with the
+    coupling folded in (``coupled_receptor(..., "block")``), so no
+    full-grid spectrum is formed.  The score is evaluated in real space:
+
+        S(R, t) = sum_x H(x) . rep[splat(R c + frac(t))](x - round(t))
+
+    The integer part of ``t`` (no gradient: rounding is piecewise
+    constant) picks a circularly wrapped ``Ls^3`` receptor patch; the
+    fractional part shifts the atom coordinates before the splat, so
+    translation gradients flow like rotation gradients.  At lattice
+    poses this equals the sweep's score.
+    """
+    L, Ls = grid_size, lig_grid
+    ti = torch.round(t_vox).detach()
+    tf = t_vox - ti
+    coords_r = (torch.einsum("kij,nj->kni", R, lig_coords)
+                + tf[:, None, :] * resolution)
+    vol = separable_splat(coords_r, lig_types, lig_mask, grid_size=Ls,
+                          resolution=resolution, sigma=sigma,
+                          num_types=num_types)
+    rep = rep_fn(vol)                              # [K, Ls, Ls, Ls, C]
+    start = (L - Ls) // 2 + ti.long()              # [K, 3]
+    a = torch.remainder(start[:, :, None]
+                        + torch.arange(Ls, device=start.device), L)
+    patch = H_real[a[:, 0, :, None, None], a[:, 1, None, :, None],
+                   a[:, 2, None, None, :]]         # [K, Ls, Ls, Ls, C]
+    return torch.sum(patch * rep.to(H_real.dtype), dim=(1, 2, 3, 4))
 
 
 def _rotation(w: torch.Tensor, R0: torch.Tensor) -> torch.Tensor:
@@ -156,7 +193,10 @@ def refine_poses(H: torch.Tensor,
     Adam ascent (optax's defaults, bias-corrected) on the axis-angle
     delta and the sub-voxel translation delta of every pose at once; a
     pose keeps its refinement only if it improved the score.  Returns
-    continuous translations in Angstrom.
+    continuous translations in Angstrom.  ``H`` matches ``fft_impl``:
+    the complex coupled spectrum for the spectral engines, the
+    real-space coupled receptor rep for ``"block"``
+    (:func:`continuous_score_block`).
     """
     score_fn = (continuous_score_block if fft_impl == "block"
                 else continuous_score)

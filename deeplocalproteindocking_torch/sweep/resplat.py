@@ -12,19 +12,27 @@ rotations:
 
 on the ``dft_fused`` engine; the ``dft_pallas`` engine forms the score
 volume with the forward DFT einsums and K3 (``correlate/idft.py``) and
-takes ``exact_block_topk`` of it.  The JAX ``lax.scan`` is a Python loop over chunks whose top-K carry stays
-on the device: no per-chunk host synchronization.  Padding rotations are
+takes ``exact_block_topk`` of it; the ``block`` engine (grids above
+128^3) correlates each small-box rep against the real-space receptor
+blockwise with ``torch.fft`` (``correlate/blockfft.py``) and takes
+``exact_block_topk`` too.  The JAX ``lax.scan`` is a Python loop over
+chunks whose top-K carry stays on the device: no per-chunk host
+synchronization.  Padding rotations are
 identities, masked out by ``num_valid``.  ``score_decoys_resplat`` is
 training's differentiable form: the same model's scores of given poses.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from deeplocalproteindocking_torch.correlate.blockfft import (
+    block_correlate_scores)
 from deeplocalproteindocking_torch.correlate.dft import get_correlator
 from deeplocalproteindocking_torch.correlate.fft import (
     correlate_scores, flat_index_to_shift)
@@ -33,7 +41,17 @@ from deeplocalproteindocking_torch.sweep.refine import continuous_score
 from deeplocalproteindocking_torch.sweep.topk import (
     DockResult, exact_block_topk)
 
-ENGINES = ("dft_fused", "dft", "dft_pallas", "xla")
+ENGINES = ("dft_fused", "dft", "dft_pallas", "xla", "block")
+
+# The JAX package's warning for topk_impl="approx", word for word.  Off a
+# TPU its ``jax.lax.approx_max_k`` returns the exact top-K, and so does
+# the port.
+APPROX_TOPK_WARNING = (
+    "topk_impl='approx' trades per-rotation top-K set recall "
+    "(measured 43/64 on near-tied shape scores, DESIGN.md) for "
+    "~16% speed; top-1 is preserved but top-10 hit-rates can "
+    "silently change. Use the default 'exact' for reported "
+    "results.")
 
 
 def fused_topk_engaged(fused_topk: Optional[bool], fft_impl: str,
@@ -119,10 +137,14 @@ def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
                       top_k)
 
 
-def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype):
+def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype,
+                     fft_block=32):
     """Score volumes ``[B, L, L, L]`` for small-box reps (``dft``,
-    ``dft_pallas`` or ``xla`` engine); ``H`` one receptor spectrum, or
-    ``[G, ...]`` one per group of rows."""
+    ``dft_pallas``, ``xla`` or ``block`` engine); ``H`` one receptor
+    spectrum (for ``block``: the real-space coupled receptor rep ``[L,
+    L, L, C]``), or ``[G, ...]`` one per group of rows."""
+    if fft_impl == "block":
+        return block_correlate_scores(H, reps, None, block=fft_block)
     if fft_impl in ("dft", "dft_pallas"):
         corr = get_correlator(grid_size, reps.shape[-2], dft_dtype,
                               reps.device)
@@ -132,7 +154,7 @@ def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype):
                            inverse_impl=inverse_impl)
     if fft_impl == "xla":
         return correlate_scores(H, embed_small(reps, grid_size))
-    raise NotImplementedError(f"fft_impl={fft_impl!r} is not ported yet")
+    raise ValueError(f"unknown fft_impl {fft_impl!r} (engines: {ENGINES})")
 
 
 def dock_sweep_resplat(H: torch.Tensor,
@@ -154,12 +176,17 @@ def dock_sweep_resplat(H: torch.Tensor,
                        fft_impl: str = "dft",
                        dft_dtype: str = "float32",
                        topk_impl: str = "exact",
+                       fft_block: int = 32,
                        fused_topk: Optional[bool] = None) -> DockResult:
     """Full rotation sweep with per-rotation coordinate re-splatting.
 
     ``H`` is the coupled receptor spectrum (``correlate/fft.py``) on the
-    sweep's device; ``rep_fn`` maps density volumes ``[B, Ls, Ls, Ls, T]``
-    to representations ``[B, Ls, Ls, Ls, C]``.
+    sweep's device, or under ``fft_impl="block"`` the real-space coupled
+    receptor rep (``fft_block`` the translation-block edge); ``rep_fn``
+    maps density volumes ``[B, Ls, Ls, Ls, T]`` to representations ``[B,
+    Ls, Ls, Ls, C]``.  ``topk_impl="approx"`` warns as the JAX package
+    does and takes the exact top-K (its ``approx_max_k`` is exact off a
+    TPU); the fused top-K tail needs ``"exact"``.
 
     Two batched forms (the JAX package vmaps this function instead),
     one loop whose steps hold ``chunk`` rotations of each of n sweeps,
@@ -175,11 +202,12 @@ def dock_sweep_resplat(H: torch.Tensor,
       receptor groups, K2 and ``drill_topk`` the n masks as bias groups.
     """
     if fft_impl not in ENGINES:
-        raise NotImplementedError(
-            f"fft_impl={fft_impl!r} is not ported yet (ported: {ENGINES})")
-    if topk_impl != "exact":
-        raise NotImplementedError(
-            f"topk_impl={topk_impl!r} is not ported yet (exact is)")
+        raise ValueError(f"unknown fft_impl {fft_impl!r} (engines: "
+                         f"{ENGINES})")
+    if topk_impl == "approx":
+        warnings.warn(APPROX_TOPK_WARNING, stacklevel=2)
+    elif topk_impl != "exact":
+        raise ValueError(f"topk_impl={topk_impl!r}: 'exact' or 'approx'")
     L = grid_size
     device = H.device
     complexes = lig_coords.ndim == 3        # one receptor + ligand per sweep
@@ -233,7 +261,8 @@ def dock_sweep_resplat(H: torch.Tensor,
                 if fft_impl == "dft_fused":
                     S = _correlate_fused(Ht, reps, L, lig_grid, dft_dtype)
                 else:
-                    S = _correlate_batch(H, reps, L, fft_impl, dft_dtype)
+                    S = _correlate_batch(H, reps, L, fft_impl, dft_dtype,
+                                         fft_block)
                 S = S.reshape(n, chunk, L * L * L)
                 if score_mask is not None:
                     S = torch.where(score_mask.reshape(n, 1, -1), S,
@@ -269,7 +298,8 @@ def score_decoys_resplat(H: torch.Tensor,
                          resolution: float,
                          sigma: float,
                          num_types: int,
-                         fft_impl: str = "dft") -> torch.Tensor:
+                         fft_impl: str = "dft",
+                         fft_block: int = 32) -> torch.Tensor:
     """Training path: differentiable scores ``[D]`` of the decoy poses
     ``(rotations [D, 3, 3], shifts [D, 3])``, by the sweep's own model
     (rotate coords -> splat -> CNN -> correlate), all D in one call.
@@ -278,7 +308,10 @@ def score_decoys_resplat(H: torch.Tensor,
     (``sweep/refine.continuous_score``: three phase contractions, no
     inverse transform, always float32; shifts may be off the lattice);
     ``xla`` forms the score volumes and gathers each pose's lattice cell
-    (shifts rounded).
+    (shifts rounded); ``block`` does the same one decoy at a time under
+    ``torch.utils.checkpoint`` (``H`` the real-space coupled receptor
+    rep), so reverse mode holds one decoy's score volume, as the JAX
+    package's ``jax.checkpoint`` + ``lax.map`` do.
     """
     if fft_impl in ("dft", "dft_fused", "dft_pallas"):
         return continuous_score(
@@ -286,10 +319,24 @@ def score_decoys_resplat(H: torch.Tensor,
             shifts.to(torch.float32), rep_fn, grid_size=grid_size,
             lig_grid=lig_grid, resolution=resolution, sigma=sigma,
             num_types=num_types)
+    if fft_impl == "block":
+        def score_one(R, s):
+            coords_r = torch.einsum("ij,nj->ni", R, lig_coords)
+            vol = separable_splat(coords_r, lig_types, lig_mask,
+                                  grid_size=lig_grid, resolution=resolution,
+                                  sigma=sigma, num_types=num_types)
+            S = block_correlate_scores(H, rep_fn(vol[None])[0],
+                                       block=fft_block)
+            idx = torch.remainder(torch.round(s).long(), grid_size)
+            return S[idx[0], idx[1], idx[2]]
+
+        return torch.stack([
+            torch.utils.checkpoint.checkpoint(score_one, R, s,
+                                              use_reentrant=False)
+            for R, s in zip(rotations, shifts)])
     if fft_impl != "xla":
-        raise NotImplementedError(
-            f"score_decoys_resplat: fft_impl={fft_impl!r} is not ported "
-            f"yet (the block engine is ROADMAP Queue A 5)")
+        raise ValueError(f"score_decoys_resplat: unknown fft_impl "
+                         f"{fft_impl!r}")
     coords_r = torch.einsum("dij,nj->dni", rotations, lig_coords)
     vols = separable_splat(coords_r, lig_types, lig_mask,
                            grid_size=lig_grid, resolution=resolution,

@@ -83,7 +83,7 @@ def mine_hard_negatives(model: ScoringModel, cfg: DockConfig,
                 resolution=cfg.resolution, sigma=cfg.sigma,
                 num_types=cfg.num_atom_types, top_k=top_k,
                 chunk=min(cfg.rotation_chunk, n_rotations), fft_impl=impl,
-                dft_dtype=cfg.dft_dtype)
+                dft_dtype=cfg.dft_dtype, fft_block=cfg.fft_block)
             nat = torch.as_tensor(
                 ((c.ligand.center - c.receptor.center)
                  / cfg.resolution).astype(np.float32), device=device)

@@ -325,9 +325,16 @@ def test_ensemble_pair_batch_and_pairing_errors(ensemble_models):
         pipe.dock_ensemble(recs[:1], ligs, pairing="zip")
     with pytest.raises(ValueError, match="unknown pairing"):
         pipe.dock_ensemble(recs, ligs, pairing="outer")
-    with pytest.raises(NotImplementedError):
-        DockingPipeline(_ens_cfg(sweep_mode="resample"),
-                        device="cpu").dock_ensemble(recs, ligs)
+    # Resample mode has no batched pair form: one dock per pair, as the
+    # JAX package's sequential route, whose pair tags it keeps.
+    got, pairs = DockingPipeline(_ens_cfg(sweep_mode="resample"),
+                                 device="cpu").dock_ensemble(recs, ligs,
+                                                             cluster=False)
+    want, wpairs = jpipe.DockingPipeline(config=jax_config(_ens_cfg(
+        sweep_mode="resample"))).dock_ensemble(recs, ligs, cluster=False)
+    assert len(got) == len(want) == 4 * 8
+    np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(pairs[:1], wpairs[:1])
 
 
 # ---- run_benchmark_batched ----

@@ -293,14 +293,23 @@ def test_error_paths(dataset, tmp_path, monkeypatch):
     (orbax / "step_00000500" / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(SystemExit, match="export_torch_weights"):
         tcli.main(dock + ["--checkpoint", str(orbax)] + CPU)
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="not ported.*Queue A 4"):
         tcli.main(dock + ["--mesh-rot", "2"] + CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
         tcli.main(dock)
-    with pytest.raises(NotImplementedError):
-        tcli.main(dock + ["--sweep-mode", "resample"] + CPU)
     assert not os.path.exists(str(tmp_path / "o" / "poses.json"))
+    # --sweep-mode resample is ported: it docks, as the JAX CLI does.
+    resample = ["dock", "--receptor", rec, "--ligand", lig, "--out",
+                str(tmp_path / "r"), "--sweep-mode", "resample"] + SMALL
+    tcli.main(resample + CPU)
+    jcli.main(resample[:6] + [str(tmp_path / "rj")] + resample[7:])
+    got, want = (_poses(str(tmp_path / d)) for d in ("r", "rj"))
+    assert len(got) == len(want) > 0
+    np.testing.assert_allclose([p["score"] for p in got],
+                               [p["score"] for p in want], rtol=1e-4,
+                               atol=1e-3)
+    assert got[0]["shift"] == want[0]["shift"]
 
 
 def test_doctor_and_info_never_hang(capsys):

@@ -183,8 +183,9 @@ def test_pose_rmsd_and_nms():
 
 
 def test_port_imports_without_jax():
-    """The port's docking, screening, refinement, grading, batched
-    docking and training paths, the CLI, the native parsers' bindings,
+    """The port's docking (the block engine and the resample sweep
+    included), screening, refinement, grading, batched docking and
+    training paths, ``measure_256``, the CLI, the native parsers' bindings,
     mmCIF, the map writers and the profiling hooks import where jax,
     flax, optax and orbax are absent, never load the JAX package itself,
     and open no file under it (no module of the JAX package run on its
@@ -213,6 +214,10 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.data.polymer\n"
         "import deeplocalproteindocking_torch.train.data_gen\n"
         "import deeplocalproteindocking_torch.train.mining\n"
+        "import deeplocalproteindocking_torch.correlate.blockfft\n"
+        "import deeplocalproteindocking_torch.grids.rotate\n"
+        "import deeplocalproteindocking_torch.sweep.docker\n"
+        "import deeplocalproteindocking_torch.measure_256\n"
         "import deeplocalproteindocking_torch.train_flagship\n"
         "from deeplocalproteindocking_torch.weights import (\n"
         "    train_state_from_numpy)\n"

@@ -232,15 +232,29 @@ def test_bench_complex_ligand_box_and_masks():
 
 
 def test_unported_options_raise():
-    cfg = DockConfig(grid_size=32, fft_impl="block")
+    """The options that raised before the block engine, the resample
+    sweep and approximate top-K were ported now dock as the JAX package
+    docks: ``block`` (block 16 at grid 32), ``resample``, and
+    ``topk_impl="approx"`` (a warning, then the exact top-K)."""
+    cfg = DockConfig(grid_size=32, num_rotations=4, rotation_chunk=4,
+                     top_k=6, fft_impl="block", fft_block=16)
     cplx = synthetic_complex(1, 10, 5)
-    with pytest.raises(NotImplementedError):
-        DockingPipeline(cfg, device="cpu").dock_complex(cplx)
-    with pytest.raises(NotImplementedError):
-        DockingPipeline(cfg.replace(fft_impl="dft_fused",
-                                    sweep_mode="resample"),
-                        device="cpu").dock_complex(cplx)
-    with pytest.raises(NotImplementedError):
-        DockingPipeline(cfg.replace(fft_impl="dft_fused", topk_impl="approx",
-                                    num_rotations=4),
-                        device="cpu").dock_complex(cplx)
+    jcplx = jbench.synthetic_complex(1, 10, 5)
+    for c in (cfg, cfg.replace(fft_impl="dft_fused", sweep_mode="resample")):
+        got = DockingPipeline(c, device="cpu").dock_complex(cplx,
+                                                            cluster=False)
+        want = jpipe.DockingPipeline(config=jax_config(c)).dock_complex(
+            jcplx, cluster=False)
+        np.testing.assert_allclose(got.scores, np.asarray(want.scores),
+                                   rtol=1e-4, atol=1e-3)
+        assert got.rot_idx[0] == want.rot_idx[0]
+        np.testing.assert_array_equal(got.shifts[0],
+                                      np.asarray(want.shifts)[0])
+    approx = cfg.replace(fft_impl="dft_fused", topk_impl="approx")
+    with pytest.warns(UserWarning, match="topk_impl='approx'"):
+        got = DockingPipeline(approx, device="cpu").dock_complex(
+            cplx, cluster=False)
+    exact = DockingPipeline(approx.replace(topk_impl="exact"),
+                            device="cpu").dock_complex(cplx, cluster=False)
+    np.testing.assert_array_equal(got.scores, exact.scores)
+    np.testing.assert_array_equal(got.shifts, exact.shifts)

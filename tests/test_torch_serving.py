@@ -30,6 +30,8 @@ from deeplocalproteindocking_torch.pipeline import DockingPipeline, PoseSet
 from deeplocalproteindocking_torch.serving import DockingService
 from deeplocalproteindocking_torch.sweep import refine as trefine
 from deeplocalproteindocking_tpu import pipeline as jpipe
+from deeplocalproteindocking_tpu.correlate.fft import (
+    coupled_receptor as j_coupled_receptor)
 from deeplocalproteindocking_tpu.data import benchmark as jbench
 from deeplocalproteindocking_tpu.sweep import refine as jrefine
 from deeplocalproteindocking_tpu.sweep import resplat as jres
@@ -149,9 +151,18 @@ def test_refine_poses_match_jax(pair):
     np.testing.assert_allclose(np_(got.rotations), np_(want.rotations),
                                atol=1e-4)
     assert np.all(np_(got.scores) >= np_(got.initial_scores))
-    with pytest.raises(NotImplementedError):
-        trefine.refine_poses(tH, *tl, t_(R), t_(sh), t_rep, steps=1,
-                             fft_impl="block", **kw)
+    # fft_impl="block" refines against the real-space coupled receptor
+    # rep (spectrum-free): against the JAX package's block refinement.
+    rec_c, lig_c, rep_rec, _, cpl = ref._prepare(cplx.receptor, cplx.ligand)
+    jHb = j_coupled_receptor(rep_rec, ref._spectral_parts(cpl)[0], "block")
+    want = jrefine.refine_poses(jHb, *jl, jnp.asarray(R), jnp.asarray(sh),
+                                j_rep, steps=2, fft_impl="block", **kw)
+    got = trefine.refine_poses(t_(np_(jHb)), *tl, t_(R), t_(sh), t_rep,
+                               steps=2, fft_impl="block", **kw)
+    for name in ("initial_scores", "scores", "translations", "rotations"):
+        np.testing.assert_allclose(np_(getattr(got, name)),
+                                   np_(getattr(want, name)), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_pipeline_refine_ranks_refine_poses(pair):

@@ -36,7 +36,6 @@ from deeplocalproteindocking_torch.data import synthetic_complex
 from deeplocalproteindocking_torch.data.benchmark import synthetic_band
 from deeplocalproteindocking_torch.structure.transforms import (
     apply_pose, random_rotations)
-from deeplocalproteindocking_torch.sweep.resplat import score_decoys_resplat
 from deeplocalproteindocking_torch.train import decoys as tdecoys
 from deeplocalproteindocking_torch.train import losses as tlosses
 from deeplocalproteindocking_torch.train import mining as tmining
@@ -341,15 +340,25 @@ def test_complex_scores_match_jax(setup, engine):
 
 
 def test_unported_modes_raise(setup):
-    b = setup["batch"]
+    """The modes that raised before ``grids/rotate`` and the block engine
+    were ported score as the JAX package does: ``complex_scores`` under
+    ``resample``, and ``score_decoys_resplat(fft_impl="block")`` (block
+    8 at grid 16) on the decoys of each complex."""
+    jb, b = setup["jbatch"], setup["batch"]
     model = setup["tr"].bind(setup["params"])
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        complex_scores(model, setup["cfg"].replace(sweep_mode="resample"),
-                       *(f[0] for f in b[:8]))
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        score_decoys_resplat(None, *(f[0] for f in b[3:8]), None,
-                             grid_size=16, lig_grid=16, resolution=1.5,
-                             sigma=1.0, num_types=11, fft_impl="block")
+    for mode in (dict(sweep_mode="resample"),
+                 dict(fft_impl="block", fft_block=8)):
+        cfg, jcfg = (c.replace(**mode) for c in (setup["cfg"],
+                                                 setup["jcfg"]))
+        for i in range(cfg.batch_complexes):
+            want = jscoring.complex_scores(setup["jt"].model, jcfg,
+                                           setup["state"].params,
+                                           *(f[i] for f in jb[:8]))
+            with torch.no_grad():
+                got = complex_scores(model, cfg, *(f[i] for f in b[:8]))
+            np.testing.assert_allclose(
+                np_(got), np.asarray(want), rtol=1e-4,
+                atol=1e-4 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("after", [0, 2])

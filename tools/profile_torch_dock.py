@@ -12,7 +12,14 @@ against the ligand of seed 1: ``dock`` and ``rescore(top=16, nrot=48)``.
 Then the training cell of ``chip_smoke.py`` phase 9 (the committed v9p
 ``config.json``: grid 64, box 40, 24 decoys x 2 complexes, float32):
 after one warm-up step, one train step with its batch assembly, and one
-mining round (4 training complexes x 320 rotations, top-K 24).
+mining round (4 training complexes x 320 rotations, top-K 24).  Then the
+cells of ``chip_smoke.py`` phase 11 at the v9p config (float32, C = 16):
+a block-engine dock at grid 256 (block 64, 256 rotations) and a
+resample dock at grid 64 (2,048 rotations), each after a warm-up dock;
+and the block engine's cuFFT sizes: the inverse transform of one block
+(16 boxes of M^3) and the forward one of a 16-channel tile at M = 96,
+104 (the engine's M at box 40, block 64), 112 and 128, with the boxes or
+channels innermost and outermost, timed with CUDA events.
 Prints one JSON line per stage: host-clock wall (profiler overhead
 included), device busy time (the union of kernel intervals), the idle
 share, the largest kernels by total device time, and every kernel of
@@ -33,6 +40,7 @@ from deeplocalproteindocking_torch import weights  # noqa: E402
 from deeplocalproteindocking_torch.config import DockConfig  # noqa: E402
 from deeplocalproteindocking_torch.data import synthetic_complex  # noqa: E402
 from deeplocalproteindocking_torch.data.benchmark import synthetic_band  # noqa: E402
+from deeplocalproteindocking_torch.pipeline import DockingPipeline  # noqa: E402
 from deeplocalproteindocking_torch.serving import DockingService  # noqa: E402
 from deeplocalproteindocking_torch.train import Trainer  # noqa: E402
 from deeplocalproteindocking_torch.train.data_gen import (  # noqa: E402
@@ -126,6 +134,60 @@ def main():
     stage("mining round (4 x 320 rotations)", lambda: mine_hard_negatives(
         model, tcfg, band[4:], n_rotations=320, top_k=24))
 
+    # Phase 11's cells: the block engine above 128^3, the resample sweep.
+    cplx = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30)
+    for name, c in (
+            ("block dock, grid 256 (v9p config, block 64, 256 rotations)",
+             tcfg.replace(grid_size=256, fft_block=64, num_rotations=256)),
+            ("resample dock (v9p config, grid 64, 2,048 rotations)",
+             tcfg.replace(sweep_mode="resample", num_rotations=2048))):
+        pipe = DockingPipeline(c, params=params, device="cuda")
+        pipe.dock_complex(cplx)
+        stage(name, lambda: pipe.dock_complex(cplx))
+        del pipe
+    fft_sizes()
+
+
+def fft_sizes(boxes=16, reps=20):
+    """ms of one block's inverse transform (``boxes`` M^3 c2r) and of one
+    receptor tile's forward transform (M^3 x 16 channels, r2c) by M, with
+    the boxes or channels innermost (strided transforms) and outermost
+    (each transform over three contiguous axes)."""
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    rows = []
+    for M in (96, 104, 112, 128):
+        Mh, s = M // 2 + 1, (M, M, M)
+        row = dict(M=M)
+        for layout, spec, tile, dims in (
+                ("innermost",
+                 torch.randn((1, M, M, Mh, boxes), device="cuda",
+                             dtype=torch.complex64),
+                 torch.randn((1, M, M, M, 16), device="cuda"), (1, 2, 3)),
+                ("contiguous",
+                 torch.randn((boxes, M, M, Mh), device="cuda",
+                             dtype=torch.complex64),
+                 torch.randn((16, M, M, M), device="cuda"), (-3, -2, -1))):
+            row[f"c2r_ms_{layout}"] = timed(
+                lambda: torch.fft.irfftn(spec, s=s, dim=dims))
+            row[f"r2c_ms_{layout}"] = timed(
+                lambda: torch.fft.rfftn(tile, dim=dims))
+            row[f"c2r_ns_per_point_{layout}"] = (
+                row[f"c2r_ms_{layout}"] * 1e6 / (boxes * M ** 3))
+            del spec, tile
+        rows.append(row)
+    print(json.dumps(dict(stage="block engine cuFFT sizes", boxes=boxes,
+                          rows=rows)), flush=True)
 
 if __name__ == "__main__":
     main()
