@@ -157,9 +157,35 @@ phase that does not hold:
    docking v9p at grid 192 (the geometry warning prints) and in resample
    mode.  Rotation counts are cut below 13,000 (``reduced`` in each
    line); widths are not.
+12. the multi-GPU layer (``parallel/``): ``max(2, cards)`` ranks spawned
+   from here, rank r on ``cuda:(r % cards)``, over gloo when ranks share
+   a card (one card: NCCL refuses two ranks on it) and NCCL when each has
+   its own, TF32 off.  In every rank: the rotation-sharded docks of the
+   bf16 bench config and of the v9p checkpoint's config at 2,048
+   rotations, with the launch counts set to 0 just before and read just
+   after (every rank must launch K1 on its tc / tf32 kernel and K2 on
+   its FFT kernel, and no K3; each config's first K1 and K2 launch held
+   against plain), against the single-card dock (top-K within rtol 1e-3,
+   the same top-1, the same result on every rank); ``dock_batch`` of one
+   complex per rank over ``(1, ranks)`` and ``(ranks, 1)`` against each
+   complex's own sweep; ``sharded_block_correlate`` at L = 128, block 32,
+   its gathered slabs against the whole grid; one data-parallel train
+   step at the v9p config's width (2 complexes x 24 decoys over ``(2,
+   ranks / 2)``) against ``Trainer.value_and_grad`` on one rank (phase
+   9's tolerances), then three steps with the params identical on every
+   rank; ``cli dock --mesh-rot <ranks>`` against ``--mesh-rot 1``.
 
 Each phase prints one JSON line (phase 11 one per step).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+
+    python3 chip_smoke.py --multi-gpu    # on several cards
+
+runs phase 1 and phase 12 with every card a rank, plus the
+13,000-rotation CLI docks (``--preset benchmark-v5e8`` and the v9p
+checkpoint) on the mesh and on one card, cold then warm, then once more
+with the stages of the command timed (``_cli_dock_split``), then the same
+two docks as ``torchrun`` commands against one process, and
+``measure_scaling`` at 1, 2, ... ranks up to every card.
 """
 import json
 import math
@@ -1731,9 +1757,658 @@ def check_large_grids(record):
           "cli dock at grid 192: no geometry warning")
 
 
+# Phase 12: the multi-GPU layer.  Ranks are processes spawned here, one
+# per card, at least two; ranks that share a card talk over gloo (NCCL
+# refuses two ranks on one card), ranks with a card each over NCCL.
+P12_ROTATIONS = 2048         # the sharded docks, as phase 3's requests
+P12_BATCH_ROTATIONS = 256    # dock_batch over (rot, batch)
+P12_RTOL = 1e-3              # top-K values against the single-card dock
+P12_BLOCK_L, P12_BLOCK = 128, 32
+P12_TRAIN_SEED = 2           # the train batch's generator seed
+P12_TIMEOUT_S = 600          # a rank that outlives this is killed
+
+
+def _p12_configs():
+    """The sharded docks' configs: the bf16 bench config (phase 3's) and
+    the v9p checkpoint's own ``config.json`` (float32), each at
+    ``P12_ROTATIONS``."""
+    from deeplocalproteindocking_torch.config import DockConfig
+    with open(os.path.join(V9P_DIR, "config.json")) as f:
+        v9p = DockConfig.from_json(f.read())
+    bench = DockConfig(
+        grid_size=128, resolution=1.25, rep_features=(32, 14),
+        shape_prior=True, compute_dtype="bfloat16", dft_dtype="bfloat16",
+        coupling_rank=3, top_k=64, rotation_chunk=128,
+        num_rotations=P12_ROTATIONS, fft_impl="dft_fused",
+        sweep_mode="resplat")
+    return {"bench_bf16": bench,
+            "v9p_config": v9p.replace(num_rotations=P12_ROTATIONS)}
+
+
+def _p12_full_depth():
+    """The 13,000-rotation CLI docks of ``--multi-gpu``: ``(name, argv
+    after the ligand pair)``."""
+    return [("benchmark_v5e8", ["--preset", "benchmark-v5e8"]),
+            ("v9p", ["--checkpoint", V9P_DIR])]
+
+
+def _cli_dock_split(argv):
+    """One ``cli.main(argv)`` with its stages timed on the host's clock,
+    each from a synchronisation of this process's card to the next:
+    ``mesh`` (``cli._mesh``: joining the group, building the
+    ``DeviceMesh``), ``pipeline`` (``cli._build_pipeline``: the weights
+    and the model), ``dock`` (``DockingPipeline.dock``) and ``sweep``
+    (the sweep inside it, sharded or not), ``write``
+    (``cli._write_poses``, rank 0 only) and ``cli`` (the whole call).
+    ``{stage: seconds}``."""
+    import contextlib
+    import io
+
+    import torch
+    from deeplocalproteindocking_torch import cli, pipeline
+    split = {}
+
+    def stage(name, fn):
+        def timed_fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                split[name] = (split.get(name, 0.0)
+                               + time.perf_counter() - t0)
+        return timed_fn
+
+    stages = [(cli, "_mesh", "mesh"), (cli, "_build_pipeline", "pipeline"),
+              (cli, "_write_poses", "write"),
+              (pipeline.DockingPipeline, "dock", "dock")] + [
+        (pipeline, f, "sweep") for f in (
+            "sharded_dock_sweep_resplat", "dock_sweep_resplat",
+            "sharded_dock_sweep", "dock_sweep")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
+    for obj, attr, name in stages:
+        setattr(obj, attr, stage(name, getattr(obj, attr)))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            stage("cli", cli.main)(argv)
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return split
+
+
+def _p12_rank(rank, world, tmp, full_depth):
+    """One rank of phase 12: every check of the phase on this rank's
+    card; the record is saved to ``tmp/rank<r>.pt`` (a traceback to
+    ``tmp/rank<r>.err``)."""
+    import contextlib
+    import hashlib
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeplocalproteindocking_torch import _build, cli, weights
+    from deeplocalproteindocking_torch.correlate import (dft, fused, idft,
+                                                         invz_topk)
+    from deeplocalproteindocking_torch.correlate.blockfft import (
+        block_correlate_scores, sharded_block_correlate)
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.data.benchmark import synthetic_band
+    from deeplocalproteindocking_torch.evaluation import batch_inputs
+    from deeplocalproteindocking_torch.parallel import mesh as pmesh
+    from deeplocalproteindocking_torch.parallel.batch_eval import dock_batch
+    from deeplocalproteindocking_torch.parallel.collectives import (
+        all_gather_rows)
+    from deeplocalproteindocking_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline
+    from deeplocalproteindocking_torch.structure.so3 import (
+        super_fibonacci_rotations)
+    from deeplocalproteindocking_torch.sweep.resplat import (
+        dock_sweep_resplat)
+    from deeplocalproteindocking_torch.train import Trainer
+    from deeplocalproteindocking_torch.train.data_gen import (
+        make_training_batch)
+
+    log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+    try:
+        with contextlib.redirect_stdout(log):
+            t_start = time.perf_counter()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            dev = pmesh.init_distributed(
+                "cuda", rank=rank, world_size=world,
+                init_method="file://" + os.path.join(tmp, "store"))
+            _build.library()
+            mesh = pmesh.make_mesh(rot=world, device_type="cuda")
+            params = weights.load_npz(os.path.join(V9P_DIR,
+                                                   "best_params.npz"))
+            cplx = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30)
+            rec = dict(rank=rank, device=str(dev),
+                       card=torch.cuda.get_device_name(dev),
+                       backend=dist.get_backend())
+
+            def reset():
+                fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+                invz_topk.launches = invz_topk.launches_fft = 0
+                idft.launches = idft.launches_fft = 0
+
+            def counts():
+                return dict(k1=fused.launches, k1_tc=fused.launches_tc,
+                            k1_tf32=fused.launches_tf32,
+                            k2=invz_topk.launches,
+                            k2_fft=invz_topk.launches_fft, k3=idft.launches,
+                            k3_fft=idft.launches_fft)
+
+            def timed(fn):
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize(dev)
+                dist.barrier()
+                return out, time.perf_counter() - t0
+
+            # 1. The sharded docks of both configs, counts set to 0 just
+            # before and read just after; spies keep each config's first
+            # K1 and K2 launch.
+            k1_launch, k2_launch = dft.fused_correlate, invz_topk.invz_blockmax
+            seen, stage = {}, [None]
+
+            def k1_spy(*args, **kw):
+                seen.setdefault((stage[0], "k1"), args)
+                return k1_launch(*args, **kw)
+
+            def k2_spy(*args):
+                seen.setdefault((stage[0], "k2"), args)
+                return k2_launch(*args)
+
+            docks = {}
+            dft.fused_correlate, invz_topk.invz_blockmax = k1_spy, k2_spy
+            try:
+                for name, cfg in _p12_configs().items():
+                    pipe = DockingPipeline(cfg, params=params, device=dev,
+                                           mesh=mesh)
+                    stage[0] = name
+                    reset()
+                    poses, secs = timed(
+                        lambda: pipe.dock_complex(cplx, cluster=False))
+                    docks[name] = dict(
+                        seconds=secs, launches=counts(),
+                        scores=poses.scores.tolist(),
+                        top1=[int(poses.rot_idx[0])]
+                        + [int(v) for v in poses.shifts[0]])
+            finally:
+                dft.fused_correlate, invz_topk.invz_blockmax = (k1_launch,
+                                                                k2_launch)
+            vs_plain = {}
+            with torch.inference_mode():
+                for (name, k), args in sorted(seen.items()):
+                    (err, rel), route, _ = (k1_check if k == "k1"
+                                            else k2_check)(args)
+                    vs_plain[f"{name}_{k}"] = dict(
+                        route=route, shape=list(args[0].shape),
+                        max_abs_err=err, rel_err=rel)
+            del seen
+            rec.update(docks=docks, kernels_vs_plain=vs_plain)
+
+            # 2. dock_batch of `world` complexes over (1, world) and
+            # (world, 1), each row against its own sweep on this card.
+            bench = _p12_configs()["bench_bf16"].replace(
+                num_rotations=P12_BATCH_ROTATIONS)
+            pipe = DockingPipeline(bench, params=params, device=dev)
+            group = [synthetic_complex(seed=s, n_res_rec=60, n_res_lig=30)
+                     for s in range(world)]
+            rots = super_fibonacci_rotations(P12_BATCH_ROTATIONS, dev)
+            args, kw = batch_inputs(pipe, group, rots)
+            masks = kw["score_mask"]
+            singles = [dock_sweep_resplat(
+                args[0][b], args[1][b], args[2][b], args[3][b], rots,
+                args[5], **dict(kw, score_mask=None if masks is None
+                                else masks[b]))
+                for b in range(world)]
+            batched = {}
+            for shape in ((1, world), (world, 1)):
+                res, secs = timed(lambda: dock_batch(
+                    *args, **kw, mesh=pmesh.make_mesh(*shape, "cuda")))
+                rel = [float(np.max(np.abs(
+                    np.sort(res.scores[b].cpu().numpy())
+                    - np.sort(s.scores.cpu().numpy()))
+                    / np.abs(s.scores.cpu().numpy()).max()))
+                    for b, s in enumerate(singles)]
+                batched[f"rot{shape[0]}_batch{shape[1]}"] = dict(
+                    seconds=secs, max_rel_diff=max(rel),
+                    top1_same=all(
+                        int(res.rot_idx[b, 0]) == int(s.rot_idx[0])
+                        and res.shifts[b, 0].tolist() == s.shifts[0].tolist()
+                        for b, s in enumerate(singles)))
+            rec["dock_batch"] = batched
+            del args, singles
+
+            # 3. The block engine's translation slabs, gathered, against
+            # the whole grid on this card.
+            g = torch.Generator().manual_seed(5)
+            rep_rec = torch.randn((P12_BLOCK_L,) * 3 + (4,), generator=g)
+            rep_lig = torch.randn((40,) * 3 + (4,), generator=g)
+            A = torch.randn((4, 4), generator=g)
+            rep_rec, rep_lig, A = (t.to(dev) for t in (rep_rec, rep_lig, A))
+            with torch.inference_mode():
+                slab, secs = timed(lambda: sharded_block_correlate(
+                    mesh, rep_rec, rep_lig, A, block=P12_BLOCK))
+                got = all_gather_rows(slab, mesh.get_group("rot"))
+                want = block_correlate_scores(rep_rec, rep_lig, A,
+                                              block=P12_BLOCK)
+            rec["block"] = dict(
+                L=P12_BLOCK_L, block=P12_BLOCK, slab=list(slab.shape),
+                seconds=secs, max_abs_err=float((got - want).abs().max()),
+                max_abs=float(want.abs().max()))
+            del rep_rec, rep_lig, slab, got, want
+
+            # 4. The data-parallel train step at the v9p config's width
+            # (2 complexes x 24 decoys, rot 2 x batch world/2) against
+            # the single-rank step on this card; then three steps, the
+            # params hashed on every rank.
+            cfg = _p12_configs()["v9p_config"]
+            trainer = Trainer(cfg, dev)
+            state = trainer.init_state()._replace(
+                params={k: v.to(dev) for k, v in params.items()})
+            step = make_parallel_train_step(
+                trainer, pmesh.make_mesh(2, world // 2, "cuda"))
+            batch = make_training_batch(
+                torch.Generator().manual_seed(P12_TRAIN_SEED),
+                synthetic_band(200, 4, widen=True, unbound=1.2), cfg,
+                device=dev)
+            (pl, pa, pg), secs = timed(
+                lambda: step.value_and_grad(state.params, batch))
+            sl, sa, sg = trainer.value_and_grad(state.params, batch)
+            grad_rel = {k: float((pg[k] - w).abs().max()
+                                 / max(float(w.abs().max()), 1e-30))
+                        for k, w in sg.items()}
+            losses = []
+            for _ in range(3):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            h = hashlib.sha256()
+            for k in sorted(state.params):
+                h.update(state.params[k].cpu().numpy().tobytes())
+            rec["train"] = dict(
+                mesh=[2, world // 2], complexes=int(batch.rec_coords.shape[0]),
+                decoys=int(batch.decoy_rot.shape[1]),
+                loss=[float(pl), float(sl)], accuracy=[float(pa), float(sa)],
+                loss_rel_diff=abs(float(pl) - float(sl))
+                / max(abs(float(sl)), 1e-30),
+                grad_rel_err=grad_rel, seconds=secs, losses_3_steps=losses,
+                params_sha256=h.hexdigest())
+            del trainer, step, batch, state
+
+            # 5. The CLI on the mesh: dock --mesh-rot <world>, and with
+            # ``full_depth`` the 13,000-rotation docks cold then warm.
+            with open(os.path.join(tmp, "cli_pair.json")) as f:
+                pair = json.load(f)
+            reset()
+            out = os.path.join(tmp, f"cli_mesh{world}")
+            _, secs = timed(lambda: cli.main(
+                ["dock", "--out", out, "--num-rotations", str(P12_ROTATIONS),
+                 "--mesh-rot", str(world), "--checkpoint", V9P_DIR] + pair))
+            rec["cli"] = dict(seconds=secs, launches=counts(), out=out)
+            if full_depth:
+                torch.backends.cudnn.allow_tf32 = True   # the CLI's default
+                rec["full_depth"] = {}
+                for name, extra in _p12_full_depth():
+                    for tag in ("cold", "warm"):
+                        reset()
+                        out = os.path.join(tmp, f"full_{name}_{tag}")
+                        _, secs = timed(lambda: cli.main(
+                            ["dock", "--out", out, "--mesh-rot", str(world)]
+                            + pair + extra))
+                        rec["full_depth"][f"{name}_{tag}"] = dict(
+                            seconds=secs, launches=counts(), out=out)
+                    rec["full_depth"][f"{name}_split"] = _cli_dock_split(
+                        ["dock", "--out", os.path.join(tmp, "full_split"),
+                         "--mesh-rot", str(world)] + pair + extra)
+            rec["rank_seconds"] = time.perf_counter() - t_start
+        torch.save(rec, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        log.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def multi_gpu(dev, full_depth=False):
+    """Phase 12: ``max(2, cards)`` ranks spawned from here, rank r on
+    ``cuda:(r % cards)``, NCCL when every rank has its own card and gloo
+    when ranks share one.  In each rank: the rotation-sharded docks of
+    the bf16 bench config and the v9p config (launch counts set to 0
+    just before and read just after; each config's first K1 and K2
+    launch against plain), ``dock_batch`` over ``(1, ranks)`` and
+    ``(ranks, 1)``, ``sharded_block_correlate`` at L = 128, the
+    data-parallel train step and ``cli dock --mesh-rot <ranks>``; here,
+    the single-card docks and CLI run they are held against.  With
+    ``full_depth`` (``--multi-gpu``) also the 13,000-rotation CLI docks
+    on the mesh and on one card.  Returns the phase's record."""
+    import contextlib
+    import io
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch import cli, weights
+    from deeplocalproteindocking_torch.correlate import fused, invz_topk
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.parallel.mesh import backend_for
+    from deeplocalproteindocking_torch.pipeline import DockingPipeline
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = max(2, cards)
+    backend = backend_for("cuda", world)
+    tmp = tempfile.mkdtemp(prefix="dlpd_mgpu_")
+    record = dict(ranks=world, cards=cards, backend=backend,
+                  layout=[f"rank {r}: cuda:{r % cards}" for r in range(world)])
+    try:
+        # The single-card references on this card, TF32 off.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        params = weights.load_npz(os.path.join(V9P_DIR, "best_params.npz"))
+        cplx = synthetic_complex(seed=0, n_res_rec=60, n_res_lig=30)
+        single = {}
+        for name, cfg in _p12_configs().items():
+            p = DockingPipeline(cfg, params=params, device=dev)
+            poses = p.dock_complex(cplx, cluster=False)
+            single[name] = dict(
+                scores=poses.scores.tolist(),
+                top1=[int(poses.rot_idx[0])] + [int(v)
+                                                for v in poses.shifts[0]])
+        del p, poses
+        data = os.path.join(tmp, "data")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["generate-dataset", "--out", data, "--num-complexes",
+                      "1", "--backbone", "--unbound-rmsd", "1.2"])
+        pair = ["--receptor", os.path.join(data, "synth0_r_u.pdb"),
+                "--ligand", os.path.join(data, "synth0_l_u.pdb")]
+        with open(os.path.join(tmp, "cli_pair.json"), "w") as f:
+            json.dump(pair, f)
+
+        def cli_run(argv):
+            fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+            invz_topk.launches = invz_topk.launches_fft = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv)
+            torch.cuda.synchronize(dev)
+            return dict(seconds=time.perf_counter() - t0, launches=dict(
+                k1=fused.launches, k1_tf32=fused.launches_tf32,
+                k2=invz_topk.launches, k2_fft=invz_topk.launches_fft))
+
+        cli_single = os.path.join(tmp, "cli_mesh1")
+        record["cli_single"] = cli_run(
+            ["dock", "--out", cli_single, "--num-rotations",
+             str(P12_ROTATIONS), "--mesh-rot", "1", "--checkpoint", V9P_DIR]
+            + pair)
+        if full_depth:
+            torch.backends.cudnn.allow_tf32 = True     # the CLI's default
+            record["full_depth_single"] = {}
+            for name, extra in _p12_full_depth():
+                for tag in ("cold", "warm"):
+                    out = os.path.join(tmp, f"single_{name}_{tag}")
+                    record["full_depth_single"][f"{name}_{tag}"] = dict(
+                        cli_run(["dock", "--out", out, "--mesh-rot", "1"]
+                                + pair + extra), out=out)
+                record["full_depth_single"][f"{name}_split"] = (
+                    _cli_dock_split(["dock", "--out",
+                                     os.path.join(tmp, "single_split"),
+                                     "--mesh-rot", "1"] + pair + extra))
+            torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.empty_cache()
+
+        # The ranks.
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_p12_rank,
+                             args=(r, world, tmp, full_depth))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + P12_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        record["ranks_seconds"] = time.perf_counter() - t0
+        for r in range(world):
+            err = os.path.join(tmp, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    fail(f"phase 12: rank {r} failed:\n{f.read()}")
+        check(not hung and all(p.exitcode == 0 for p in procs),
+              f"phase 12: ranks {hung} hung, exit codes "
+              f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+
+        def poses(out):
+            with open(os.path.join(out, "poses.json")) as f:
+                return json.load(f)
+
+        def compare(got, want):
+            """Top-K values (sorted) relative to the single card's, and
+            whether the top-1 pose is the same."""
+            g, w = np.sort(got["scores"]), np.sort(want["scores"])
+            return dict(
+                max_rel_diff=(float(np.max(np.abs(g - w) / np.abs(w)))
+                              if len(g) == len(w) else None),
+                top1_same=got["top1"] == want["top1"])
+
+        def table(out):
+            t = poses(out)
+            return dict(scores=[p["score"] for p in t],
+                        top1=[t[0]["rot_idx"]] + t[0]["shift"])
+
+        record["docks"] = {
+            name: dict(
+                rotations=P12_ROTATIONS, rtol=P12_RTOL,
+                seconds=[r["docks"][name]["seconds"] for r in ranks],
+                launches_per_rank=[r["docks"][name]["launches"]
+                                   for r in ranks],
+                same_on_every_rank=all(
+                    r["docks"][name]["scores"]
+                    == ranks[0]["docks"][name]["scores"] for r in ranks),
+                **compare(ranks[0]["docks"][name], single[name]))
+            for name in single}
+        record["kernels_vs_plain"] = [r["kernels_vs_plain"] for r in ranks]
+        record["dock_batch"] = ranks[0]["dock_batch"]
+        record["block"] = [r["block"] for r in ranks]
+        record["train"] = [r["train"] for r in ranks]
+        record["cli"] = dict(
+            rotations=P12_ROTATIONS, single=record.pop("cli_single"),
+            mesh_seconds=[r["cli"]["seconds"] for r in ranks],
+            launches_per_rank=[r["cli"]["launches"] for r in ranks],
+            **compare(table(ranks[0]["cli"]["out"]), table(cli_single)))
+        record["rank_seconds"] = [r["rank_seconds"] for r in ranks]
+        record["rank_devices"] = [f"{r['device']} ({r['card']}, "
+                                  f"{r['backend']})" for r in ranks]
+        if full_depth:
+            fd = {}
+            for name, _ in _p12_full_depth():
+                s = record["full_depth_single"]
+                fd[name] = dict(
+                    rotations=BENCH_ROTATIONS,
+                    single_seconds=[s[f"{name}_{t}"]["seconds"]
+                                    for t in ("cold", "warm")],
+                    single_launches=s[f"{name}_warm"]["launches"],
+                    mesh_seconds=[[r["full_depth"][f"{name}_{t}"]["seconds"]
+                                   for t in ("cold", "warm")]
+                                  for r in ranks],
+                    launches_per_rank=[
+                        r["full_depth"][f"{name}_warm"]["launches"]
+                        for r in ranks],
+                    **compare(table(ranks[0]["full_depth"][
+                        f"{name}_warm"]["out"]),
+                        table(s[f"{name}_warm"]["out"])))
+                fd[name]["speedup_warm"] = (fd[name]["single_seconds"][1]
+                                            / max(t[1] for t in
+                                                  fd[name]["mesh_seconds"]))
+                fd[name]["split_single"] = s[f"{name}_split"]
+                fd[name]["split_mesh"] = [r["full_depth"][f"{name}_split"]
+                                          for r in ranks]
+            record["full_depth"] = fd
+            del record["full_depth_single"]
+        record["seconds"] = time.perf_counter() - t_phase
+        return record
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_multi_gpu(record):
+    """Phase 12's gates, applied after its line is printed."""
+    for name, d in record["docks"].items():
+        check(d["same_on_every_rank"] and d["max_rel_diff"] is not None
+              and d["max_rel_diff"] <= P12_RTOL and d["top1_same"],
+              f"phase 12: sharded {name} dock against one card {d}")
+        route = "k1_tc" if name == "bench_bf16" else "k1_tf32"
+        for n in d["launches_per_rank"]:
+            check(n["k1"] > 0 and n[route] == n["k1"] and n["k2"] > 0
+                  and n["k2_fft"] == n["k2"] and n["k3"] == 0,
+                  f"phase 12: {name} launches on a rank {n}")
+    for per_rank in record["kernels_vs_plain"]:
+        check(sorted(per_rank) == ["bench_bf16_k1", "bench_bf16_k2",
+                                   "v9p_config_k1", "v9p_config_k2"]
+              and per_rank["bench_bf16_k1"]["route"] == "tc"
+              and per_rank["v9p_config_k1"]["route"] == "tf32"
+              and all(e["route"] == "fft" for k, e in per_rank.items()
+                      if k.endswith("k2"))
+              and all(e["rel_err"] <= (TOL_BF16 if k == "bench_bf16_k1"
+                                       else TOL_F32)
+                      for k, e in per_rank.items()),
+              f"phase 12: a rank's first launches against plain {per_rank}")
+    for name, b in record["dock_batch"].items():
+        check(b["max_rel_diff"] <= P12_RTOL and b["top1_same"],
+              f"phase 12: dock_batch {name} against single sweeps {b}")
+    for b in record["block"]:
+        check(b["max_abs_err"] <= TOL_F32 * b["max_abs"],
+              f"phase 12: sharded_block_correlate {b}")
+    for t in record["train"]:
+        check(t["loss_rel_diff"] <= TRAIN_RTOL
+              and abs(t["accuracy"][0] - t["accuracy"][1]) <= TRAIN_RTOL
+              and max(t["grad_rel_err"].values()) <= GRAD_TOL
+              and all(math.isfinite(v) for v in t["losses_3_steps"]),
+              f"phase 12: parallel train step against one rank {t}")
+    check(len({t["params_sha256"] for t in record["train"]}) == 1,
+          "phase 12: params differ across ranks after three steps")
+    c = record["cli"]
+    check(c["max_rel_diff"] is not None and c["max_rel_diff"] <= P12_RTOL
+          and c["top1_same"]
+          and all(n["k1"] > 0 and n["k2"] > 0
+                  for n in c["launches_per_rank"]),
+          f"phase 12: cli dock --mesh-rot against --mesh-rot 1 {c}")
+    for name, d in record.get("full_depth", {}).items():
+        check(d["max_rel_diff"] is not None
+              and d["max_rel_diff"] <= P12_RTOL and d["top1_same"],
+              f"phase 12: full-depth {name} on the mesh against one card {d}")
+
+
+def mesh_run(dev, card):
+    """``--multi-gpu``: phase 12 with the 13,000-rotation CLI docks on the
+    mesh, then the commands a user runs, each a fresh ``torchrun`` (or
+    one process for one card): the two CLI docks on every card and on
+    one, and ``measure_scaling`` at 1, 2, ... ranks up to every card.
+    One JSON line each."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch import cli
+
+    rec = multi_gpu(dev, full_depth=True)
+    emit("multi_gpu", card=card, **rec)
+    check_multi_gpu(rec)
+    cards = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    tmp = tempfile.mkdtemp(prefix="dlpd_mesh_run_")
+    try:
+        data = os.path.join(tmp, "data")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["generate-dataset", "--out", data, "--num-complexes",
+                      "1", "--backbone", "--unbound-rmsd", "1.2"])
+        pair = ["--receptor", os.path.join(data, "synth0_r_u.pdb"),
+                "--ligand", os.path.join(data, "synth0_l_u.pdb")]
+
+        def launch(cmd, timeout=900):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=timeout)
+            check(r.returncode == 0, f"{' '.join(cmd)} failed:\n"
+                                     f"{r.stderr[-3000:]}")
+            return time.perf_counter() - t0, r.stdout
+
+        for name, extra in _p12_full_depth():
+            out = {}
+            for world in (1, cards):
+                out[world] = os.path.join(tmp, f"{name}_{world}")
+                head = ([sys.executable, "-m"] if world == 1 else
+                        ["torchrun", "--standalone", "--nproc-per-node",
+                         str(world), "-m"])
+                secs, _ = launch(head + [
+                    "deeplocalproteindocking_torch.cli", "dock", "--out",
+                    out[world], "--mesh-rot", str(world)] + pair + extra)
+                out[world] = (out[world], secs)
+            tables = {}
+            for world, (d, _) in out.items():
+                with open(os.path.join(d, "poses.json")) as f:
+                    tables[world] = json.load(f)
+            g = np.sort([p["score"] for p in tables[cards]])
+            w = np.sort([p["score"] for p in tables[1]])
+            line = dict(command=name, ranks=cards,
+                        rotations=BENCH_ROTATIONS,
+                        wall_seconds={str(k): v[1] for k, v in out.items()},
+                        poses=[len(g), len(w)],
+                        max_rel_diff=(float(np.max(np.abs(g - w) / np.abs(w)))
+                                      if len(g) == len(w) else None),
+                        top1_same=(tables[cards][0]["rot_idx"],
+                                   tables[cards][0]["shift"])
+                        == (tables[1][0]["rot_idx"], tables[1][0]["shift"]))
+            emit("torchrun_cli_dock", card=card, **line)
+            check(line["max_rel_diff"] is not None
+                  and line["max_rel_diff"] <= P12_RTOL and line["top1_same"],
+                  f"torchrun cli dock {name}: {line}")
+        world = 1
+        while world <= cards:
+            head = ["torchrun", "--standalone", "--nproc-per-node",
+                    str(world), "-m"]
+            secs, stdout = launch(head + [
+                "deeplocalproteindocking_torch.measure_scaling",
+                str(BENCH_ROTATIONS)], timeout=1200)
+            for ln in stdout.strip().splitlines():
+                if ln.startswith("{"):
+                    emit("measure_scaling", card=card, command_seconds=secs,
+                         **json.loads(ln))
+            world *= 2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import numpy as np
     import torch
+    mesh_only = sys.argv[1:] == ["--multi-gpu"]
+    if sys.argv[1:] and not mesh_only:
+        fail(f"usage: python3 chip_smoke.py [--multi-gpu], got {sys.argv[1:]}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
     sys.path.insert(0, ROOT)
@@ -1780,6 +2455,12 @@ def main():
          device_count=torch.cuda.device_count(),
          kernel_build_seconds=build_s, built_fresh=fresh,
          library=os.path.relpath(_build.library_path(), ROOT))
+    if mesh_only:
+        mesh_run(dev, card)
+        print(json.dumps({"ok": True, "mode": "multi-gpu", "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ---- shared set-up: the v9p model on the bench complex ----
     params = weights.load_npz(os.path.join(
@@ -2594,6 +3275,19 @@ def main():
     p11_block = p11["block_vs_kernels"]["launches_dft_fused"]
     p11_approx = p11["topk_approx"]["launches_approx"]
 
+    # ---- phase 12: the multi-GPU layer ----
+    p12 = multi_gpu(dev)
+    emit("multi_gpu", card=card, **p12)
+    check_multi_gpu(p12)
+
+    def p12_count(config, name):
+        """Phase 12's launches of counter ``name`` in the sharded dock of
+        ``config``, one count per rank."""
+        return [n[name] for n in p12["docks"][config]["launches_per_rank"]]
+
+    def p12_err(key):
+        return [r[key]["max_abs_err"] for r in p12["kernels_vs_plain"]]
+
     def p11_count(name, **extra):
         """Phase 11's launches of counter ``name``: 0 on every block and
         resample request; ``extra`` the kernel-path requests beside."""
@@ -2655,6 +3349,10 @@ def main():
          "launches_phase11": p11_count(
              "k1", dft_fused_grid128_tf32=p11_block["k1_tf32"],
              topk_approx_tc=p11_approx["k1_tc"]),
+         "launches_phase12_per_rank": {
+             "tc": p12_count("bench_bf16", "k1_tc"),
+             "tf32": p12_count("v9p_config", "k1_tf32")},
+         "max_abs_err_phase12_per_rank": p12_err("bench_bf16_k1"),
          "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
          "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
@@ -2683,6 +3381,8 @@ def main():
          "launches_cli": cli_count("k1_tf32"),
          "launches_phase11": p11_count(
              "k1_tf32", dft_fused_grid128=p11_block["k1_tf32"]),
+         "launches_phase12_per_rank": p12_count("v9p_config", "k1_tf32"),
+         "max_abs_err_phase12_per_rank": p12_err("v9p_config_k1"),
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k1"]["max_abs_err"],
          "max_abs_err": k1_f32_errs["tf32"][0],
@@ -2709,6 +3409,10 @@ def main():
          "launches_phase11": p11_count(
              "k2_fft", dft_fused_grid128=p11_block["k2_fft"],
              topk_approx=p11_approx["k2_fft"]),
+         "launches_phase12_per_rank": {
+             c: p12_count(c, "k2_fft") for c in p12["docks"]},
+         "max_abs_err_phase12_per_rank": {
+             c: p12_err(f"{c}_k2") for c in p12["docks"]},
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k2"]["max_abs_err"],
          "max_abs_err": errs["k2_fft"][0],

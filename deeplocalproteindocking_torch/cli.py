@@ -13,8 +13,14 @@ and output files (``poses.json``, ``pose_NNN.pdb``, ``screen.json``,
   latest step, as the JAX restore takes) or else ``DIR/best_params.npz``
   (``tools/export_torch_weights.py``'s export of an Orbax checkpoint).
   Its ``config.json`` is the base config, as in the JAX CLI.
-* ``--mesh-rot``/``mesh_batch`` > 1 raise: multi-GPU is not ported
-  (ROADMAP Queue A 4).
+* ``--mesh-rot`` and the config's ``mesh_batch`` above 1 run the
+  command on a ``(rot, batch)`` mesh of ``torch.distributed`` ranks
+  (``parallel/mesh.py``), one process per rank, every rank running the
+  same command: ``torchrun --nproc-per-node N -m
+  deeplocalproteindocking_torch.cli dock --mesh-rot N ...``.  Each rank
+  takes its own card (``cuda:LOCAL_RANK``; with ``--device cpu``, gloo
+  ranks on the CPU); rank 0 alone writes files.  Without a matching
+  process group the command raises, naming the torchrun line to use.
 * ``--debug-nans`` raises ``FloatingPointError`` on a NaN or +inf score
   and on a non-finite loss or gradient (``jax_debug_nans``' role).
 * ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
@@ -33,6 +39,8 @@ import sys
 import numpy as np
 import torch
 
+from deeplocalproteindocking_torch.parallel.mesh import barrier, is_main_rank
+
 
 def _add_config_args(p: argparse.ArgumentParser):
     p.add_argument("--preset", default=None,
@@ -43,8 +51,9 @@ def _add_config_args(p: argparse.ArgumentParser):
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--local-cone-deg", type=float, default=None)
     p.add_argument("--mesh-rot", type=int, default=None,
-                   help="rotation shards across cards (not ported: > 1 "
-                        "raises)")
+                   help="rotation shards across ranks (run the command "
+                        "under torchrun with mesh_rot x mesh_batch "
+                        "processes)")
     p.add_argument("--sweep-mode", default=None,
                    choices=["resplat", "resample"])
     p.add_argument("--fft-impl", default=None,
@@ -105,13 +114,29 @@ def _build_config(args):
                       f"{overrides[geom]} differs from the checkpoint's "
                       f"training value {getattr(cfg, geom)}; scores may "
                       f"not match training semantics", file=sys.stderr)
-    cfg = cfg.replace(**overrides)
-    if cfg.mesh_rot > 1 or cfg.mesh_batch > 1:
+    return cfg.replace(**overrides)
+
+
+def _mesh(cfg, device, command: str):
+    """``(mesh, device)``: the config's ``(mesh_rot, mesh_batch)`` mesh
+    and this rank's device, or ``(None, device)`` for a mesh of one.
+    Joins torchrun's process group; without one (or with a world size
+    other than ``mesh_rot * mesh_batch``) it raises with the torchrun
+    line that fits."""
+    from deeplocalproteindocking_torch.parallel import mesh as pmesh
+    need = cfg.mesh_rot * cfg.mesh_batch
+    if need == 1:
+        return None, device
+    try:
+        device = pmesh.init_distributed(device.type)
+        return pmesh.make_mesh(cfg.mesh_rot, cfg.mesh_batch,
+                               device.type), device
+    except (RuntimeError, ValueError) as e:
+        hint = pmesh.torchrun_line(need, command)
         raise SystemExit(
-            f"mesh (rot={cfg.mesh_rot}, batch={cfg.mesh_batch}): the "
-            f"multi-GPU sweep is not ported (ROADMAP Queue A 4); run "
-            f"with --mesh-rot 1")
-    return cfg
+            f"mesh (rot={cfg.mesh_rot}, batch={cfg.mesh_batch}): {e}"
+            + ("" if hint in str(e) else f"; run `{hint}`")) from e
+
 
 
 def load_checkpoint_params(ckpt: str, cfg, device) -> dict:
@@ -136,11 +161,11 @@ def load_checkpoint_params(ckpt: str, cfg, device) -> dict:
                      f"best_params.npz")
 
 
-def _build_pipeline(cfg, checkpoint, device):
+def _build_pipeline(cfg, checkpoint, device, mesh=None):
     from deeplocalproteindocking_torch.pipeline import DockingPipeline
     params = (load_checkpoint_params(checkpoint, cfg, device)
               if checkpoint else None)
-    return DockingPipeline(cfg, params=params, device=device)
+    return DockingPipeline(cfg, params=params, device=device, mesh=mesh)
 
 
 def _check_scores(cfg, scores):
@@ -182,7 +207,8 @@ def cmd_dock(args):
     from deeplocalproteindocking_torch.utils.profiling import maybe_trace
     device = _device(args)
     cfg = _build_config(args)
-    pipe = _build_pipeline(cfg, args.checkpoint, device)
+    mesh, device = _mesh(cfg, device, args.command)
+    pipe = _build_pipeline(cfg, args.checkpoint, device, mesh)
 
     def load(path, model, chain_sel):
         s = parse_structure(path, model=model).typed()
@@ -209,9 +235,10 @@ def cmd_dock(args):
             poses, pairs = pipe.dock_ensemble(recs, ligs,
                                               pairing=args.ensemble)
         _check_scores(cfg, poses.scores)
-        n = _write_poses(args.out, poses, [l.centered() for l in ligs],
-                         args.num_out, pairs)
-        print(f"wrote {n} pose PDBs + poses.json to {args.out}")
+        if is_main_rank():
+            n = _write_poses(args.out, poses, [l.centered() for l in ligs],
+                             args.num_out, pairs)
+            print(f"wrote {n} pose PDBs + poses.json to {args.out}")
         return
     rec = load(args.receptor, args.receptor_model, args.receptor_chains)
     lig = load(args.ligand, args.ligand_model, args.ligand_chains)
@@ -222,8 +249,9 @@ def cmd_dock(args):
         if args.refine_steps:
             poses = pipe.refine(rec, lig, poses, steps=args.refine_steps)
     _check_scores(cfg, poses.scores)
-    n = _write_poses(args.out, poses, [lig.centered()], args.num_out)
-    print(f"wrote {n} pose PDBs + poses.json to {args.out}")
+    if is_main_rank():
+        n = _write_poses(args.out, poses, [lig.centered()], args.num_out)
+        print(f"wrote {n} pose PDBs + poses.json to {args.out}")
 
 
 def cmd_generate_dataset(args):
@@ -271,9 +299,10 @@ def cmd_screen(args):
     from deeplocalproteindocking_torch.utils.profiling import maybe_trace
     device = _device(args)
     cfg = _build_config(args)
+    mesh, device = _mesh(cfg, device, args.command)
     params = (load_checkpoint_params(args.checkpoint, cfg, device)
               if args.checkpoint else None)
-    svc = DockingService(cfg, params=params, device=device)
+    svc = DockingService(cfg, params=params, device=device, mesh=mesh)
     rec = parse_structure(args.receptor).typed()
     paths = _ligand_paths(args.ligands)
     os.makedirs(args.out, exist_ok=True)
@@ -292,6 +321,8 @@ def cmd_screen(args):
                             shift=[int(v) for v in poses.shifts[i]])
                        for i in range(min(len(poses), args.num_out))]))
     ranking.sort(key=lambda r: -r["best_score"])
+    if not is_main_rank():
+        return
     with open(os.path.join(args.out, "screen.json"), "w") as f:
         json.dump(dict(receptor=args.receptor, cache=svc.stats,
                        ranking=ranking), f, indent=2)
@@ -316,7 +347,8 @@ def cmd_evaluate(args):
     from deeplocalproteindocking_torch.utils.profiling import maybe_trace
     device = _device(args)
     cfg = _build_config(args)
-    pipe = _build_pipeline(cfg, args.checkpoint, device)
+    mesh, device = _mesh(cfg, device, args.command)
+    pipe = _build_pipeline(cfg, args.checkpoint, device, mesh)
     complexes = _load_complexes(args)
     with maybe_trace(args.profile):
         if args.batch_size > 1:
@@ -327,13 +359,15 @@ def cmd_evaluate(args):
             summary = run_benchmark(
                 pipe, complexes, args.out, refine_steps=args.refine_steps,
                 rescore_top=args.rescore_top)
-    print(json.dumps(summary, indent=2))
+    if is_main_rank():
+        print(json.dumps(summary, indent=2))
 
 
-def _checked_step(trainer, state, batch):
-    """``Trainer.train_step`` with ``--debug-nans``' checks between the
-    gradient and the update."""
-    loss, acc, grads = trainer.value_and_grad(state.params, batch)
+def _checked_step(trainer, value_and_grad, state, batch):
+    """A train step with ``--debug-nans``' checks between the gradient
+    (``value_and_grad``: the trainer's, or the mesh step's) and the
+    update."""
+    loss, acc, grads = value_and_grad(state.params, batch)
     for name, v in [("loss", loss)] + sorted(grads.items()):
         if not bool(torch.isfinite(torch.as_tensor(v)).all()):
             raise FloatingPointError(f"non-finite {name} in a train step")
@@ -345,7 +379,13 @@ def cmd_train(args):
     """Train, or resume from ``--ckpt-dir``.  As in the JAX CLI, whose
     checkpoints keep the run's first PRNG key, every checkpoint keeps the
     data generator's state of ``Trainer.init_state``: a resumed run draws
-    its batches again from the run's first one."""
+    its batches again from the run's first one.  On a mesh every rank
+    draws the same batch from its CPU generator and takes its tile
+    (``parallel/train_parallel.py``); rank 0 mines the hard negatives and
+    broadcasts them (the card's splat is not bit-reproducible, and every
+    rank must see the same batch), and rank 0 alone writes checkpoints
+    and ``train.jsonl``."""
+    import torch.distributed as dist
     from deeplocalproteindocking_torch.train.data_gen import (
         fit_lig_grid, make_training_batch)
     from deeplocalproteindocking_torch.train.trainer import Trainer
@@ -353,9 +393,20 @@ def cmd_train(args):
     from deeplocalproteindocking_torch.utils.profiling import maybe_trace
     device = _device(args)
     cfg = _build_config(args)
+    mesh, device = _mesh(cfg, device, args.command)
     complexes = _load_complexes(args)
     cfg = fit_lig_grid(complexes, cfg)   # auto-size for big ligands
     trainer = Trainer(cfg, device)
+    step_fn, value_and_grad = trainer.train_step, trainer.value_and_grad
+    if mesh is not None:
+        from deeplocalproteindocking_torch.parallel.train_parallel import (
+            make_parallel_train_step)
+        step_fn = make_parallel_train_step(trainer, mesh)
+        value_and_grad = step_fn.value_and_grad
+        if is_main_rank():
+            print(f"multi-GPU training on mesh (rot={cfg.mesh_rot}, "
+                  f"batch={cfg.mesh_batch})")
+    barrier()
     if args.resume and os.path.isdir(args.ckpt_dir) and any(
             d.startswith("step_") for d in os.listdir(args.ckpt_dir)):
         state = trainer.restore(args.ckpt_dir)
@@ -367,29 +418,39 @@ def cmd_train(args):
         gen.manual_seed(cfg.seed)
     else:
         gen.set_state(state.rng)
-    logger = MetricsLogger(os.path.join(args.ckpt_dir, "train.jsonl"))
+    logger = (MetricsLogger(os.path.join(args.ckpt_dir, "train.jsonl"))
+              if is_main_rank() else MetricsLogger(None, echo=False))
     mined = None
     with maybe_trace(args.profile):
         for step in range(state.step, args.steps):
             if args.mine_every and step % args.mine_every == 0:
                 from deeplocalproteindocking_torch.train.mining import (
                     mine_hard_negatives)
-                mined = mine_hard_negatives(
+                mined = [mine_hard_negatives(
                     trainer.bind(state.params), cfg, complexes,
                     n_rotations=args.mine_rotations)
+                    if is_main_rank() else None]
+                if mesh is not None:
+                    dist.broadcast_object_list(mined, src=0)
+                mined = mined[0]
                 logger.log("mined_hard_negatives", step=step,
                            complexes=len(mined))
             batch = make_training_batch(gen, complexes, cfg, mined=mined,
                                         device=device)
             if cfg.debug_nans:
-                state, metrics = _checked_step(trainer, state, batch)
+                state, metrics = _checked_step(trainer, value_and_grad,
+                                               state, batch)
             else:
-                state, metrics = trainer.train_step(state, batch)
+                state, metrics = step_fn(state, batch)
             logger.log("train_step", step=step, **metrics)
             if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-                trainer.save(args.ckpt_dir, state)
+                if is_main_rank():
+                    trainer.save(args.ckpt_dir, state)
+                barrier()
     logger.close()
-    print(f"trained to step {state.step}; checkpoints in {args.ckpt_dir}")
+    if is_main_rank():
+        print(f"trained to step {state.step}; checkpoints in "
+              f"{args.ckpt_dir}")
 
 
 def _probe_backend(timeout: float):
@@ -418,6 +479,29 @@ def _probe_backend(timeout: float):
     return out
 
 
+def _distributed(probe: dict, device_type: str) -> dict:
+    """World size, backend, NCCL's availability and each rank's device:
+    gathered from every rank under torchrun (``WORLD_SIZE`` > 1), else
+    this one process and the probe's card."""
+    import torch.distributed as dist
+    from deeplocalproteindocking_torch.parallel import mesh as pmesh
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return pmesh.describe(pmesh.init_distributed(device_type))
+    card = (f"cuda:0 ({probe['device0']})"
+            if probe.get("backend") == "cuda" else "cpu")
+    return dict(world_size=1, backend=None,
+                nccl_available=dist.is_available() and dist.is_nccl_available(),
+                rank_devices=[card])
+
+
+def _say_distributed(d: dict) -> str:
+    return (f"distributed: world size {d['world_size']}, backend "
+            f"{d['backend'] or 'none (one process)'}, NCCL available "
+            f"{d['nccl_available']}; rank devices: "
+            + ", ".join(f"{r}: {dev}" for r, dev in
+                        enumerate(d['rank_devices'])))
+
+
 def cmd_info(args):
     from deeplocalproteindocking_torch.config import PRESETS
     probe = _probe_backend(timeout=60.0)
@@ -427,6 +511,8 @@ def cmd_info(args):
               f"{probe['cuda']})")
     else:
         print(f"devices: UNAVAILABLE - {probe['error']}")
+    print(_say_distributed(_distributed(
+        probe, "cuda" if probe.get("backend") == "cuda" else "cpu")))
     print("presets:")
     for name, cfg in PRESETS.items():
         print(f"  {name}: grid={cfg.grid_size} rot={cfg.num_rotations} "
@@ -495,6 +581,8 @@ def cmd_doctor(args):
              f"points need --device cpu")
     else:
         _say("FAIL", f"card: {probe['error']}")
+    report["distributed"] = _distributed(probe, args.device)
+    _say("ok", _say_distributed(report["distributed"]))
 
     # Native parsers (host; pure-Python fallbacks exist).
     st = native.status()

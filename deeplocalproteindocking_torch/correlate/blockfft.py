@@ -19,8 +19,9 @@ every block.  M need not be a power of two (64 + 40 = 104); cuFFT takes
 any size.  Every transform runs in float32, as the JAX package's
 ``jnp.fft.rfftn`` does (it takes no bf16).
 
-``sharded_block_correlate`` (translation slabs over a mesh) is
-multi-GPU work: ROADMAP Queue A 4.
+``sharded_block_correlate`` splits the blocks over the ranks of a mesh
+dimension by their first-axis start: each rank returns its slab of the
+score volume, with no collective in the correlation.
 """
 from __future__ import annotations
 
@@ -55,6 +56,36 @@ def block_correlate_scores(rep_rec: torch.Tensor,
     (g+1) B/G)`` against receptor g (returns ``[B, L, L, L]``).
     ``block`` must divide L.
     """
+    return _block_scores(rep_rec, rep_lig_small, coupling, block, 0,
+                         rep_rec.shape[-2])
+
+
+def sharded_block_correlate(mesh, rep_rec: torch.Tensor,
+                            rep_lig_small: torch.Tensor,
+                            coupling: Optional[torch.Tensor] = None,
+                            *,
+                            block: int = 32,
+                            axis: str = "rot") -> torch.Tensor:
+    """:func:`block_correlate_scores` with the translation blocks split
+    over ``mesh``'s dimension ``axis`` by their first-axis start.  Rank i
+    of R computes the blocks whose x start lies in ``[i L/R, (i+1) L/R)``
+    and returns that slab, ``[L/R, L, L]`` (``[B, L/R, L, L]`` for a
+    batch of ligands); receptor and ligand are replicated and the
+    correlation runs no collective.  ``(L // block) % R`` must be 0."""
+    L = rep_rec.shape[-2]
+    R = mesh.shape[mesh.mesh_dim_names.index(axis)]
+    if (L // block) % R:
+        raise ValueError(
+            f"L/block={L // block} slabs must divide {R} devices")
+    slab = L // R
+    x_lo = mesh.get_local_rank(axis) * slab
+    return _block_scores(rep_rec, rep_lig_small, coupling, block, x_lo,
+                         x_lo + slab)
+
+
+def _block_scores(rep_rec, rep_lig_small, coupling, block, x_lo, x_hi):
+    """The blocks of :func:`block_correlate_scores` whose x start lies in
+    ``[x_lo, x_hi)``: scores ``[..., x_hi - x_lo, L, L]``."""
     single = rep_lig_small.ndim == 4
     rec = rep_rec if rep_rec.ndim == 5 else rep_rec[None]
     lig = rep_lig_small[None] if single else rep_lig_small
@@ -82,9 +113,10 @@ def block_correlate_scores(rep_rec: torch.Tensor,
     del F_lig
 
     rec = rec.permute(0, 4, 1, 2, 3)                      # [G, C, L, L, L]
-    S = torch.empty((G, b, L, L, L), dtype=torch.float32, device=rec.device)
+    S = torch.empty((G, b, x_hi - x_lo, L, L), dtype=torch.float32,
+                    device=rec.device)
     ar = torch.arange(M, device=rec.device)
-    for x0 in range(0, L, block):
+    for x0 in range(x_lo, x_hi, block):
         slab_x = rec[:, :, (x0 + off + ar) % L]
         for y0 in range(0, L, block):
             slab_y = slab_x[:, :, :, (y0 + off + ar) % L]
@@ -97,7 +129,7 @@ def block_correlate_scores(rep_rec: torch.Tensor,
                 corr = torch.fft.irfftn(
                     prod.squeeze(-2).permute(0, 4, 1, 2, 3).contiguous(),
                     s=(M, M, M), dim=dims)               # [G, b, M, M, M]
-                S[..., x0:x0 + block, y0:y0 + block, z0:z0 + block] = \
-                    corr[..., :block, :block, :block]
-    S = S.reshape(nb_rows, L, L, L)
+                S[..., x0 - x_lo:x0 - x_lo + block, y0:y0 + block,
+                  z0:z0 + block] = corr[..., :block, :block, :block]
+    S = S.reshape(nb_rows, x_hi - x_lo, L, L)
     return S[0] if single else S

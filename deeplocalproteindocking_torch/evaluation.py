@@ -15,6 +15,12 @@ throughput mode: groups of complexes padded to a shape bucket, their
 receptor halves built at once and their sweeps run as one
 complex-batched sweep (``parallel/batch_eval.py``), each complex graded
 and written as in ``run_benchmark``.
+
+Under a mesh (``pipeline.mesh``) every rank runs the same call: the
+sweeps are sharded, each rank of ``run_benchmark_batched`` builds the
+receptor halves of its own complexes, and rank 0 alone grades the
+gathered poses and writes the files; every rank waits at a barrier
+before it checks which complexes are done, and returns the summary.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from deeplocalproteindocking_torch.data.benchmark import (
     Complex, structure_to_device)
 from deeplocalproteindocking_torch.parallel import batch_eval
+from deeplocalproteindocking_torch.parallel.mesh import barrier, is_main_rank
 from deeplocalproteindocking_torch.pipeline import (
     DockingPipeline, PoseSet, dock_score_mask, stack_score_masks)
 from deeplocalproteindocking_torch.sweep.cluster import cluster_pose_set
@@ -172,6 +179,17 @@ def _write_result(out_dir: str, res: Dict) -> None:
     os.replace(path + ".tmp", path)
 
 
+def _rank_logger(out_dir: str, logger: Optional[MetricsLogger]
+                 ) -> MetricsLogger:
+    """``logger``, or ``metrics.jsonl`` in ``out_dir`` on rank 0 and a
+    silent logger on the other ranks of a mesh."""
+    if logger is not None:
+        return logger
+    if is_main_rank():
+        return MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    return MetricsLogger(None, echo=False)
+
+
 def _summarize(out_dir: str, results: List[Dict],
                logger: MetricsLogger) -> Dict:
     n = max(len(results), 1)
@@ -180,8 +198,9 @@ def _summarize(out_dir: str, results: List[Dict],
         "top1_hit_rate": sum(r["hit_top1"] for r in results) / n,
         "top10_hit_rate": sum(r["hit_top10"] for r in results) / n,
     }
-    with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if is_main_rank():
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     logger.log("benchmark_summary", **summary)
     return summary
 
@@ -192,13 +211,18 @@ def run_benchmark(pipeline: DockingPipeline,
                   logger: Optional[MetricsLogger] = None,
                   refine_steps: int = 0,
                   rescore_top: int = 0) -> Dict:
-    """Evaluate many complexes with per-complex resume; aggregate hits."""
+    """Evaluate many complexes with per-complex resume; aggregate hits.
+    Under a mesh every rank docks (the sweep is sharded) and grades;
+    rank 0 writes."""
     os.makedirs(out_dir, exist_ok=True)
-    logger = logger or MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    logger = _rank_logger(out_dir, logger)
+    barrier()
+    done = [os.path.exists(os.path.join(out_dir, f"{c.name}.json"))
+            for c in complexes]
     results = []
-    for cplx in complexes:
+    for cplx, cached in zip(complexes, done):
         path = os.path.join(out_dir, f"{cplx.name}.json")
-        if os.path.exists(path):           # idempotent resume
+        if cached:                         # idempotent resume
             with open(path) as f:
                 res = json.load(f)
             logger.log("complex_cached", name=cplx.name)
@@ -206,7 +230,8 @@ def run_benchmark(pipeline: DockingPipeline,
             res = evaluate_complex(pipeline, cplx,
                                    refine_steps=refine_steps,
                                    rescore_top=rescore_top)
-            _write_result(out_dir, res)
+            if is_main_rank():
+                _write_result(out_dir, res)
             logger.log("complex_done", name=cplx.name,
                        hit_top10=res["hit_top10"],
                        best_lrmsd=res["best_lrmsd"])
@@ -215,9 +240,12 @@ def run_benchmark(pipeline: DockingPipeline,
 
 
 def batch_inputs(pipeline: DockingPipeline, group: Sequence[Complex],
-                 rotations: torch.Tensor):
+                 rotations: torch.Tensor, members: slice = slice(None)):
     """``(args, kwargs)`` of ``batch_eval.dock_batch`` for a group of
-    complexes, as ``run_benchmark_batched`` docks it.
+    complexes, as ``run_benchmark_batched`` docks it; with ``members``
+    only those complexes' tensors are built (a rank's share under a
+    mesh: ``dock_batch_shard``'s arguments), the shapes still the
+    whole group's.
 
     The group is padded to a shape bucket: atoms to a multiple of
     ``atom_bucket`` (or 64), the ligand box to the group's largest
@@ -226,8 +254,8 @@ def batch_inputs(pipeline: DockingPipeline, group: Sequence[Complex],
     not change.  The receptor halves run through
     ``_batched_receptor_engine``; each complex keeps its wrap-around
     guard and, under ``local_cone_deg``, the local protocol's mask.  The
-    rotation chunk shrinks to ``rotation_chunk // len(group)`` so a step
-    holds as many rows as one dock's.
+    rotation chunk shrinks to ``rotation_chunk // len(members)`` so a
+    step holds as many rows as one dock's.
     """
     cfg = pipeline.config
     dev = pipeline.device
@@ -246,6 +274,7 @@ def batch_inputs(pipeline: DockingPipeline, group: Sequence[Complex],
                  for s in structures]
         return tuple(torch.stack([d[i] for d in dev_t]) for i in range(3))
 
+    group = group[members]
     impl, H_batch, rep_fn = pipeline._batched_receptor_engine(
         *padded([c.receptor for c in group]))
     masks = []
@@ -278,11 +307,16 @@ def run_benchmark_batched(pipeline: DockingPipeline,
     :func:`batch_inputs`).  Then per complex, as ``run_benchmark``: NMS,
     optional ``rescore_top`` and ``refine_steps``, grading, an atomic
     ``<name>.json``; complexes that have a file are not recomputed.
+    Under a mesh a group splits over ``batch`` (its size must divide by
+    it; the chunk shrinks by the complexes per rank) and its rotations
+    over ``rot``; rank 0 grades and writes.
     """
     cfg = pipeline.config
     dev = pipeline.device
+    mesh = pipeline.mesh
     os.makedirs(out_dir, exist_ok=True)
-    logger = logger or MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    logger = _rank_logger(out_dir, logger)
+    barrier()
     pending = [c for c in complexes
                if not os.path.exists(os.path.join(out_dir, f"{c.name}.json"))]
     rotations = torch.as_tensor(pipeline.rotation_set(), dtype=torch.float32,
@@ -290,9 +324,16 @@ def run_benchmark_batched(pipeline: DockingPipeline,
     rot_np = rotations.cpu().numpy()
     for g0 in range(0, len(pending), group_size):
         group = pending[g0:g0 + group_size]
-        args, kw = batch_inputs(pipeline, group, rotations)
-        res = batch_eval.dock_batch(*args, **kw)
+        if mesh is None:
+            args, kw = batch_inputs(pipeline, group, rotations)
+            res = batch_eval.dock_batch(*args, **kw)
+        else:
+            args, kw = batch_inputs(pipeline, group, rotations,
+                                    batch_eval.batch_slice(mesh, len(group)))
+            res = batch_eval.dock_batch_shard(mesh, *args, **kw)
         del args
+        if not is_main_rank():
+            continue
         scores, rot_idx = res.scores.cpu().numpy(), res.rot_idx.cpu().numpy()
         shifts = res.shifts.cpu().numpy()
         for i, c in enumerate(group):
@@ -313,6 +354,7 @@ def run_benchmark_batched(pipeline: DockingPipeline,
             logger.log("complex_done", name=c.name,
                        hit_top10=out["hit_top10"])
 
+    barrier()
     results = []
     for c in complexes:
         with open(os.path.join(out_dir, f"{c.name}.json")) as f:

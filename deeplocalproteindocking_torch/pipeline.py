@@ -14,7 +14,12 @@ around each top head, all heads in one head-batched sweep) and
 ensemble as complex-batched sweeps (``parallel/batch_eval.py``) and
 merges one ranked set; ``_batched_receptor_engine`` builds the receptor
 halves of a group of complexes at once for ``evaluation.
-run_benchmark_batched``.
+run_benchmark_batched``.  Given a ``mesh`` (``parallel/mesh.py``), every
+rank calls the same method: ``dock`` shards its rotations over ``rot``
+(``parallel/sharded_sweep.py``) and ``dock_ensemble`` its pairs over
+``batch`` and rotations over ``rot`` (``parallel/batch_eval.py``); every
+rank returns the same poses.  ``rescore`` and ``refine`` ignore the mesh,
+as in the JAX package, and run replicated.
 
 Receptor-side tensors (representations, the engine tuple) are built
 under ``torch.no_grad``, never ``inference_mode``: ``refine`` reuses
@@ -50,6 +55,8 @@ from deeplocalproteindocking_torch.models.representation import (
     conv3d_channels_last, shape_channels)
 from deeplocalproteindocking_torch.models.scoring import ScoringModel
 from deeplocalproteindocking_torch.parallel import batch_eval
+from deeplocalproteindocking_torch.parallel.sharded_sweep import (
+    dim_size, sharded_dock_sweep, sharded_dock_sweep_resplat)
 from deeplocalproteindocking_torch.structure.pdb import Structure
 from deeplocalproteindocking_torch.structure.so3 import (
     local_rotations, super_fibonacci_rotations)
@@ -185,17 +192,19 @@ def _host(x) -> np.ndarray:
 
 
 class DockingPipeline:
-    """Docking with one model on one device.
+    """Docking with one model on one device, or on one rank of a mesh.
 
     ``params`` is a ``ScoringModel`` state_dict (``weights.load_npz``) or
     None for shape mode; ``device`` is where every tensor of the sweep
-    lives.
+    lives (this rank's card under a mesh); ``mesh`` a ``(rot, batch)``
+    ``DeviceMesh`` (``parallel.mesh.make_mesh``) or None for one card.
     """
 
     def __init__(self, config: DockConfig, params: Optional[dict] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
         self.model = ScoringModel(
             features=config.rep_features, kernel=config.rep_kernel,
             dtype=_DTYPES[config.compute_dtype],
@@ -455,6 +464,7 @@ class DockingPipeline:
         queries against one receptor.  Under ``sweep_mode="resample"``
         the full-grid reps of ``prep`` and the full coupling go to
         ``sweep/docker.dock_sweep`` instead, and ``engine`` is unused.
+        With a mesh the sweep is its rotation-sharded form.
         """
         cfg = self.config
         if rotations is None:
@@ -470,14 +480,23 @@ class DockingPipeline:
             _, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
                 rec, lig, prep, engine)
             impl, H, rep_fn = engine
-            res = dock_sweep_resplat(
-                H, lc, lt, lm, rotations, rep_fn, grid_size=cfg.grid_size,
-                lig_grid=lig_grid, resolution=cfg.resolution,
-                sigma=cfg.sigma, num_types=cfg.num_atom_types,
+            kw = dict(grid_size=cfg.grid_size, lig_grid=lig_grid,
+                      resolution=cfg.resolution, sigma=cfg.sigma,
+                      num_types=cfg.num_atom_types, top_k=cfg.top_k,
+                      chunk=cfg.rotation_chunk, score_mask=score_mask,
+                      fft_impl=impl, dft_dtype=cfg.dft_dtype,
+                      topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
+            if self.mesh is not None:
+                res = sharded_dock_sweep_resplat(
+                    self.mesh, H, lc, lt, lm, rotations, rep_fn, **kw)
+            else:
+                res = dock_sweep_resplat(H, lc, lt, lm, rotations, rep_fn,
+                                         **kw)
+        elif self.mesh is not None:
+            res = sharded_dock_sweep(
+                self.mesh, rep_rec, rep_lig, rotations, coupling,
                 top_k=cfg.top_k, chunk=cfg.rotation_chunk,
-                score_mask=score_mask, fft_impl=impl,
-                dft_dtype=cfg.dft_dtype, topk_impl=cfg.topk_impl,
-                fft_block=cfg.fft_block)
+                score_mask=score_mask)
         else:
             res = dock_sweep(rep_rec, rep_lig, rotations, coupling,
                              top_k=cfg.top_k, chunk=cfg.rotation_chunk,
@@ -518,7 +537,10 @@ class DockingPipeline:
         R x L); pairs then sweep ``pair_batch`` at a time as one
         complex-batched sweep (``batch_eval.dock_batch``), whose rotation
         chunk shrinks to ``rotation_chunk // pairs`` so a step holds as
-        many rows as one dock's.
+        many rows as one dock's.  With a mesh a batch of B pairs splits
+        over ``batch`` when B divides by its size (the chunk then shrinks
+        by the pairs per rank, ``ceil(B / batch)``); otherwise it runs
+        unsharded on every rank, as the JAX package does.
         """
         if pairing == "product":
             pair_list = list(itertools.product(range(len(rec_models)),
@@ -591,6 +613,13 @@ class DockingPipeline:
         for start in range(0, len(pair_list), pair_batch):
             batch = pair_list[start:start + pair_batch]
             lig = [lig_dev[li] for _, li in batch]
+            B, mesh = len(batch), self.mesh
+            if mesh is not None and (
+                    "batch" not in mesh.mesh_dim_names
+                    or B % dim_size(mesh, "batch")):
+                mesh = None         # unsharded on every rank
+            per_dev = B if mesh is None else -(-B // dim_size(mesh,
+                                                               "batch"))
             res = batch_eval.dock_batch(
                 torch.stack([engines[ri][1] for ri, _ in batch]),
                 *(torch.stack([d[i] for d in lig]) for i in range(3)),
@@ -598,11 +627,11 @@ class DockingPipeline:
                 lig_grid=lig_grid, resolution=cfg.resolution,
                 sigma=cfg.sigma, num_types=cfg.num_atom_types,
                 top_k=cfg.top_k,
-                chunk=max(1, cfg.rotation_chunk // len(batch)),
+                chunk=max(1, cfg.rotation_chunk // per_dev),
                 score_mask=(None if masks is None
                             else masks[[li for _, li in batch]]),
                 fft_impl=impl, dft_dtype=cfg.dft_dtype,
-                fft_block=cfg.fft_block)
+                fft_block=cfg.fft_block, mesh=mesh)
             scores.append(_host(res.scores).reshape(-1))
             rot_idx.append(_host(res.rot_idx).reshape(-1))
             shifts.append(_host(res.shifts).reshape(-1, 3))

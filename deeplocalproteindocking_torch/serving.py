@@ -48,12 +48,16 @@ class DockingService:
 
     >>> svc = DockingService(cfg, params, device="cuda")
     >>> svc.dock(rec, lig1); svc.dock(rec, lig2)   # receptor half once
+
+    With a ``mesh`` the dock stage shards as ``DockingPipeline.dock``
+    does; ``rescore`` runs replicated on every rank.
     """
 
     def __init__(self, config: DockConfig, params: Optional[dict] = None,
-                 device: torch.device | str = "cuda", capacity: int = 8):
+                 device: torch.device | str = "cuda", capacity: int = 8,
+                 mesh=None):
         self.pipeline = DockingPipeline(config=config, params=params,
-                                        device=device)
+                                        device=device, mesh=mesh)
         self.capacity = capacity
         self._cache: "OrderedDict[str, _Entry]" = OrderedDict()
         self.hits = 0

@@ -135,17 +135,27 @@ class Trainer:
         return self.model
 
     # ---- forward/loss ----
-    def loss_fn(self, params: Dict[str, torch.Tensor], batch: TrainBatch
+    def loss_fn(self, params: Dict[str, torch.Tensor], batch: TrainBatch,
+                complexes: Optional[range] = None,
+                decoys: slice = slice(None),
+                gather: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean hinge loss, mean ranking accuracy) over the batch's
-        complexes; the loss carries the graph to the model's
-        parameters."""
+        complexes (or ``complexes`` of them); the loss carries the graph
+        to the model's parameters.  A mesh's train step scores only
+        ``decoys`` of each decoy set and passes ``gather``, which brings
+        the whole set's scores together before the hinge."""
         cfg = self.config
         model = self.bind(params)
+        if complexes is None:
+            complexes = range(batch.rec_coords.shape[0])
         losses, accs = [], []
-        for b in range(batch.rec_coords.shape[0]):
-            scores = complex_scores(model, cfg,
-                                    *(f[b] for f in batch[:8]))
+        for b in complexes:
+            scores = complex_scores(model, cfg, *(f[b] for f in batch[:6]),
+                                    batch.decoy_rot[b, decoys],
+                                    batch.decoy_shift[b, decoys])
+            if gather is not None:
+                scores = gather(scores)
             lrmsd = batch.decoy_lrmsd[b]
             losses.append(ranking_hinge_loss(
                 scores, lrmsd, near_native_rmsd=cfg.near_native_rmsd,
@@ -155,11 +165,12 @@ class Trainer:
         return torch.stack(losses).mean(), torch.stack(accs).mean()
 
     def value_and_grad(self, params: Dict[str, torch.Tensor],
-                       batch: TrainBatch):
-        """``(loss, accuracy, grads)``, grads by parameter name."""
+                       batch: TrainBatch, **shard):
+        """``(loss, accuracy, grads)``, grads by parameter name;
+        ``shard`` goes to :meth:`loss_fn`."""
         names, ps = zip(*self.model.named_parameters())
         with torch.enable_grad():
-            loss, acc = self.loss_fn(params, batch)
+            loss, acc = self.loss_fn(params, batch, **shard)
             grads = torch.autograd.grad(loss, ps)
         return loss.detach(), acc, dict(zip(names, grads))
 

@@ -293,7 +293,10 @@ def test_error_paths(dataset, tmp_path, monkeypatch):
     (orbax / "step_00000500" / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(SystemExit, match="export_torch_weights"):
         tcli.main(dock + ["--checkpoint", str(orbax)] + CPU)
-    with pytest.raises(SystemExit, match="not ported.*Queue A 4"):
+    # A mesh needs a process group: without torchrun it names the line.
+    with pytest.raises(SystemExit,
+                       match="torchrun --nproc-per-node 2 -m "
+                             "deeplocalproteindocking_torch.cli dock"):
         tcli.main(dock + ["--mesh-rot", "2"] + CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
@@ -324,6 +327,9 @@ def test_doctor_and_info_never_hang(capsys):
     assert rep["license"]["licensed_rank"] == 3
     assert rep["tf32"] == dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                                cudnn=torch.backends.cudnn.allow_tf32)
+    assert rep["distributed"]["world_size"] == 1
+    assert rep["distributed"]["nccl_available"] == (
+        torch.distributed.is_nccl_available())
     assert rep["kernels"]["path"].startswith(
         os.path.join(os.path.dirname(os.path.dirname(tcli.__file__)),
                      "build", "kernels"))
@@ -333,3 +339,4 @@ def test_doctor_and_info_never_hang(capsys):
     tcli.main(["info"])
     out = capsys.readouterr().out
     assert "presets:" in out and "devices:" in out
+    assert "distributed: world size 1" in out

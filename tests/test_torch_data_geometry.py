@@ -185,8 +185,11 @@ def test_pose_rmsd_and_nms():
 def test_port_imports_without_jax():
     """The port's docking (the block engine and the resample sweep
     included), screening, refinement, grading, batched docking and
-    training paths, ``measure_256``, the CLI, the native parsers' bindings,
-    mmCIF, the map writers and the profiling hooks import where jax,
+    training paths, the multi-device layer (``parallel/``,
+    ``measure_scaling``, the CLI's mesh path, which without ranks raises
+    with the torchrun line), ``measure_256``, the CLI, the native
+    parsers' bindings, mmCIF, the map writers and the profiling hooks
+    import where jax,
     flax, optax and orbax are absent, never load the JAX package itself,
     and open no file under it (no module of the JAX package run on its
     own, as a file); a polymer complex builds there, and its PDB and an
@@ -230,6 +233,19 @@ def test_port_imports_without_jax():
         "import deeplocalproteindocking_torch.grids.xplor\n"
         "import deeplocalproteindocking_torch.grids.ccp4\n"
         "import deeplocalproteindocking_torch.utils.profiling\n"
+        "import deeplocalproteindocking_torch.parallel.mesh\n"
+        "import deeplocalproteindocking_torch.parallel.collectives\n"
+        "import deeplocalproteindocking_torch.parallel.sharded_sweep\n"
+        "import deeplocalproteindocking_torch.parallel.train_parallel\n"
+        "import deeplocalproteindocking_torch.measure_scaling\n"
+        "from deeplocalproteindocking_torch import cli\n"
+        "try:\n"
+        "    cli.main(['dock', '--receptor', 'r.pdb', '--ligand', 'l.pdb',\n"
+        "              '--out', 'o', '--mesh-rot', '2', '--device', 'cpu'])\n"
+        "except SystemExit as e:\n"
+        "    assert 'torchrun --nproc-per-node 2' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('a mesh without ranks must raise')\n"
         "from deeplocalproteindocking_torch.structure import mmcif, pdb\n"
         "c = heldout_complexes(1, widen=True, unbound=1.2, backbone=True)[0]\n"
         "import tempfile\n"
