@@ -12,21 +12,29 @@ phase that does not hold:
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes with a batch of 8 rotations (K1 on its three
    routes: bf16 on the tensor-core kernel at the bench complex's box, at
-   box 40 and at box 64, float32 on the tf32 tensor-core kernel at the
-   bench box (also with 4 receptor groups), and the SIMT kernel in bf16
-   at box 72 and in float32 at box 96; K2 with a real translation mask, drill-down
+   box 40, at box 64 and at the boxes above 64 that run in tiles of A
+   (72, 96, 128), float32 on the tf32 tensor-core kernel at the bench
+   box and at boxes 72, 96, 128 (with 4 receptor groups at the bench box
+   and at box 96, in both dtypes at 96), and the SIMT kernel where it
+   still runs, at L = 120 (bf16 at the bench box, float32 at box 72); K2
+   with a real translation mask, drill-down
    top-K; K3 on the summed spectrum of the ``dft`` engine's forward
    half, on its FFT kernel, and on random spectra at L = 64 (FFT) and
    L = 96 (dense)), plus the time of each kernel and its plain version
-   at the full batch of 128 (K1 also on its SIMT kernel in bf16 and in
-   float32 at box 96, and in float32 on its tf32 and SIMT kernels, timed
+   at the full batch of 128 (K1 also on its SIMT kernel in bf16 at the
+   bench box and at L = 120, at the grid-120 request's shape; each
+   tensor-core route against SIMT in turns at boxes 72 and 96 and alone
+   at 128, each held against plain, with its bound; in float32 on its
+   tf32 and SIMT kernels, timed
    in turns and each held against plain, at the bench box and at the v9p
    checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 on its FFT kernel at L = 128 on the bench
    complex's D and at L = 64, and on its dense kernel at L = 96; both K2
    kernels, timed in turns, held against plain at b = 128 and at the
    rescore's b = 48 with 16 bias groups; both K3 kernels, timed in turns
    and held against plain at b = 128, beside the library call
-   ``torch.fft.ifft2`` that computes K3's function), with each kernel's
+   ``torch.fft.ifft2`` that computes K3's function; the dense K2 and K3
+   and ``ifft2`` again at L = 96, b = 128, where the dense routes run),
+   with each kernel's
    bound at those shapes: the bytes its function must move or the
    operations of that function done as FFTs at the peak rate for how
    they can run (float32 K1 on the tensor cores as 3xTF32), whichever
@@ -36,11 +44,18 @@ phase that does not hold:
    serves three ``DockingPipeline.dock`` requests, proving through the
    launch counters that K1 (every launch on the tensor-core kernel) and
    K2 (every launch on the FFT kernel) ran in each; then one request at
-   grid 96 runs K2's dense kernel, one float32 request at grid 128
-   with a ligand box of 96 runs K1's SIMT kernel, and two float32
+   grid 96 runs K2's dense kernel, one at grid 120 (not a multiple of
+   16) runs K1's SIMT kernel, one float32 request at grid 128
+   with a ligand box of 96 runs K1's tf32 kernel in 2 x 2 tiles of A,
+   and two float32
    requests of 2,048 rotations run every K1 launch on the tf32 kernel:
    the bench config in float32 and the v9p checkpoint's own
    ``config.json`` (grid 64, box 40, chunk 16, full-rank coupling);
+   then two requests uncut at 13,000 rotations on a 250-residue polymer
+   ligand whose own box (``auto_ligand_grid``) is above 64: the
+   ``full-sweep`` preset's settings in float32 and the serve config in
+   bf16, every K1 launch on the tensor cores (tf32, tc) and none on
+   SIMT;
 4. card against CPU: one request at grid 64, 256 rotations, once on CUDA
    tensors (kernels) and once on CPU tensors (plain versions), in
    float32 (K1 on the tf32 kernel; top-K values within rtol 1e-3 and the
@@ -91,8 +106,8 @@ phase that does not hold:
    ``dft_pallas`` (FFT K3), on the card and on the CPU (top-K within
    1e-3 relative, the same top-1 per complex).  Phase 2 also holds K1
    with 4 receptor groups against plain (tensor cores at b = 128, the
-   batched step; tf32 in float32 at b = 8; SIMT in float32 at box 96,
-   b = 8) and times G = 4 against G = 1 in turns.
+   batched step; tf32 in float32 at b = 8; both tensor-core routes at
+   box 96, b = 8) and times G = 4 against G = 1 in turns.
 9. training at the full width of the v9p config (its ``config.json`` as
    committed: grid 64, box 40, C = 16, 24 decoys x 2 complexes, AdamW
    lr 1e-4, wd 1e-4, cosine over 3,000 steps): the port's flagship
@@ -197,6 +212,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROT_SERVE = 2048          # per request; the JAX bench sweeps 13,000
 N_ROT_BOX96 = 64            # the float32 box-96 request, also run on the CPU
+# The full-depth requests' complex: a 250-residue polymer ligand, whose
+# own box at grid 128 (auto_ligand_grid) is 72.
+BIG_COMPLEX = dict(seed=0, n_res_rec=300, n_res_lig=250, backbone=True)
 BENCH_ROTATIONS = 13000
 SEEDS = (0, 1, 2)
 TOL_F32 = 1e-4              # max |kernel - plain| <= TOL * max |plain|
@@ -2413,7 +2431,7 @@ def main():
         fail("torch.cuda.is_available() is false: no CUDA card")
     sys.path.insert(0, ROOT)
     from deeplocalproteindocking_torch import _build, weights
-    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.config import PRESETS, DockConfig
     from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
     from deeplocalproteindocking_torch.correlate._contract import mm
     from deeplocalproteindocking_torch.correlate.dft import get_correlator
@@ -2591,16 +2609,27 @@ def main():
                 corr32, D = corr, got
         errs["k1_bf16_box40"], routes["k1_bf16_box40"], _ = k1_check(
             k1_inputs(2, "bfloat16", box=40)[1])
-        for box in (64, 72):
+        # Boxes above 64 run on the tensor cores in tiles of A (an odd box:
+        # the tc kernel's plain loads of A instead of cp.async).
+        for box in (64, 71, 72, 96, 128):
             key = f"k1_bf16_box{box}_random"
             errs[key], routes[key], _ = k1_check(k1_random_inputs(2, box))
-        errs["k1_f32_box96_random"], routes["k1_f32_box96_random"], _ = (
-            k1_check(k1_random_inputs(2, 96, dtype_name="float32")))
+        for box in (72, 96, 128):
+            key = f"k1_f32_box{box}_random"
+            errs[key], routes[key], _ = k1_check(
+                k1_random_inputs(2, box, dtype_name="float32"))
+        # The SIMT kernel where it still runs: L not a multiple of 16.
+        for key, box, name in (("k1_bf16_simt_L120", Ls, "bfloat16"),
+                               ("k1_f32_simt_L120", 72, "float32")):
+            errs[key], routes[key], _ = k1_check(
+                k1_random_inputs(2, box, dtype_name=name, Lk=120))
         errs["k1_f32_G4"], routes["k1_f32_G4"], _ = k1_check(
             grouped(*k1_inputs(8, "float32")))
-        errs["k1_f32_box96_G4"], routes["k1_f32_box96_G4"], _ = k1_check(
-            grouped(get_correlator(L, 96, "float32", dev),
-                    k1_random_inputs(8, 96, dtype_name="float32")))
+        for name, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+            key = f"k1_{tag}_box96_G4"
+            errs[key], routes[key], _ = k1_check(
+                grouped(get_correlator(L, 96, name, dev),
+                        k1_random_inputs(8, 96, dtype_name=name)))
         errs["k2_fft"], route, bk = k2_check(
             (D[0], D[1], corr32.MzRe, corr32.MzIm, bias))
         check(route == "fft", "K2 at L=128 did not launch its FFT kernel")
@@ -2650,18 +2679,15 @@ def main():
          k3_dense_L96_rel_err=errs["k3_dense_L96"][1], k3_routes=k3_routes,
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
-    for key in ("k1_float32", "k1_f32_box96_random", "k1_f32_G4",
-                "k1_f32_box96_G4"):
-        check(errs[key][1] <= TOL_F32, f"K1 {key} {errs}")
-    for key in ("k1_bfloat16", "k1_bf16_box40", "k1_bf16_box64_random",
-                "k1_bf16_box72_random"):
-        check(errs[key][1] <= TOL_BF16, f"K1 {key} {errs}")
-    check(routes == {"k1_float32": "tf32", "k1_bfloat16": "tc",
-                     "k1_bf16_box40": "tc", "k1_bf16_box64_random": "tc",
-                     "k1_bf16_box72_random": "simt",
-                     "k1_f32_box96_random": "simt", "k1_f32_G4": "tf32",
-                     "k1_f32_box96_G4": "simt"},
-          f"K1 routes {routes}")
+    want_routes = {}
+    for key in routes:
+        f32 = key == "k1_float32" or key.startswith("k1_f32_")
+        check(errs[key][1] <= (TOL_F32 if f32 else TOL_BF16),
+              f"K1 {key} {errs}")
+        want_routes[key] = ("simt" if "simt" in key
+                            else "tf32" if f32 else "tc")
+    check(len(routes) == 16 and routes == want_routes,
+          f"K1 routes {routes}, expected {want_routes}")
     for key in ("k2_fft", "k2_fft_L64", "k2_dense_L96"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
     check(k2_routes == {"k2_fft_L64": "fft", "k2_dense_L96": "dense"},
@@ -2769,19 +2795,64 @@ def main():
         bounds["k3"] = bound((3 * nvol + 4 * L * L) * 4,
                              2 * (nvol // L) * fft_flops(L), "float32")
         del k3_args, k3_want
-        # The SIMT K1 in float32 at box 96 (boxes it refused before its
-        # A slab left shared memory).
-        a96 = k1_random_inputs(128, 96, dtype_name="float32")
-        D96 = [torch.empty((128, L // 2 + 1, L, L), device=dev)
+
+        # Dense K2 and K3, and K3's library call, at L = 96, where the
+        # dense routes run (grid 96: the rep-score and train presets), b =
+        # 128; the bounds as at L = 128 (K2's c2r counted as half a
+        # complex FFT per column, plus the bias add and the max).
+        L96, g96 = 96, torch.Generator(device=dev).manual_seed(96)
+        corr96 = get_correlator(L96, 16, "float32", dev)
+        d96 = [torch.randn((128, L96 // 2 + 1, L96, L96), generator=g96,
+                           device=dev) for _ in range(2)]
+        bias96 = torch.where(torch.rand((1, L96, L96, L96), generator=g96,
+                                        device=dev) < 0.6, 0.0, float("-inf"))
+        k2a = (d96[0], d96[1], corr96.MzRe, corr96.MzIm, bias96)
+        n0, f0 = invz_topk.launches, invz_topk.launches_fft
+        k2_err96 = rel_err(invz_topk.invz_blockmax(*k2a),
+                           invz_topk.invz_blockmax_reference(*k2a))
+        at96 = {"k2_dense": dict(
+            route="dense" if (invz_topk.launches - n0, invz_topk.launches_fft
+                              - f0) == (1, 0) else "fft",
+            ms=cuda_time_ms(lambda: invz_topk.invz_blockmax(*k2a)),
+            plain_ms=cuda_time_ms(
+                lambda: invz_topk.invz_blockmax_reference(*k2a)),
+            max_abs_err=k2_err96[0], rel_err=k2_err96[1],
+            bound=bound((2 * d96[0].numel() + bias96.numel()
+                         + 128 * L96 ** 3 // 32) * 4,
+                        128 * L96 * L96 * (fft_flops(L96) / 2 + 3 * L96),
+                        "float32"))}
+        del d96, bias96, k2a
+        e96 = [torch.randn((128, L96, L96, L96), generator=g96, device=dev)
                for _ in range(2)]
-        k1_simt_f32_box96_ms = cuda_time_ms(lambda: fused._launch_simt(
-            a96, tuple(a96[0].shape) + (L, L, L, L), *D96), reps=2)
-        del a96, D96
-        def k1_float32_routes(corr, args, reps=5):
-            """Float32 K1's tf32 kernel (with ``corr``'s kept twiddle
-            layouts, as the main path launches it) and SIMT kernel on
-            ``args``, timed in turns (tf32, SIMT, SIMT, tf32) on the
-            same inputs, then each output held against plain.  Returns
+        k3a = (*e96, corr96.UxRe32, corr96.UxIm32, corr96.UxRe32,
+               corr96.UxIm32)
+        k3_want96 = idft.idft_bc_reference(*k3a)
+        n0, f0 = idft.launches, idft.launches_fft
+        k3_err96 = rel_err(idft.idft_bc(*k3a), k3_want96)
+
+        def k3_library96():
+            return torch.fft.ifft2(torch.complex(e96[0], e96[1]),
+                                   dim=(1, 2)).real
+
+        at96["k3_dense"] = dict(
+            route="dense" if (idft.launches - n0, idft.launches_fft
+                              - f0) == (1, 0) else "fft",
+            ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
+            plain_ms=cuda_time_ms(lambda: idft.idft_bc_reference(*k3a)),
+            max_abs_err=k3_err96[0], rel_err=k3_err96[1],
+            library_ms=cuda_time_ms(k3_library96),
+            library_rel_err=rel_err(k3_library96(), k3_want96)[1],
+            bound=bound((3 * e96[0].numel() + 4 * L96 * L96) * 4,
+                        2 * (e96[0].numel() // L96) * fft_flops(L96),
+                        "float32"))
+        del e96, k3a, k3_want96
+        def k1_routes(corr, args, reps=5, route="tf32", simt=True,
+                      simt_reps=None):
+            """K1's tensor-core ``route`` (with ``corr``'s kept twiddle
+            layouts, as the main path launches it) and its SIMT kernel
+            on ``args``, timed in turns (route, SIMT, SIMT, route; the
+            route alone, twice, if ``simt`` is False) on the same
+            inputs, then each output held against plain.  Returns
             (turns, {route: mean ms}, plain ms, {route: (max abs err,
             rel err)})."""
             Lk = args[8].shape[1]
@@ -2789,11 +2860,16 @@ def main():
             D = [torch.empty((args[0].shape[0], args[0].shape[1], Lk, Lk),
                              device=dev) for _ in range(2)]
             ops = args[:4] + corr.k1_layouts
-            launch = {"tf32": lambda: fused._launch_tf32(ops, dims, *D),
-                      "simt": lambda: fused._launch_simt(args, dims, *D)}
-            turns = {"tf32": [], "simt": []}
-            for route in ("tf32", "simt", "simt", "tf32"):
-                turns[route].append(cuda_time_ms(launch[route], reps))
+            tensor_cores = fused._launch_tc if route == "tc" else (
+                fused._launch_tf32)
+            launch = {route: lambda: tensor_cores(ops, dims, *D)}
+            if simt:
+                launch["simt"] = lambda: fused._launch_simt(args, dims, *D)
+            turns = {r: [] for r in launch}
+            for r in ((route, "simt", "simt", route) if simt
+                      else (route, route)):
+                turns[r].append(cuda_time_ms(
+                    launch[r], reps if r == route else simt_reps or reps))
             plain_ms = cuda_time_ms(
                 lambda: fused.fused_correlate_reference(*args), reps)
             want = fused.fused_correlate_reference(*args)
@@ -2812,18 +2888,60 @@ def main():
         # The bound is the tf32 route's: float32 work at the 3xTF32 rate.
         corr32, args32 = k1_inputs(128, "float32")
         (k1_f32_turns, k1_f32_ms, k1_f32_plain_ms,
-         k1_f32_errs) = k1_float32_routes(corr32, args32)
+         k1_f32_errs) = k1_routes(corr32, args32)
         bounds["k1_float32"] = bound(
             sum(t.numel() * t.element_size() for t in args32)
             + 2 * 128 * (L // 2 + 1) * L * L * 4, k1_flops, "3xtf32")
         del args32
         av9p = k1_random_inputs(16, 40, C=16, dtype_name="float32", Lk=64)
         k1_v9p = dict(zip(("turns", "ms", "plain_ms", "errs"),
-                          k1_float32_routes(
+                          k1_routes(
                               get_correlator(64, 40, "float32", dev), av9p,
                               reps=20)),
                       shape=list(av9p[0].shape), L=64)
         del av9p
+
+        def k1_bound_at(args, peak):
+            """K1's bound on ``args``: its inputs and D moved once, its
+            FFTs (forward y over the box's rows) at ``peak``."""
+            b_, K_, C_, X_, _ = args[0].shape
+            Lk = args[8].shape[1]
+            flops = (C_ * (X_ + Lk) * fft_flops(Lk) + 8 * C_ * Lk * Lk
+                     + 2 * Lk * fft_flops(Lk)) * K_ * b_
+            return bound(sum(t.numel() * t.element_size() for t in args)
+                         + 2 * b_ * K_ * Lk * Lk * 4, flops, peak)
+
+        # Boxes above 64, b = 128, L = 128: each tensor-core route (tiles
+        # of A) against SIMT in turns at boxes 72 and 96, alone at 128.
+        k1_big = {}
+        for name, route, peak in (("bfloat16", "tc", "bfloat16"),
+                                  ("float32", "tf32", "3xtf32")):
+            for box in (72, 96, 128):
+                ab = k1_random_inputs(128, box, dtype_name=name)
+                turns_b, ms_b, plain_b, errs_b = k1_routes(
+                    get_correlator(L, box, name, dev), ab, reps=3,
+                    route=route, simt=box < 128, simt_reps=2)
+                k1_big[f"{route}_box{box}"] = dict(
+                    shape=list(ab[0].shape), L=L, turns=turns_b, ms=ms_b,
+                    plain_ms=plain_b,
+                    max_abs_err={r: e[0] for r, e in errs_b.items()},
+                    rel_err={r: e[1] for r, e in errs_b.items()},
+                    bound=k1_bound_at(ab, peak))
+                del ab
+                torch.cuda.empty_cache()
+        # The SIMT kernel at the shape of the grid-120 request (bf16, the
+        # bench complex's box, 128 rows, L = 120), where it still runs.
+        a120 = k1_random_inputs(128, Ls, Lk=120)
+        k1_simt_l120 = dict(
+            shape=list(a120[0].shape), L=120,
+            ms=cuda_time_ms(lambda: fused.fused_correlate(*a120), reps=3),
+            plain_ms=cuda_time_ms(
+                lambda: fused.fused_correlate_reference(*a120), reps=3),
+            bound=k1_bound_at(a120, "bfloat16"))
+        err120, route120, _ = k1_check(a120)
+        k1_simt_l120.update(route=route120, max_abs_err=err120[0],
+                            rel_err=err120[1])
+        del a120
     emit("kernel_times", batch=128, dtype="bfloat16", Ls=Ls, k1_ms=k1_ms,
          k1_simt_ms=k1_simt_ms, k1_plain_ms=k1_plain_ms,
          k1_groups=dict(G=4, turns=k1_turns, ms=k1_g4_ms, route=k1g_route,
@@ -2834,7 +2952,7 @@ def main():
          k2_rescore=dict(batch=48, groups=16, turns=k2g_turns,
                          plain_ms=k2g_plain_ms, bound=k2g_bound,
                          rel_err={r: e[1] for r, e in k2g_errs.items()}),
-         k1_simt_float32_box96_ms=k1_simt_f32_box96_ms,
+         k1_above_box64=k1_big, k1_simt_L120=k1_simt_l120, at_L96=at96,
          k1_float32=dict(turns=k1_f32_turns, ms=k1_f32_ms,
                          plain_ms=k1_f32_plain_ms,
                          rel_err={r: e[1] for r, e in k1_f32_errs.items()},
@@ -2851,8 +2969,9 @@ def main():
                     "dim=(1, 2)).real",
          bounds=bounds, peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                                "flops_per_s": PEAK_FLOPS},
-         timer="cuda events, mean of 5 after 1 warm-up (2 for the box-96 "
-               "SIMT K1, 20 for K1 at the v9p config)", card=card)
+         timer="cuda events, mean of 5 after 1 warm-up (3 for K1 above "
+               "box 64 and at L = 120, 2 for SIMT above box 64, 20 for K1 "
+               "at the v9p config)", card=card)
     check(k3_library_err[1] <= TOL_F32,
           f"torch.fft.ifft2 is not K3's function: {k3_library_err}")
     check(k1g_route == "tc" and k1g_err[1] <= TOL_BF16,
@@ -2861,6 +2980,17 @@ def main():
                               ("the v9p config", k1_v9p["errs"])):
         for route, e in route_errs.items():
             check(e[1] <= TOL_F32, f"K1 {route} in float32 at {shape}: {e}")
+    for key, rec in k1_big.items():
+        tol = TOL_BF16 if key.startswith("tc") else TOL_F32
+        for route, e in rec["rel_err"].items():
+            check(e <= tol, f"K1 {route} at b=128, {key}: {e}")
+    for key, rec in at96.items():
+        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32
+              and rec.get("library_rel_err", 0.0) <= TOL_F32,
+              f"{key} at L=96, b=128: {rec}")
+    check(k1_simt_l120["route"] == "simt"
+          and k1_simt_l120["rel_err"] <= TOL_BF16,
+          f"K1 at L=120, b=128: {k1_simt_l120}")
     for shape, route_errs in (("b=128", k2_errs), ("b=48, G=16", k2g_errs)):
         for route, e in route_errs.items():
             check(e[1] <= TOL_F32, f"K2 {route} at {shape}: {e}")
@@ -2929,8 +3059,34 @@ def main():
     check(dense_path["k2_launches"] > 0 and dense_path["k2_fft_launches"] == 0,
           f"grid-96 request: K2 did not run its dense kernel {dense_path}")
 
+    # One request at grid 120, not a multiple of 16, where K1 runs its
+    # SIMT kernel (and the top-K runs without K2: 120 % 32 != 0).
+    pipe120 = DockingPipeline(serve_cfg.replace(grid_size=120,
+                                                num_rotations=256),
+                              params=params, device=dev)
+    fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses120 = pipe120.dock_complex(cplx)
+    torch.cuda.synchronize()
+    simt_path = dict(grid=120, rotations=256,
+                     wall_seconds=time.perf_counter() - t0,
+                     poses=len(poses120),
+                     top1_score=float(poses120.scores[0]),
+                     k1_launches=fused.launches,
+                     k1_tc_launches=fused.launches_tc,
+                     k1_tf32_launches=fused.launches_tf32)
+    emit("dock_request_grid120", **simt_path)
+    check(len(poses120) > 0 and bool(np.isfinite(poses120.scores).all()),
+          f"grid-120 request: no or non-finite poses {simt_path}")
+    check(simt_path["k1_launches"] > 0 and simt_path["k1_tc_launches"] == 0
+          and simt_path["k1_tf32_launches"] == 0,
+          f"grid-120 request: K1 did not run its SIMT kernel {simt_path}")
+    del pipe120, poses120
+
     # One float32 request at grid 128 with a ligand box of 96, where K1
-    # runs its SIMT kernel; phase 4 runs the same request on the CPU.
+    # runs its tf32 kernel in 2 x 2 tiles of A; phase 4 runs the same
+    # request on the CPU.
     cfg_box96 = serve_cfg.replace(compute_dtype="float32", dft_dtype="float32",
                                   lig_grid_size=96, num_rotations=N_ROT_BOX96,
                                   rotation_chunk=16)
@@ -2951,9 +3107,9 @@ def main():
     emit("dock_request_box96", **box96)
     check(len(poses_box96) > 0 and bool(np.isfinite(poses_box96.scores).all()),
           f"box-96 request: no or non-finite poses {box96}")
-    check(box96["k1_launches"] > 0 and box96["k1_tc_launches"] == 0
-          and box96["k1_tf32_launches"] == 0,
-          f"box-96 request: K1 did not run its SIMT kernel {box96}")
+    check(box96["k1_launches"] > 0
+          and box96["k1_tf32_launches"] == box96["k1_launches"],
+          f"box-96 request: a K1 launch missed the tf32 kernel {box96}")
 
     # Two float32 requests of 2,048 rotations, where every K1 launch runs
     # the tf32 kernel: the bench config in float32, and the v9p
@@ -3000,6 +3156,83 @@ def main():
               and rec["k2_fft_launches"] == rec["k2_launches"],
               f"{name} request: a K2 launch missed the FFT kernel {rec}")
     del p, poses
+
+    # Two requests uncut at 13,000 rotations on a ligand whose own box
+    # is above 64: the full-sweep preset's settings in float32 (tf32 K1)
+    # and the serve config in bf16 (tc K1), each after a warm-up request
+    # of 256 rotations; every K1 launch on the tensor cores, none SIMT.
+    from deeplocalproteindocking_torch.correlate import dft as dft_module
+    big = synthetic_complex(**BIG_COMPLEX)
+    sweep = PRESETS["full-sweep"]
+    full_depth = {}
+    k1_launch, seen_k1 = dft_module.fused_correlate, {}
+
+    def k1_spy(*args, **kw):
+        """Records each K1 launch's box and keeps the first's arguments."""
+        seen_k1.setdefault("boxes", set()).add(tuple(args[0].shape[-2:]))
+        seen_k1.setdefault("first", args)
+        return k1_launch(*args, **kw)
+
+    for name, cfg, route in (
+            ("full_sweep_float32", serve_cfg.replace(
+                grid_size=sweep.grid_size, num_rotations=sweep.num_rotations,
+                rotation_chunk=sweep.rotation_chunk, top_k=sweep.top_k,
+                compute_dtype="float32", dft_dtype="float32"), "tf32"),
+            ("serve_bf16", serve_cfg.replace(
+                num_rotations=BENCH_ROTATIONS), "tc")):
+        p = DockingPipeline(cfg, params=params, device=dev)
+        box = auto_ligand_grid(big.ligand.centered().typed().coords,
+                               cfg.resolution, cfg.sigma,
+                               p._receptive_field(), cfg.grid_size)
+        check(box > 64, f"{name}: the ligand's box is {box}, not above 64")
+        DockingPipeline(cfg.replace(num_rotations=256), params=params,
+                        device=dev).dock_complex(big)
+        seen_k1.clear()
+        dft_module.fused_correlate = k1_spy
+        try:
+            fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+            invz_topk.launches = invz_topk.launches_fft = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            poses = p.dock_complex(big)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = (fused.launches, fused.launches_tc, fused.launches_tf32,
+                 invz_topk.launches, invz_topk.launches_fft)
+        finally:
+            dft_module.fused_correlate = k1_launch
+        with torch.inference_mode():
+            first_err, first_route, _ = k1_check(seen_k1["first"])
+        rec = dict(config=name, grid=cfg.grid_size, lig_grid=box,
+                   k1_boxes=sorted(seen_k1["boxes"]),
+                   ligand_residues=BIG_COMPLEX["n_res_lig"],
+                   dtype=cfg.dft_dtype, chunk=cfg.rotation_chunk,
+                   rotations=cfg.num_rotations, wall_seconds=wall,
+                   rotations_per_second=cfg.num_rotations / wall,
+                   poses=len(poses), top1_score=float(poses.scores[0]),
+                   k1_launches=n[0], k1_tc_launches=n[1],
+                   k1_tf32_launches=n[2], k1_simt_launches=n[0] - n[1] - n[2],
+                   k2_launches=n[3], k2_fft_launches=n[4],
+                   k1_first_launch=dict(route=first_route,
+                                        max_abs_err=first_err[0],
+                                        rel_err=first_err[1]))
+        emit("dock_request_full_depth", **rec)
+        full_depth[name] = rec
+        n_route = rec[f"k1_{route}_launches"]
+        check(len(poses) > 0 and bool(np.isfinite(poses.scores).all()),
+              f"{name}: no or non-finite poses {rec}")
+        check(n_route == rec["k1_launches"] == math.ceil(
+            cfg.num_rotations / cfg.rotation_chunk)
+              and rec["k1_simt_launches"] == 0,
+              f"{name}: a K1 launch missed the {route} kernel {rec}")
+        check(rec["k2_fft_launches"] == rec["k2_launches"] > 0,
+              f"{name}: a K2 launch missed the FFT kernel {rec}")
+        check(rec["k1_boxes"] == [(box, box)],
+              f"{name}: K1 saw boxes {rec['k1_boxes']}, not ({box}, {box})")
+        check(first_err[1] <= (TOL_F32 if route == "tf32" else TOL_BF16),
+              f"{name}: first K1 launch against plain {first_err}")
+        del p, poses, seen_k1["first"]
+        torch.cuda.empty_cache()
 
     # ---- phase 4: card against CPU at grid 64, float32 and bf16 ----
     cmp_cfg = serve_cfg.replace(grid_size=64, compute_dtype="float32",
@@ -3309,6 +3542,12 @@ def main():
 
     src = "deeplocalproteindocking_torch/csrc/"
     tpu = "deeplocalproteindocking_tpu/correlate/"
+
+    def box_summary(rec):
+        """A K1 route's numbers at one box above 64 (b = 128, L = 128)."""
+        return dict(shape=rec["shape"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                    bound_ms=rec["bound"]["bound_ms"],
+                    bound_by=rec["bound"]["bound_by"])
     print(json.dumps({"kernels": [
         {"name": "fused_correlate", "route": "cuda",
          "source": src + "fused_correlate_tc.cu",
@@ -3356,9 +3595,17 @@ def main():
          "ms_groups": k1_g4_ms, "ms_groups_turns": k1_turns,
          "bound_ms_groups": bounds["k1_G4"]["bound_ms"],
          "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
+         "launches_full_depth_box_above_64":
+             full_depth["serve_bf16"]["k1_tc_launches"],
+         "max_abs_err_full_depth_first_launch":
+             full_depth["serve_bf16"]["k1_first_launch"]["max_abs_err"],
+         "max_abs_err_above_box64": {
+             k: errs[f"k1_bf16_box{k[3:]}_random"][0]
+             for k in ("box72", "box96", "box128")},
+         "above_box64": {k[3:]: box_summary(v) for k, v in k1_big.items()
+                         if k.startswith("tc_")},
          "ms": k1_ms, "simt_ms": k1_simt_ms,
          "simt_float32_ms": k1_f32_ms["simt"],
-         "simt_float32_box96_ms": k1_simt_f32_box96_ms,
          "plain_ms": k1_plain_ms,
          "bound_ms": bounds["k1"]["bound_ms"],
          "bound_by": bounds["k1"]["bound_by"], "library_ms": None},
@@ -3394,8 +3641,38 @@ def main():
          "simt_ms": k1_f32_ms["simt"], "plain_ms": k1_f32_plain_ms,
          "v9p_config": {"shape": k1_v9p["shape"], "ms": k1_v9p["ms"],
                         "plain_ms": k1_v9p["plain_ms"]},
+         "launches_box96_request": box96["k1_tf32_launches"],
+         "launches_full_depth_box_above_64":
+             full_depth["full_sweep_float32"]["k1_tf32_launches"],
+         "max_abs_err_full_depth_first_launch":
+             full_depth["full_sweep_float32"]["k1_first_launch"][
+                 "max_abs_err"],
+         "max_abs_err_above_box64": {
+             k: errs[f"k1_f32_box{k[3:]}_random"][0]
+             for k in ("box72", "box96", "box128")},
+         "above_box64": {k[5:]: box_summary(v) for k, v in k1_big.items()
+                         if k.startswith("tf32_")},
          "bound_ms": bounds["k1_float32"]["bound_ms"],
          "bound_by": bounds["k1_float32"]["bound_by"], "library_ms": None},
+        {"name": "fused_correlate_simt", "route": "cuda",
+         "source": src + "fused_correlate.cu",
+         "replaces": tpu + "pallas_fused.py:57",
+         "launches": simt_path["k1_launches"],
+         "launches_path": "one dock request at grid 120 (L not a multiple "
+                          "of 16: K1's SIMT route)",
+         "launches_main_path": main_launches["fused_correlate"]
+         - main_launches["fused_correlate_tc"]
+         - main_launches["fused_correlate_tf32"],
+         "max_abs_err": k1_simt_l120["max_abs_err"],
+         "max_abs_err_L120_b2": {"bf16": errs["k1_bf16_simt_L120"][0],
+                                 "float32": errs["k1_f32_simt_L120"][0]},
+         "shape": k1_simt_l120["shape"], "L": 120, "dtype": "bfloat16",
+         "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
+         "ms": k1_simt_l120["ms"], "plain_ms": k1_simt_l120["plain_ms"],
+         "in_turns_above_box64": {k: v["ms"].get("simt")
+                                  for k, v in k1_big.items()},
+         "bound_ms": k1_simt_l120["bound"]["bound_ms"],
+         "bound_by": k1_simt_l120["bound"]["bound_by"], "library_ms": None},
         {"name": "invz_blockmax_fft", "route": "cuda",
          "source": src + "invz_blockmax_fft.cu",
          "replaces": tpu + "pallas_invz_topk.py:54",
@@ -3432,11 +3709,18 @@ def main():
          "launches_train": train_launches["k2"] - train_launches["k2_fft"],
          "launches_phase11": p11_count("k2", topk_approx=p11_approx["k2"]),
          "max_abs_err": errs["k2_dense_L96"][0],
-         "max_abs_err_b128": k2_errs["dense"][0],
+         "max_abs_err_b128_L96": at96["k2_dense"]["max_abs_err"],
+         "max_abs_err_b128_L128": k2_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k2_dense_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": bounds["k2"]["bound_ms"],
-         "bound_by": bounds["k2"]["bound_by"], "library_ms": None},
+         "shape": [128, 49, 96, 96], "L": 96,
+         "ms": at96["k2_dense"]["ms"],
+         "plain_ms": at96["k2_dense"]["plain_ms"],
+         "at_L128": {"ms": k2_dense_ms, "ms_fft": k2_fft_ms,
+                     "plain_ms": k2_plain_ms,
+                     "bound_ms": bounds["k2"]["bound_ms"]},
+         "bound_ms": at96["k2_dense"]["bound"]["bound_ms"],
+         "bound_by": at96["k2_dense"]["bound"]["bound_by"],
+         "library_ms": None},
         {"name": "idft_fft", "route": "cuda",
          "source": src + "idft_fft.cu",
          "replaces": tpu + "pallas_idft.py:34",
@@ -3464,12 +3748,19 @@ def main():
          "launches_band100": band_count("k3") - band_count("k3_fft"),
          "launches_phase11": p11_count("k3"),
          "max_abs_err": errs["k3_dense_L96"][0],
-         "max_abs_err_b128": k3_errs["dense"][0],
+         "max_abs_err_b128_L96": at96["k3_dense"]["max_abs_err"],
+         "max_abs_err_b128_L128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k3_dense_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": bounds["k3"]["bound_ms"],
-         "bound_by": bounds["k3"]["bound_by"],
-         "library_ms": k3_library_ms}]}), flush=True)
+         "shape": [128, 96, 96, 96], "L": 96,
+         "ms": at96["k3_dense"]["ms"],
+         "plain_ms": at96["k3_dense"]["plain_ms"],
+         "at_L128": {"ms": k3_dense_ms, "ms_fft": k3_fft_ms,
+                     "plain_ms": k3_plain_ms,
+                     "library_ms": k3_library_ms,
+                     "bound_ms": bounds["k3"]["bound_ms"]},
+         "bound_ms": at96["k3_dense"]["bound"]["bound_ms"],
+         "bound_by": at96["k3_dense"]["bound"]["bound_by"],
+         "library_ms": at96["k3_dense"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

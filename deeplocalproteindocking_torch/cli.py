@@ -543,8 +543,9 @@ def _routes(cfg, device_type: str) -> dict:
     dt = torch.float32 if cfg.dft_dtype == "float32" else torch.bfloat16
     ls = cfg.lig_grid_size
     if ls is None:
-        k1 = (f"box from the ligand: {fused.k1_route(dt, 64, 64, L, L, L, L)}"
-              f" up to 64, {fused.k1_route(dt, 72, 72, L, L, L, L)} above")
+        # Every box up to L takes one route (``fused.k1_route``).
+        k1 = (f"box from the ligand: "
+              f"{fused.k1_route(dt, 16, 16, L, L, L, L)} for every box")
     else:
         k1 = fused.k1_route(dt, ls, ls, L, L, L, L)
     return dict(grid=L, lig_grid=ls, dtype=cfg.dft_dtype,

@@ -20,16 +20,19 @@ hand-written CUDA kernels for CUDA tensors, chosen by :func:`k1_route`
 from dtype and shapes alone:
 
 - ``"tc"`` (``csrc/fused_correlate_tc.cu``): bf16 on the tensor cores
-  (``mma.sync``), for ligand boxes X, Y <= 64 and I, J, X', Y' multiples
-  of 16 up to 128 -- the main path.  Its twiddles go in the layouts of
-  :func:`tc_operands`.
+  (``mma.sync``), for ligand boxes X, Y <= 128 and I, J, X', Y'
+  multiples of 16 up to 128 -- the main path.  Its twiddles go in the
+  layouts of :func:`tc_operands`; boxes above 64 run as two x tiles of
+  A (:func:`tc_smem_bytes`).
 - ``"tf32"`` (``csrc/fused_correlate_tf32.cu``): float32 on the tensor
   cores, each real product as three TF32 products of hi/lo splits
   (3xTF32), for the same shapes -- every float32 config the repository
-  ships.  Its twiddles go in the split layout of :func:`tf32_operands`.
-- ``"simt"`` (``csrc/fused_correlate.cu``): float32 FMA loops, for
-  every other shape up to L = 128, in either dtype.  Its shared memory
-  (:func:`simt_smem_bytes`) does not grow with the ligand box's area.
+  ships.  Its twiddles go in the split layout of :func:`tf32_operands`;
+  boxes above 64 run as 2 x 2 tiles of A (:func:`tf32_smem_bytes`).
+- ``"simt"`` (``csrc/fused_correlate.cu``): float32 FMA loops, for the
+  shapes whose I, J, X' or Y' is not a multiple of 16 (L up to 128), in
+  either dtype.  Its shared memory (:func:`simt_smem_bytes`) does not
+  grow with the ligand box's area.
 
 A tensor-core route's twiddle layouts (:func:`twiddle_layouts`) are
 made once by a caller that launches often (``DFTCorrelator.k1_layouts``)
@@ -44,8 +47,8 @@ from deeplocalproteindocking_torch import _build
 from deeplocalproteindocking_torch.correlate._contract import cmm
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_L = 128
-_TC_MAX_BOX = 64               # both tensor-core routes
+_MAX_L = 128                   # also the largest box of every route
+_TILE = 64                     # the tensor-core kernels' A tile edge
 _SIMT_JT = 8                   # the SIMT kernel's j rows per tile (kJT)
 _TF32_NC = 32                  # the tf32 kernel's x' rows per pass (kNC)
 SMEM_OPTIN_BYTES = 232_448     # shared memory a Hopper block may opt in to
@@ -97,11 +100,11 @@ def k1_route(dtype, X, Y, I, J, Xp, Yp) -> str:
     """``"tc"``, ``"tf32"`` or ``"simt"``: the kernel K1 launches for
     CUDA tensors.
 
-    A ligand box with X, Y <= 64 and I, J, X', Y' multiples of 16 no
+    A ligand box with X, Y <= 128 and I, J, X', Y' multiples of 16 no
     larger than 128 go to the tensor cores: ``"tc"`` in bf16, ``"tf32"``
-    in float32.  Every other shape runs ``"simt"``.
+    in float32.  Every other shape (or dtype) runs ``"simt"``.
     """
-    if (max(X, Y) <= _TC_MAX_BOX
+    if (max(X, Y) <= _MAX_L
             and all(n > 0 and n % 16 == 0 and n <= _MAX_L
                     for n in (I, J, Xp, Yp))):
         if dtype == torch.bfloat16:
@@ -179,13 +182,25 @@ def twiddle_layouts(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
         return tc_operands(*tw) if route == "tc" else tf32_operands(*tw)
 
 
+def tc_smem_bytes(X, Y, J, I, Xp) -> int:
+    """Dynamic shared memory of one tc-kernel block (``smem_bytes`` in
+    ``csrc/fused_correlate_tc.cu``), bf16 (re, im): two buffers of the x
+    tile of the ligand slab ``[T, P+8]`` (T = min(P, 64) rows, the whole
+    padded y range; one is filled by cp.async while the other is read),
+    G ``[J, I+8]`` and C^T ``[X', J+8]``."""
+    P = _padded_box(X, Y)
+    return 2 * 2 * (2 * min(P, _TILE) * (P + 8) + J * (I + 8)
+                    + Xp * (J + 8))
+
+
 def tf32_smem_bytes(X, Y, J, I) -> int:
     """Dynamic shared memory of one tf32-kernel block (``smem_bytes`` in
     ``csrc/fused_correlate_tf32.cu``): G ``[J, I+8]`` float32 (re, im),
-    plus the larger of the split ligand slab ``[P, 2P+16]`` and the split
+    plus the larger of the split tile of the ligand slab ``[T, 2T+16]``
+    (T = min(P, 64): boxes above 64 run as 2 x 2 tiles) and the split
     C^T pass ``[kNC, 2J+16]`` (re, im), which share their space."""
-    P = _padded_box(X, Y)
-    a = 2 * P * (2 * P + 16)
+    T = min(_padded_box(X, Y), _TILE)
+    a = 2 * T * (2 * T + 16)
     c = 2 * _TF32_NC * (2 * J + 16)
     return 4 * (2 * J * (I + 8) + max(a, c))
 
@@ -226,8 +241,16 @@ def _launch_simt(args, dims, Dre, Dim):
 def _launch_tc(ops, dims, Dre, Dim):
     """``csrc/fused_correlate_tc.cu`` (bf16) on ``ops``: A and H as
     :func:`fused_correlate` takes them, then the twiddles in
-    :func:`tc_operands`' layouts."""
+    :func:`tc_operands`' layouts.  Raises before the launch if a block
+    would need more shared memory than Hopper gives one."""
     global launches, launches_tc
+    _, _, _, X, Y, J, I, Xp, _ = dims
+    smem = tc_smem_bytes(X, Y, J, I, Xp)
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"fused_correlate: the tc kernel needs {smem} B of shared "
+            f"memory per block at X={X}, Y={Y}, J={J}, I={I}, X'={Xp}, "
+            f"more than the {SMEM_OPTIN_BYTES} B a block may have")
     with torch.cuda.device(ops[0].device):
         err = _build.library().dlpd_fused_correlate_tc(
             *(t.data_ptr() for t in ops), Dre.data_ptr(), Dim.data_ptr(),

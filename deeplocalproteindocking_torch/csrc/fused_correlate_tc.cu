@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel `_kernel` / `fused_correlate` in
 // deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = bf16 and
-// ligand boxes X, Y <= 64 (fused_correlate.cu keeps float32 and larger
-// boxes).  For one (kz frequency k, rotation b) it computes
+// ligand boxes X, Y <= 128 (fused_correlate_tf32.cu keeps float32,
+// fused_correlate.cu the shapes whose L is not a multiple of 16).  For
+// one (kz frequency k, rotation b) it computes
 //
 //   B^T[c,j,x] = sum_y Wy[y,j]  A[c,x,y]            (forward y)
 //   F[c,j,i]   = sum_x B^T[c,j,x] Wx[x,i]           (forward x)
@@ -29,16 +30,27 @@
 // What the design does.  One block per (b, k), b the fastest grid axis
 // so consecutive blocks share H[k] in L2; J/16 warps, warp w owning the
 // rows j in [16w, 16w+16) through stages 1-3.
-//  1. Per channel, A[c] goes to shared memory zero-padded to P x P (P =
-//     X, Y rounded up to 16).  The warp forms its rows of B^T with A as
-//     the MMA's B operand, and rounds the float32 accumulators straight
-//     into bf16 A-operand fragments (the accumulator layout of two
-//     8-wide tiles is the A layout of one 16-deep step).
-//  2. F is formed in 8-wide tiles of i and folded at once into float32 G
-//     accumulators with H read at the fragment's own (j, i) positions:
-//     neither F nor a whole G ever exists.  i runs in chunks of IC
-//     columns (G in registers), channels inside a chunk, so stage 1 is
-//     repeated once per chunk.  Each chunk of G is rounded into G_s.
+//  1. Per channel and x tile, rows [x0, x0+TX) of A[c] (TX = min(P, 64),
+//     P = X, Y rounded up to 16) go to shared memory, zero-padded to P
+//     columns of y: by cp.async into one of two buffers while the warps
+//     work on the tile in the other (plain loads, one buffer, when Y is
+//     odd).  The warp forms its rows of B^T for the tile with A
+//     as the MMA's B operand, summing over every y in float32, and
+//     rounds the accumulators once, straight into bf16 A-operand
+//     fragments (the accumulator layout of two 8-wide tiles is the A
+//     layout of one 16-deep step): the TPU kernel's rounding point.
+//  2. The tile's part of F, sum over its x of B^T Wx, is formed in
+//     8-wide tiles of i and folded at once into float32 G accumulators
+//     with H read at the fragment's own (j, i) positions.  G is linear in
+//     F, so the x tiles' parts add in float32 and G is rounded once, after
+//     every channel and x tile: neither F nor a whole G ever exists.  i
+//     runs in chunks of IC columns (G in registers), channels and x tiles
+//     inside a chunk, so stage 1 is repeated once per chunk.  Each chunk
+//     of G is rounded into G_s.
+//     Boxes above 64 (two x tiles) keep the registers of a box of 64:
+//     B^T for one tile (16 x 64) and the G chunk.  The slab holds the
+//     tile's whole y range, so B^T's float32 sum over y never leaves the
+//     accumulators of one 16-column step.
 //  3. C = G Ux for the warp's own rows, G read back from G_s; C is
 //     rounded and stored transposed into C_s[x'][j].
 //  4. After one __syncthreads the warps own rows x' of D; the j sum runs
@@ -46,12 +58,15 @@
 //     device memory.  No D accumulator exists in shared memory.
 // Twiddles are read as MMA fragments from device memory (L1/L2-resident)
 // in layouts the wrapper prepares: Wy^T [J, P] and Wx^T [I, P]
-// zero-padded, Ux^T [X', I], Uy^T [Y', J].  Shared memory at L = 128,
-// P = 64 is 154 KiB (G_s and C_s 68 KiB each, A 18 KiB): one block of
-// 8 warps per SM.  Next step: `wgmma` with TMA-fed shared-memory tiles.
+// zero-padded, Ux^T [X', I], Uy^T [Y', J].  Shared memory at L = 128
+// (``fused.tc_smem_bytes``) is 172 KiB at P = 64 (G_s and C_s 68 KiB
+// each, A's two buffers 18 KiB each) and 204 KiB at P = 128 (34 KiB
+// each): one block of 8 warps per SM either way.  Next step: `wgmma`
+// with TMA-fed shared-memory tiles.
 #include <cstdint>
 
 #include "common.cuh"
+#include "fft.cuh"   // cp_async_commit, cp_async_wait
 
 namespace dlpd {
 namespace {
@@ -164,6 +179,45 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
   b1 = ldg32(p + 8);
 }
 
+// 4 bytes (two bf16) from device to shared memory, asynchronously; zeros
+// where !in (src is then not read).
+__device__ __forceinline__ void cp_async4(bf16* dst, const bf16* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Rows [x0, x0 + xw) of one channel of A (ar, ai: [X, Y]) into a slab
+// [xw][SA], zero-padded to P columns and past row X.  async: cp.async
+// copies of element pairs (Y even, so every pair is 4-byte aligned),
+// waited for by the caller; else plain loads and stores.
+template <int P, int SA>
+__device__ __forceinline__ void load_tile(bf16* sre, bf16* sim,
+                                          const bf16* ar, const bf16* ai,
+                                          int x0, int xw, int X, int Y,
+                                          int tid, int nthreads,
+                                          bool async) {
+  if (async) {
+    for (int o = tid; o < xw * (P / 2); o += nthreads) {
+      const int x = o / (P / 2), y = 2 * (o % (P / 2));
+      const bool in = x0 + x < X && y < Y;   // Y even: y + 1 < Y as well
+      const int src = in ? (x0 + x) * Y + y : 0;
+      cp_async4(sre + x * SA + y, ar + src, in);
+      cp_async4(sim + x * SA + y, ai + src, in);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int o = tid; o < xw * P; o += nthreads) {
+      const int x = o / P, y = o % P;
+      const bool in = x0 + x < X && y < Y;
+      sre[x * SA + y] = in ? ar[(x0 + x) * Y + y] : zero;
+      sim[x * SA + y] = in ? ai[(x0 + x) * Y + y] : zero;
+    }
+  }
+}
+
 template <int PK>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_correlate_tc_kernel(const bf16* __restrict__ Are,
@@ -180,8 +234,11 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
                           const bf16* __restrict__ UyTIm,
                           float* __restrict__ Dre, float* __restrict__ Dim,
                           int K, int C, int X, int Y, int J, int I, int Xp,
-                          int Yp, int rows_per_group) {
+                          int Yp, int rows_per_group, int async_a) {
   constexpr int P = 16 * PK;      // padded ligand box edge
+  constexpr int XK = PK < 4 ? PK : 4;   // 16-row steps of x per tile
+  constexpr int TX = 16 * XK;     // x rows per tile (A's slab)
+  constexpr int NXT = (PK + XK - 1) / XK;   // x tiles: 1, or 2 above 64
   constexpr int SA = P + 8;       // row strides in shared memory (+8: no
   const int SG = I + 8;           // bank conflicts on fragment loads)
   const int SC = J + 8;
@@ -194,9 +251,10 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   const int j0 = 16 * warp;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* as_re = reinterpret_cast<bf16*>(smem);   // A[c] [P][SA]
-  bf16* as_im = as_re + P * SA;
-  bf16* gs_re = as_im + P * SA;                  // G [J][SG]
+  // Two buffers of A[c]'s x tile, each [TX][SA] re then im: with async_a
+  // the next tile is copied into one while the warps read the other.
+  bf16* slab = reinterpret_cast<bf16*>(smem);
+  bf16* gs_re = slab + 4 * TX * SA;              // G [J][SG]
   bf16* gs_im = gs_re + J * SG;
   bf16* cs_re = gs_im + J * SG;                  // C^T [Xp][SC]
   bf16* cs_im = cs_re + Xp * SC;
@@ -205,7 +263,12 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   // Receptor group of this row: rows [g b/G, (g+1) b/G) share H[g].
   const size_t h_base =
       (static_cast<size_t>(bb / rows_per_group) * K + k) * C * J * I;
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  int buf = 0;                     // the buffer holding this tile
+  if (async_a) {                   // the first tile: (c, xt) = (0, 0)
+    load_tile<P, SA>(slab, slab + TX * SA, Are + a_base, Aim + a_base, 0,
+                     NXT > 1 ? TX : P, X, Y, tid, nthreads, true);
+    cp_async_commit();
+  }
 
   // ---- stages 1-2: G rows j0.. in chunks of kIC columns ----
   for (int ic = 0; ic < I; ic += kIC) {
@@ -216,72 +279,94 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
       for (int r = 0; r < 4; ++r) gr[nt][r] = gi[nt][r] = 0.f;
     }
     for (int c = 0; c < C; ++c) {
-      __syncthreads();   // every warp is done with the previous A[c]
-      const bf16* ar = Are + a_base + static_cast<size_t>(c) * X * Y;
-      const bf16* ai = Aim + a_base + static_cast<size_t>(c) * X * Y;
-      for (int o = tid; o < P * P; o += nthreads) {
-        const int x = o / P, y = o % P;
-        const bool in = x < X && y < Y;
-        as_re[x * SA + y] = in ? ar[x * Y + y] : zero;
-        as_im[x * SA + y] = in ? ai[x * Y + y] : zero;
-      }
-      __syncthreads();
-
-      // Stage 1: B^T[j0.., x] = sum_y WyT[j, y] A[x, y], 16 columns of x
-      // at a time, rounded into A-operand fragments bt[xc].
-      uint32_t bt_re[PK][4], bt_im[PK][4];
-#pragma unroll
-      for (int xc = 0; xc < PK; ++xc) {
-        float sr[2][4] = {}, si[2][4] = {};
-#pragma unroll
-        for (int yc = 0; yc < PK; ++yc) {
-          uint32_t wr[4], wi[4], wn[4];
-          load_a<true>(wr, WyTRe, P, j0, 16 * yc, g, t);
-          load_a<true>(wi, WyTIm, P, j0, 16 * yc, g, t);
-          negate(wn, wi);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            // B operand (k = y, n = x) = A_s[x][y]: x-major in A_s.
-            const int xo = (16 * xc + 8 * h + g) * SA + 16 * yc + 2 * t;
-            cmma(sr[h], si[h], wr, wi, wn, lds32(as_re + xo),
-                 lds32(as_re + xo + 8), lds32(as_im + xo),
-                 lds32(as_im + xo + 8));
-          }
-        }
-        to_a_frag(bt_re[xc], sr);
-        to_a_frag(bt_im[xc], si);
-      }
-
-      // Stage 2: F = B^T Wx in 8-wide tiles of i, folded into G with H
-      // upcast: G += H conj(F).
       const bf16* hr_c = Hre + h_base + static_cast<size_t>(c) * J * I;
       const bf16* hi_c = Him + h_base + static_cast<size_t>(c) * J * I;
 #pragma unroll
-      for (int nt = 0; nt < kIC / 8; ++nt) {
-        const int i0 = ic + 8 * nt;
-        if (i0 < I) {
-          float fr[4] = {}, fi[4] = {};
-#pragma unroll
-          for (int xc = 0; xc < PK; ++xc) {
-            uint32_t qr0, qr1, qi0, qi1, bn[4];
-            load_b(qr0, qr1, WxTRe, P, i0, 16 * xc, g, t);
-            load_b(qi0, qi1, WxTIm, P, i0, 16 * xc, g, t);
-            negate(bn, bt_im[xc]);
-            cmma(fr, fi, bt_re[xc], bt_im[xc], bn, qr0, qr1, qi0, qi1);
+      for (int xt = 0; xt < NXT; ++xt) {
+        const int x0 = TX * xt;
+        const int xw = xt + 1 < NXT ? TX : P - TX * (NXT - 1);   // rows
+        __syncthreads();   // every warp is done with the tile it last read
+        if (async_a) {
+          // The next tile in (ic, c, xt) order, into the other buffer.
+          const int nxt = xt + 1 < NXT ? xt + 1 : 0;
+          const int nc = xt + 1 < NXT ? c : (c + 1 < C ? c + 1 : 0);
+          if (xt + 1 < NXT || c + 1 < C || ic + kIC < I) {
+            const size_t off = a_base + static_cast<size_t>(nc) * X * Y;
+            bf16* next = slab + 2 * (buf ^ 1) * TX * SA;
+            load_tile<P, SA>(next, next + TX * SA, Are + off, Aim + off,
+                             TX * nxt, nxt + 1 < NXT ? TX : P - TX * (NXT - 1),
+                             X, Y, tid, nthreads, true);
           }
-          const int h0 = (j0 + g) * I + i0 + 2 * t, h1 = h0 + 8 * I;
-          const float2 hr0 = ldg_bf16x2(hr_c + h0);
-          const float2 hr1 = ldg_bf16x2(hr_c + h1);
-          const float2 hi0 = ldg_bf16x2(hi_c + h0);
-          const float2 hi1 = ldg_bf16x2(hi_c + h1);
-          const float hr[4] = {hr0.x, hr0.y, hr1.x, hr1.y};
-          const float hi[4] = {hi0.x, hi0.y, hi1.x, hi1.y};
+          cp_async_commit();
+          cp_async_wait(1);   // this thread's copies of this tile landed
+        } else {
+          const size_t off = a_base + static_cast<size_t>(c) * X * Y;
+          load_tile<P, SA>(slab, slab + TX * SA, Are + off, Aim + off, x0,
+                           xw, X, Y, tid, nthreads, false);
+        }
+        __syncthreads();   // every thread's part of the tile is in place
+        const bf16* as_re = slab + 2 * buf * TX * SA;
+        const bf16* as_im = as_re + TX * SA;
+
+        // Stage 1: B^T[j0.., x0 + x] = sum_y WyT[j, y] A[x0 + x, y], 16
+        // columns of x at a time, rounded into A-operand fragments bt[xc].
+        uint32_t bt_re[XK][4], bt_im[XK][4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            gr[nt][r] = fmaf(hr[r], fr[r], fmaf(hi[r], fi[r], gr[nt][r]));
-            gi[nt][r] = fmaf(hi[r], fr[r], fmaf(-hr[r], fi[r], gi[nt][r]));
+        for (int xc = 0; xc < XK; ++xc) {
+          if (16 * xc < xw) {
+            float sr[2][4] = {}, si[2][4] = {};
+#pragma unroll
+            for (int yc = 0; yc < PK; ++yc) {
+              uint32_t wr[4], wi[4], wn[4];
+              load_a<true>(wr, WyTRe, P, j0, 16 * yc, g, t);
+              load_a<true>(wi, WyTIm, P, j0, 16 * yc, g, t);
+              negate(wn, wi);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                // B operand (k = y, n = x) = A_s[x][y]: x-major in A_s.
+                const int xo = (16 * xc + 8 * h + g) * SA + 16 * yc + 2 * t;
+                cmma(sr[h], si[h], wr, wi, wn, lds32(as_re + xo),
+                     lds32(as_re + xo + 8), lds32(as_im + xo),
+                     lds32(as_im + xo + 8));
+              }
+            }
+            to_a_frag(bt_re[xc], sr);
+            to_a_frag(bt_im[xc], si);
           }
         }
+
+        // Stage 2: this tile's F = B^T Wx in 8-wide tiles of i, folded
+        // into G with H upcast: G += H conj(F).
+#pragma unroll
+        for (int nt = 0; nt < kIC / 8; ++nt) {
+          const int i0 = ic + 8 * nt;
+          if (i0 < I) {
+            float fr[4] = {}, fi[4] = {};
+#pragma unroll
+            for (int xc = 0; xc < XK; ++xc) {
+              if (16 * xc < xw) {
+                uint32_t qr0, qr1, qi0, qi1, bn[4];
+                load_b(qr0, qr1, WxTRe, P, i0, x0 + 16 * xc, g, t);
+                load_b(qi0, qi1, WxTIm, P, i0, x0 + 16 * xc, g, t);
+                negate(bn, bt_im[xc]);
+                cmma(fr, fi, bt_re[xc], bt_im[xc], bn, qr0, qr1, qi0, qi1);
+              }
+            }
+            const int h0 = (j0 + g) * I + i0 + 2 * t, h1 = h0 + 8 * I;
+            const float2 hr0 = ldg_bf16x2(hr_c + h0);
+            const float2 hr1 = ldg_bf16x2(hr_c + h1);
+            const float2 hi0 = ldg_bf16x2(hi_c + h0);
+            const float2 hi1 = ldg_bf16x2(hi_c + h1);
+            const float hr[4] = {hr0.x, hr0.y, hr1.x, hr1.y};
+            const float hi[4] = {hi0.x, hi0.y, hi1.x, hi1.y};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              gr[nt][r] = fmaf(hr[r], fr[r], fmaf(hi[r], fi[r], gr[nt][r]));
+              gi[nt][r] = fmaf(hi[r], fr[r], fmaf(-hr[r], fi[r], gi[nt][r]));
+            }
+          }
+        }
+        buf ^= async_a;   // the next tile sits in the other buffer
       }
     }
     // This chunk of G, rounded to bf16, into the warp's rows of G_s.
@@ -295,6 +380,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
       }
     }
   }
+  cp_async_wait(0);   // only the last, empty group can be pending
   __syncwarp();   // G_s rows are warp-private: only this warp reads them
 
   // ---- stage 3: C[j0.., x'] = sum_i G[j, i] Ux[i, x'], stored C^T ----
@@ -370,9 +456,12 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   }
 }
 
+// Two buffers of A's x tile [min(P, 64)][P+8], G_s [J][I+8] and C_s
+// [Xp][J+8], each re and im (``fused.tc_smem_bytes``).
 size_t smem_bytes(int P, int J, int I, int Xp) {
+  const size_t tx = P < 64 ? P : 64;
   return 2 * sizeof(bf16) *
-         (static_cast<size_t>(P) * (P + 8) + static_cast<size_t>(J) * (I + 8) +
+         (2 * tx * (P + 8) + static_cast<size_t>(J) * (I + 8) +
           static_cast<size_t>(Xp) * (J + 8));
 }
 
@@ -395,10 +484,14 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const bf16* const* p = reinterpret_cast<const bf16* const*>(in);
+  // A by cp.async when every element pair is 4-byte aligned.
+  const int async_a = Y % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(p[0]) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(p[1]) % 4 == 0;
   fused_correlate_tc_kernel<PK><<<dim3(b, K), 32 * (J / 16), smem, stream>>>(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], static_cast<float*>(Dre), static_cast<float*>(Dim), K, C, X, Y,
-      J, I, Xp, Yp, b / G);
+      J, I, Xp, Yp, b / G, async_a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -409,7 +502,7 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
 // Are/Aim [b, K, C, X, Y], Hre/Him [G, K, C, J, I] with G dividing b
 // (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]), WyT [J, P], WxT [I, P]
 // (P = max(X, Y) rounded up to 16, zero-padded), UxT [Xp, I],
-// UyT [Yp, J].  Takes X, Y <= 64 and I, J, Xp, Yp multiples of 16 up
+// UyT [Yp, J].  Takes X, Y <= 128 and I, J, Xp, Yp multiples of 16 up
 // to 128.
 extern "C" int dlpd_fused_correlate_tc(
     const void* Are, const void* Aim, const void* Hre, const void* Him,
@@ -418,7 +511,7 @@ extern "C" int dlpd_fused_correlate_tc(
     const void* UyTRe, const void* UyTIm, void* Dre, void* Dim, int b, int K,
     int C, int X, int Y, int J, int I, int Xp, int Yp, int G, void* stream) {
   const int P = ((X > Y ? X : Y) + 15) / 16 * 16;
-  if (X < 1 || Y < 1 || P > 64 || C < 1 || G < 1 || b % G || K > 65535 ||
+  if (X < 1 || Y < 1 || P > 128 || C < 1 || G < 1 || b % G || K > 65535 ||
       J % 16 ||
       I % 16 || Xp % 16 || Yp % 16 || J > 128 || I > 128 || Xp > 128 ||
       Yp > 128 || J < 16 || I < 16 || Xp < 16 || Yp < 16) {
@@ -434,7 +527,15 @@ extern "C" int dlpd_fused_correlate_tc(
       return dlpd::launch<2>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
     case 3:
       return dlpd::launch<3>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
-    default:
+    case 4:
       return dlpd::launch<4>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 5:
+      return dlpd::launch<5>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 6:
+      return dlpd::launch<6>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 7:
+      return dlpd::launch<7>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    default:
+      return dlpd::launch<8>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
   }
 }

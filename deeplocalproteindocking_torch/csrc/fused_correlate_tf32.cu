@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel `_kernel` / `fused_correlate` in
 // deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = float32
-// and ligand boxes X, Y <= 64 (fused_correlate_tc.cu keeps bf16,
-// fused_correlate.cu larger boxes).  For one (kz frequency k, rotation b)
-// it computes
+// and ligand boxes X, Y <= 128 (fused_correlate_tc.cu keeps bf16,
+// fused_correlate.cu the shapes whose L is not a multiple of 16).  For
+// one (kz frequency k, rotation b) it computes
 //
 //   B^T[c,j,x] = sum_y Wy[y,j]  A[c,x,y]            (forward y)
 //   F[c,j,i]   = sum_x B^T[c,j,x] Wx[x,i]           (forward x)
@@ -45,17 +45,21 @@
 // row's column pair (2q, 2q+1) stored as hi(2q), hi(2q+1), lo(2q),
 // lo(2q+1): one float4 is a thread's hi and lo fragment.
 //
-//  1. Per channel, A[c] goes to shared memory zero-padded to P x P (P =
-//     X, Y rounded up to 16), split once into the same layout.  The warp
-//     forms its 16 rows of B^T (A as the MMA's B operand) into float32
-//     accumulators, kept in registers.
-//  2. F in chunks of kIC columns of i: B^T split at use, Wx^T read from
-//     the split layout, and each chunk folded at once into G with H read
-//     at the fragment's own (j, i) positions: G += H conj(F).  G lives in
-//     shared memory (float32, the warp's own rows; each element is read
-//     and written by the one thread that owns its fragment position in
-//     stages 2 and 3).  F never exists whole; B^T is formed once per
-//     channel.
+//  1. Per channel, A[c] zero-padded to P x P (P = X, Y rounded up to 16)
+//     is taken in tiles of T x T (T = min(P, 64); above 64, 2 x 2 tiles,
+//     the last of each axis P - 64 wide), each split into the same layout
+//     in shared memory.  Per x tile the warp forms its 16 rows of B^T (A
+//     as the MMA's B operand) into float32 accumulators kept in
+//     registers, summed over the y tiles.
+//  2. F in chunks of kIC columns of i: the x tile's B^T split at use,
+//     Wx^T read from the split layout, and each chunk folded at once into
+//     G with H read at the fragment's own (j, i) positions: G += H
+//     conj(F).  G is linear in F, so each x tile's part of F is folded as
+//     it is formed.  G lives in shared memory (float32, the warp's own
+//     rows; each element is read and written by the one thread that owns
+//     its fragment position in stages 2 and 3).  F never exists whole;
+//     B^T is formed once per channel and x tile.  Nothing is rounded below
+//     float32, so the tiles move no rounding point.
 //  3. Per chunk of kNC columns x': C = G Ux for the warp's rows, G split
 //     at load, C^T split into C_s[x'][j], which aliases A's slab (stages
 //     1-2 are done).
@@ -63,8 +67,8 @@
 //     (16-row m tile, 32-column n group); the j sum runs over C_s, and the
 //     float32 sums are stored straight to D in device memory.
 // Shared memory (``fused.tf32_smem_bytes``): G 2 J (I+8) floats plus the
-// larger of A's slab 2 P (2P+16) and C_s 2 kNC (2J+16): 212,992 B at
-// L = 128, P = 64, under the 232,448 B a block may opt in to, for every
+// larger of A's slab 2 T (2T+16) and C_s 2 kNC (2J+16): 212,992 B at
+// L = 128, T = 64, under the 232,448 B a block may opt in to, for every
 // box the route takes.  Next steps: `wgmma` with the twiddles in shared
 // memory, which would stop every warp reading every twiddle fragment.
 #include <cstdint>
@@ -234,8 +238,11 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
                             int K, int C, int X, int Y, int J, int I, int Xp,
                             int Yp, int rows_per_group) {
   constexpr int P = 16 * PK;      // padded ligand box edge
-  constexpr int NB = P / 8;       // 8-wide steps over the box
-  constexpr int SA = 2 * P + 16;  // row strides in floats (split rows: 16
+  constexpr int TK = PK < 4 ? PK : 4;   // 16-wide steps per tile edge
+  constexpr int T = 16 * TK;      // tile edge (A's slab is T x T)
+  constexpr int NT = (PK + TK - 1) / TK;   // tiles per axis: 1, or 2
+  constexpr int NB = T / 8;       // 8-wide steps over a tile
+  constexpr int SA = 2 * T + 16;  // row strides in floats (split rows: 16
   const int SC = 2 * J + 16;      // mod 32, float4 loads conflict-free;
   const int SG = I + 8;           // float rows: 8 mod 32, float2 loads)
   const int bb = blockIdx.x;      // rotation
@@ -249,8 +256,8 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
   extern __shared__ __align__(16) unsigned char smem[];
   float* gs_re = reinterpret_cast<float*>(smem);   // G [J][SG]
   float* gs_im = gs_re + J * SG;
-  float* as_re = gs_im + J * SG;                   // A[c] split [P][SA]
-  float* as_im = as_re + P * SA;
+  float* as_re = gs_im + J * SG;                   // A[c] tile [T][SA]
+  float* as_im = as_re + T * SA;
   float* cs_re = as_re;                            // C^T split [kNC][SC]
   float* cs_im = cs_re + kNC * SC;                 // (aliases A's slab)
 
@@ -259,101 +266,123 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
   const size_t h_base =
       (static_cast<size_t>(bb / rows_per_group) * K + k) * C * J * I;
 
-  // ---- stages 1-2, per channel: G rows j0.. += H conj(B^T Wx) ----
+  // ---- stages 1-2, per channel and x tile: G rows j0.. += H conj(B^T Wx)
   for (int c = 0; c < C; ++c) {
-    __syncthreads();   // every warp is done with the previous A[c]
     const float* ar = Are + a_base + static_cast<size_t>(c) * X * Y;
     const float* ai = Aim + a_base + static_cast<size_t>(c) * X * Y;
-    for (int o = tid; o < P * P / 2; o += nthreads) {
-      const int x = o / (P / 2), y = 2 * (o % (P / 2));
-      const bool in0 = x < X && y < Y, in1 = x < X && y + 1 < Y;
-      const float v[4] = {in0 ? ar[x * Y + y] : 0.f,
-                          in1 ? ar[x * Y + y + 1] : 0.f,
-                          in0 ? ai[x * Y + y] : 0.f,
-                          in1 ? ai[x * Y + y + 1] : 0.f};
-      uint32_t h[4], l[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) split(v[r], h[r], l[r]);
-      const int s = x * SA + 2 * y;
-      *reinterpret_cast<float4*>(as_re + s) =
-          make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                      __uint_as_float(l[0]), __uint_as_float(l[1]));
-      *reinterpret_cast<float4*>(as_im + s) =
-          make_float4(__uint_as_float(h[2]), __uint_as_float(h[3]),
-                      __uint_as_float(l[2]), __uint_as_float(l[3]));
-    }
-    __syncthreads();
-
-    // Stage 1: B^T[j0.., x] = sum_y WyT[j, y] A[x, y], float32 sums in
-    // 8-wide tiles of x.
-    float btr[NB][4], bti[NB][4];
-#pragma unroll
-    for (int xc = 0; xc < NB; ++xc) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) btr[xc][r] = bti[xc][r] = 0.f;
-    }
-#pragma unroll
-    for (int yc = 0; yc < NB; ++yc) {
-      const AFrag wr = load_a<true>(WyTRe, 2 * P, j0, 8 * yc, g, t);
-      const AFrag wi = load_a<true>(WyTIm, 2 * P, j0, 8 * yc, g, t);
-#pragma unroll
-      for (int xc = 0; xc < NB; ++xc) {
-        // B operand (k = y, n = x) = A_s[x][y]: x-major in A_s.
-        const BFrag qr = load_b<false>(as_re, SA, 8 * xc, 8 * yc, g, t);
-        const BFrag qi = load_b<false>(as_im, SA, 8 * xc, 8 * yc, g, t);
-        cmma3(btr[xc], bti[xc], wr, wi, qr, qi);
-      }
-    }
-
-    // Stage 2: F = B^T Wx in chunks of kIC columns of i, each folded into
-    // G: G += H conj(F).
     const float* hr_c = Hre + h_base + static_cast<size_t>(c) * J * I;
     const float* hi_c = Him + h_base + static_cast<size_t>(c) * J * I;
-    for (int ic = 0; ic < I; ic += kIC) {
-      float fr[kIC / 8][4], fi[kIC / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < kIC / 8; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) fr[nt][r] = fi[nt][r] = 0.f;
-      }
+    for (int xt = 0; xt < NT; ++xt) {
+      const int x0 = T * xt;
+      const int xw = xt + 1 < NT ? T : P - T * (NT - 1);   // x rows
+
+      // Stage 1: B^T[j0.., x0 + x] = sum_y WyT[j, y] A[x0 + x, y], float32
+      // sums in 8-wide tiles of x, over the y tiles.
+      float btr[NB][4], bti[NB][4];
 #pragma unroll
       for (int xc = 0; xc < NB; ++xc) {
-        const AFrag pr = from_sums(btr[xc]);
-        const AFrag pi = from_sums(bti[xc]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) btr[xc][r] = bti[xc][r] = 0.f;
+      }
+#pragma unroll
+      for (int yt = 0; yt < NT; ++yt) {
+        const int y0 = T * yt;
+        const int yw = yt + 1 < NT ? T : P - T * (NT - 1);   // y columns
+        __syncthreads();   // every warp is done with the previous tile
+        for (int o = tid; o < xw * yw / 2; o += nthreads) {
+          const int x = o / (yw / 2), y = 2 * (o % (yw / 2));
+          const int ax = x0 + x, ay = y0 + y;
+          const bool in0 = ax < X && ay < Y, in1 = ax < X && ay + 1 < Y;
+          const float v[4] = {in0 ? ar[ax * Y + ay] : 0.f,
+                              in1 ? ar[ax * Y + ay + 1] : 0.f,
+                              in0 ? ai[ax * Y + ay] : 0.f,
+                              in1 ? ai[ax * Y + ay + 1] : 0.f};
+          uint32_t h[4], l[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split(v[r], h[r], l[r]);
+          const int s = x * SA + 2 * y;
+          *reinterpret_cast<float4*>(as_re + s) =
+              make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                          __uint_as_float(l[0]), __uint_as_float(l[1]));
+          *reinterpret_cast<float4*>(as_im + s) =
+              make_float4(__uint_as_float(h[2]), __uint_as_float(h[3]),
+                          __uint_as_float(l[2]), __uint_as_float(l[3]));
+        }
+        __syncthreads();
+#pragma unroll
+        for (int yc = 0; yc < NB; ++yc) {
+          if (8 * yc < yw) {
+            const AFrag wr = load_a<true>(WyTRe, 2 * P, j0, y0 + 8 * yc, g, t);
+            const AFrag wi = load_a<true>(WyTIm, 2 * P, j0, y0 + 8 * yc, g, t);
+#pragma unroll
+            for (int xc = 0; xc < NB; ++xc) {
+              if (8 * xc < xw) {
+                // B operand (k = y, n = x) = A_s[x][y]: x-major in A_s.
+                const BFrag qr = load_b<false>(as_re, SA, 8 * xc, 8 * yc, g, t);
+                const BFrag qi = load_b<false>(as_im, SA, 8 * xc, 8 * yc, g, t);
+                cmma3(btr[xc], bti[xc], wr, wi, qr, qi);
+              }
+            }
+          }
+        }
+      }
+
+      // Stage 2: this tile's F = B^T Wx in chunks of kIC columns of i,
+      // each folded into G: G += H conj(F).
+      for (int ic = 0; ic < I; ic += kIC) {
+        float fr[kIC / 8][4], fi[kIC / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < kIC / 8; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fr[nt][r] = fi[nt][r] = 0.f;
+        }
+#pragma unroll
+        for (int xc = 0; xc < NB; ++xc) {
+          if (8 * xc < xw) {
+            const AFrag pr = from_sums(btr[xc]);
+            const AFrag pi = from_sums(bti[xc]);
+#pragma unroll
+            for (int nt = 0; nt < kIC / 8; ++nt) {
+              const int i0 = ic + 8 * nt;
+              if (i0 < I) {
+                const BFrag qr =
+                    load_b<true>(WxTRe, 2 * P, i0, x0 + 8 * xc, g, t);
+                const BFrag qi =
+                    load_b<true>(WxTIm, 2 * P, i0, x0 + 8 * xc, g, t);
+                cmma3(fr[nt], fi[nt], pr, pi, qr, qi);
+              }
+            }
+          }
+        }
+        const bool first = c == 0 && xt == 0;   // G starts here
 #pragma unroll
         for (int nt = 0; nt < kIC / 8; ++nt) {
           const int i0 = ic + 8 * nt;
           if (i0 < I) {
-            const BFrag qr = load_b<true>(WxTRe, 2 * P, i0, 8 * xc, g, t);
-            const BFrag qi = load_b<true>(WxTIm, 2 * P, i0, 8 * xc, g, t);
-            cmma3(fr[nt], fi[nt], pr, pi, qr, qi);
-          }
-        }
-      }
+            const int h0 = (j0 + g) * I + i0 + 2 * t;
+            const int o = (j0 + g) * SG + i0 + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < kIC / 8; ++nt) {
-        const int i0 = ic + 8 * nt;
-        if (i0 < I) {
-          const int h0 = (j0 + g) * I + i0 + 2 * t;
-          const int o = (j0 + g) * SG + i0 + 2 * t;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {   // rows g and g + 8
-            const float2 hr =
-                __ldg(reinterpret_cast<const float2*>(hr_c + h0 + 8 * I * half));
-            const float2 hi =
-                __ldg(reinterpret_cast<const float2*>(hi_c + h0 + 8 * I * half));
-            float2* pgr = reinterpret_cast<float2*>(gs_re + o + 8 * SG * half);
-            float2* pgi = reinterpret_cast<float2*>(gs_im + o + 8 * SG * half);
-            float2 gr = c ? *pgr : make_float2(0.f, 0.f);
-            float2 gi = c ? *pgi : make_float2(0.f, 0.f);
-            const float f_r[2] = {fr[nt][2 * half], fr[nt][2 * half + 1]};
-            const float f_i[2] = {fi[nt][2 * half], fi[nt][2 * half + 1]};
-            gr.x = fmaf(hr.x, f_r[0], fmaf(hi.x, f_i[0], gr.x));
-            gr.y = fmaf(hr.y, f_r[1], fmaf(hi.y, f_i[1], gr.y));
-            gi.x = fmaf(hi.x, f_r[0], fmaf(-hr.x, f_i[0], gi.x));
-            gi.y = fmaf(hi.y, f_r[1], fmaf(-hr.y, f_i[1], gi.y));
-            *pgr = gr;
-            *pgi = gi;
+            for (int half = 0; half < 2; ++half) {   // rows g and g + 8
+              const float2 hr = __ldg(
+                  reinterpret_cast<const float2*>(hr_c + h0 + 8 * I * half));
+              const float2 hi = __ldg(
+                  reinterpret_cast<const float2*>(hi_c + h0 + 8 * I * half));
+              float2* pgr =
+                  reinterpret_cast<float2*>(gs_re + o + 8 * SG * half);
+              float2* pgi =
+                  reinterpret_cast<float2*>(gs_im + o + 8 * SG * half);
+              float2 gr = first ? make_float2(0.f, 0.f) : *pgr;
+              float2 gi = first ? make_float2(0.f, 0.f) : *pgi;
+              const float f_r[2] = {fr[nt][2 * half], fr[nt][2 * half + 1]};
+              const float f_i[2] = {fi[nt][2 * half], fi[nt][2 * half + 1]};
+              gr.x = fmaf(hr.x, f_r[0], fmaf(hi.x, f_i[0], gr.x));
+              gr.y = fmaf(hr.y, f_r[1], fmaf(hi.y, f_i[1], gr.y));
+              gi.x = fmaf(hi.x, f_r[0], fmaf(-hr.x, f_i[0], gi.x));
+              gi.y = fmaf(hi.y, f_r[1], fmaf(-hr.y, f_i[1], gi.y));
+              *pgr = gr;
+              *pgi = gi;
+            }
           }
         }
       }
@@ -439,8 +468,9 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 }
 
 size_t smem_bytes(int P, int J, int I) {
+  const size_t tile = P < 64 ? P : 64;
   const size_t g = 2 * static_cast<size_t>(J) * (I + 8);
-  const size_t a = 2 * static_cast<size_t>(P) * (2 * P + 16);
+  const size_t a = 2 * tile * (2 * tile + 16);
   const size_t c = 2 * static_cast<size_t>(kNC) * (2 * J + 16);
   return sizeof(float) * (g + (a > c ? a : c));
 }
@@ -480,7 +510,7 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
 // (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]; 8-byte aligned), and
 // the twiddles in the split layout (``fused.tf32_operands``): WyT [J, 2P],
 // WxT [I, 2P] (P = max(X, Y) rounded up to 16, zero-padded), UxT
-// [Xp, 2I], UyT [Yp, 2J], 16-byte aligned.  Takes X, Y <= 64 and I, J,
+// [Xp, 2I], UyT [Yp, 2J], 16-byte aligned.  Takes X, Y <= 128 and I, J,
 // Xp, Yp multiples of 16 up to 128.
 extern "C" int dlpd_fused_correlate_tf32(
     const void* Are, const void* Aim, const void* Hre, const void* Him,
@@ -489,7 +519,7 @@ extern "C" int dlpd_fused_correlate_tf32(
     const void* UyTRe, const void* UyTIm, void* Dre, void* Dim, int b, int K,
     int C, int X, int Y, int J, int I, int Xp, int Yp, int G, void* stream) {
   const int P = ((X > Y ? X : Y) + 15) / 16 * 16;
-  if (b < 1 || X < 1 || Y < 1 || P > 64 || C < 1 || G < 1 || b % G ||
+  if (b < 1 || X < 1 || Y < 1 || P > 128 || C < 1 || G < 1 || b % G ||
       K < 1 || K > 65535 || J % 16 || I % 16 || Xp % 16 || Yp % 16 ||
       J > 128 || I > 128 || Xp > 128 || Yp > 128 || J < 16 || I < 16 ||
       Xp < 16 || Yp < 16) {
@@ -505,7 +535,15 @@ extern "C" int dlpd_fused_correlate_tf32(
       return dlpd::launch<2>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
     case 3:
       return dlpd::launch<3>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
-    default:
+    case 4:
       return dlpd::launch<4>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 5:
+      return dlpd::launch<5>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 6:
+      return dlpd::launch<6>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    case 7:
+      return dlpd::launch<7>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
+    default:
+      return dlpd::launch<8>(in, Dre, Dim, b, K, C, X, Y, J, I, Xp, Yp, G, s);
   }
 }

@@ -2,13 +2,17 @@
 the CPU.
 
 The CUDA kernel cannot run here, so this file holds its formulation:
-``k1_route``'s rule (its float32 edges are in
-``tests/test_torch_fused_tf32.py``), the twiddle layouts of ``tc_operands``, and a torch
-emulation of what the kernel computes -- the box zero-padded to P, the
-forward y pass formed as B^T, every complex product as one real product
-with the block matrix ``[[Qre, Qim], [-Qim, Qre]]``, B, G and C rounded
-to the operand type, float32 sums -- against the plain version
-(``fused_correlate_reference``) and the JAX kernel in interpret mode.
+``k1_route``'s rule over every box and L it takes (its float32 edges
+are in ``tests/test_torch_fused_tf32.py``), the twiddle layouts of
+``tc_operands``, the kernel's shared-memory rule (``tc_smem_bytes``),
+and a torch emulation of what the kernel computes -- the box zero-padded
+to P, the forward y pass formed as B^T over every y and rounded once, F
+formed per x tile of 64 rows and folded into G in float32 (boxes above
+64), every complex product as one real product with the block matrix
+``[[Qre, Qim], [-Qim, Qre]]``, B, G and C rounded to the operand type,
+float32 sums -- against the plain version (``fused_correlate_reference``)
+and the JAX kernel in interpret mode, with a planted error (B^T rounded
+at a y-tile boundary) that must move it.
 
 Tolerances: float32, 2e-4 relative to max |D| (summation order only; a
 sign, layout or padding error is O(1)); bf16, 2e-2 relative to max |D|
@@ -36,9 +40,14 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2}
     (torch.bfloat16, 32, 128, "tc"),       # the main path
     (torch.bfloat16, 40, 64, "tc"),
     (torch.bfloat16, 16, 32, "tc"),
-    (torch.bfloat16, 72, 128, "simt"),     # box above 64
+    (torch.bfloat16, 72, 128, "tc"),       # boxes above 64: two x tiles
+    (torch.bfloat16, 96, 128, "tc"),
+    (torch.bfloat16, 128, 128, "tc"),      # the largest box
     (torch.float32, 32, 128, "tf32"),      # float32: its own kernel
     (torch.bfloat16, 32, 120, "simt"),     # L not a multiple of 16
+    (torch.bfloat16, 72, 120, "simt"),
+    (torch.bfloat16, 40, 72, "simt"),
+    (torch.float64, 32, 128, "simt"),      # no tensor-core kernel
     (torch.bfloat16, 32, 144, "simt")])    # L above 128
 def test_k1_route(dtype, box, L, want):
     assert tfused.k1_route(dtype, box, box, L, L, L, L) == want
@@ -47,10 +56,45 @@ def test_k1_route(dtype, box, L, want):
 def test_k1_route_checks_each_axis():
     bf = torch.bfloat16
     assert tfused.k1_route(bf, 64, 16, 32, 32, 32, 32) == "tc"
-    assert tfused.k1_route(bf, 16, 65, 32, 32, 32, 32) == "simt"
+    assert tfused.k1_route(bf, 16, 65, 32, 32, 32, 32) == "tc"
+    assert tfused.k1_route(bf, 128, 72, 128, 128, 128, 128) == "tc"
     assert tfused.k1_route(bf, 16, 16, 32, 24, 32, 32) == "simt"
     assert tfused.k1_route(bf, 16, 16, 32, 32, 40, 32) == "simt"
     assert tfused.k1_route(bf, 16, 16, 32, 32, 32, 8) == "simt"
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tc"),
+                                        (torch.float32, "tf32")])
+def test_k1_route_takes_every_box_to_the_tensor_cores(dtype, want):
+    """Every box 1..128 (X and Y apart) at every L = 16..128 that is a
+    multiple of 16 goes to the dtype's tensor-core kernel; every other L,
+    or another dtype, to SIMT."""
+    for L in range(16, 129, 16):
+        for box in range(1, L + 1):
+            assert tfused.k1_route(dtype, box, box, L, L, L, L) == want
+            assert tfused.k1_route(dtype, box, L, L, L, L, L) == want
+            assert tfused.k1_route(dtype, L, box, L, L, L, L) == want
+            assert tfused.k1_route(torch.float64, box, box, L, L, L,
+                                   L) == "simt"
+    for L in (24, 40, 72, 88, 104, 120):
+        for box in range(1, L + 1, 7):
+            assert tfused.k1_route(dtype, box, box, L, L, L, L) == "simt"
+
+
+def test_tc_smem_fits():
+    """The tc kernel's shared memory fits a Hopper block for every box up
+    to 128 at every L <= 128 that is a multiple of 16: above 64 each of
+    the slab's two buffers holds one x tile of 64 rows."""
+    for L in range(16, 129, 16):
+        for box in range(1, 129):
+            assert (tfused.tc_smem_bytes(box, box, L, L, L)
+                    <= tfused.SMEM_OPTIN_BYTES)
+    # L = 128: G_s and C_s 69,632 B each, A's two buffers 18,432 B each at
+    # P = 64 and 34,816 B each at P = 128 (64 rows of 136).
+    assert tfused.tc_smem_bytes(64, 64, 128, 128, 128) == 176_128
+    assert tfused.tc_smem_bytes(128, 128, 128, 128, 128) == 208_896
+    assert tfused.tc_smem_bytes(72, 20, 128, 128, 128) == 4 * (
+        2 * 64 * 88 + 2 * 128 * 136)
 
 
 def _args(L, Ls, C, b, dtype_name, seed):
@@ -77,9 +121,16 @@ def _block_mm(Pre, Pim, Qre, Qim):
     return out[..., :n], out[..., n:]
 
 
-def emulate_tc(Are, Aim, Hre, Him, *twiddles):
+def tiles(P):
+    """The kernels' tiles of a padded box edge P: ``(start, stop)`` of 64
+    (the last P - 64 wide) above 64, else the whole edge."""
+    return [(0, P)] if P <= 64 else [(0, 64), (64, P)]
+
+
+def emulate_tc(Are, Aim, Hre, Him, *twiddles, round_y_tiles=False):
     """What ``fused_correlate_tc.cu`` computes, stage by stage, from the
-    operands its wrapper hands it."""
+    operands its wrapper hands it.  ``round_y_tiles`` plants the error of
+    rounding B^T's partial sum at each 64-wide y tile's end."""
     (WyTre, WyTim, WxTre, WxTim, UxTre, UxTim, UyTre,
      UyTim) = tfused.tc_operands(*twiddles)
     dt = Are.dtype
@@ -89,14 +140,28 @@ def emulate_tc(Are, Aim, Hre, Him, *twiddles):
     def pad(a):                                   # [.., X, Y] -> [.., P, P]
         return torch.nn.functional.pad(a, (0, P - Y, 0, P - X))
 
-    # 1. B^T[c, j, x] = Wy^T[j, y] A[c, x, y] over y, rounded.
-    Btre, Btim = _block_mm(WyTre, WyTim, pad(Are).mT, pad(Aim).mT)
+    # 1. B^T[c, j, x] = Wy^T[j, y] A[c, x, y] over every y, float32 sums,
+    #    rounded once (planted: rounded per y tile, summed, rounded).
+    At = (pad(Are).mT, pad(Aim).mT)               # [.., y, x]
+    if round_y_tiles:
+        Btre = Btim = 0
+        for y0, y1 in tiles(P):
+            pr, pi = _block_mm(WyTre[:, y0:y1], WyTim[:, y0:y1],
+                               At[0][..., y0:y1, :], At[1][..., y0:y1, :])
+            Btre, Btim = Btre + pr.to(dt).float(), Btim + pi.to(dt).float()
+    else:
+        Btre, Btim = _block_mm(WyTre, WyTim, *At)
     Btre, Btim = Btre.to(dt), Btim.to(dt)
-    # 2. F[c, j, i] = B^T[c, j, x] Wx[x, i]; G = sum_c H conj(F), rounded.
-    Fre, Fim = _block_mm(Btre, Btim, WxTre.mT, WxTim.mT)
+    # 2. Per x tile, F[c, j, i] = B^T[c, j, x] Wx[x, i] over the tile's x,
+    #    folded into G = sum_c H conj(F) in float32; G rounded once.
     Hr, Hi = Hre.float(), Him.float()
-    Gre = (Hr * Fre + Hi * Fim).sum(dim=2).to(dt)
-    Gim = (Hi * Fre - Hr * Fim).sum(dim=2).to(dt)
+    Gre = Gim = 0
+    for x0, x1 in tiles(P):
+        Fre, Fim = _block_mm(Btre[..., x0:x1], Btim[..., x0:x1],
+                             WxTre[:, x0:x1].mT, WxTim[:, x0:x1].mT)
+        Gre = Gre + (Hr * Fre + Hi * Fim).sum(dim=2)
+        Gim = Gim + (Hi * Fre - Hr * Fim).sum(dim=2)
+    Gre, Gim = Gre.to(dt), Gim.to(dt)
     # 3. C[j, x'] = G[j, i] Ux[i, x'], rounded.
     Cre, Cim = _block_mm(Gre, Gim, UxTre.mT, UxTim.mT)
     Cre, Cim = Cre.to(dt), Cim.to(dt)
@@ -136,15 +201,57 @@ def test_emulation_matches_plain(dtype_name, Ls, C):
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,Ls,C", [(96, 72, 2), (128, 96, 1),
+                                    (128, 128, 1)])
+def test_tiled_emulation_matches_plain(dtype_name, L, Ls, C):
+    """Boxes above 64: two x tiles of F folded into G, B^T over both y
+    tiles before its rounding."""
+    args = _args(L, Ls, C, 1, dtype_name, seed=L + Ls + C)
+    got = emulate_tc(*args)
+    want = tfused.fused_correlate_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= TOL[dtype_name]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Ls,C", [(16, 3), (24, 1)])
 def test_emulation_matches_pallas_interpret(dtype_name, Ls, C):
-    args = _args(32, Ls, C, 2, dtype_name, seed=10 + Ls + C)
+    _matches_pallas_interpret(dtype_name, 32, Ls, C, 2)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_tiled_emulation_matches_pallas_interpret(dtype_name):
+    """A box above 64: L = 96, box 72 (two x tiles, the last 16 rows)."""
+    _matches_pallas_interpret(dtype_name, 96, 72, 1, 1)
+
+
+def _matches_pallas_interpret(dtype_name, L, Ls, C, b):
+    args = _args(L, Ls, C, b, dtype_name, seed=10 + Ls + C)
     jdt = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
     jargs = tuple(jnp.asarray(np_(a.float())).astype(jdt) for a in args)
     want = jfused.fused_correlate(*jargs, interpret=True)
     got = emulate_tc(*args)
     for g, w in zip(got, want):
         assert _rel(g, t_(w)) <= TOL[dtype_name]
+
+
+def test_rounding_at_a_y_tile_boundary_moves_the_emulation():
+    """B^T rounded to bf16 at the end of the first y tile as well as
+    after the last (a rounding point the TPU kernel does not have) lands
+    at least 5x farther from the plain version than the kernel's order,
+    which differs from it only in float32 summation order; in float32 the
+    same change moves nothing past 2e-6 (there is no rounding to move)."""
+    args = _args(128, 96, 2, 1, "bfloat16", seed=11)
+    want = tfused.fused_correlate_reference(*args)
+    good = max(_rel(g, w) for g, w in zip(emulate_tc(*args), want))
+    bad = max(_rel(g, w) for g, w in
+              zip(emulate_tc(*args, round_y_tiles=True), want))
+    assert good <= TOL["bfloat16"] and bad >= 5 * good
+    f32 = tuple(a.float() for a in args)
+    moved = max(_rel(g, w) for g, w in zip(
+        emulate_tc(*f32, round_y_tiles=True), emulate_tc(*f32)))
+    assert moved <= 2e-6
 
 
 def test_emulation_rounds_where_the_kernel_rounds():

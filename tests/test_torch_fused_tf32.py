@@ -4,13 +4,15 @@ the CPU.
 The CUDA kernel cannot run here, so this file holds its formulation:
 ``k1_route``'s float32 edges, the TF32 split (``fused.tf32_split``) and
 the split layout of the twiddles (``fused.tf32_operands``), the
-kernel's shared-memory rule (``fused.tf32_smem_bytes``), a lane-level
-model of its m16n8k8 fragments (loads, the k order, the chaining of one
-stage's sums into the next stage's A operand), and a torch emulation of
-what it computes -- every operand split into hi + lo by bit masking,
-every contraction's k axis in the kernel's slot order on both sides,
-each real product as hi*hi + hi*lo + lo*hi with float32 sums -- against
-the plain version (``fused_correlate_reference``) and the JAX kernel in
+kernel's shared-memory rule (``fused.tf32_smem_bytes``, every box up to
+128 at every L), a lane-level model of its m16n8k8 fragments (loads, the
+k order, the chaining of one stage's sums into the next stage's A
+operand), and a torch emulation of what it computes -- every operand
+split into hi + lo by bit masking, every contraction's k axis in the
+kernel's slot order on both sides, each real product as hi*hi + hi*lo +
+lo*hi with float32 sums, boxes above 64 in 64 x 64 tiles of A (B^T
+summed over the y tiles, each x tile's F folded into G) -- against the
+plain version (``fused_correlate_reference``) and the JAX kernel in
 interpret mode, with one receptor spectrum and with G = 2.
 
 Tolerance: 5e-6 relative to max |D|.  3xTF32 drops only lo*lo (2^-22
@@ -46,10 +48,13 @@ SLOT = [0, 2, 4, 6, 1, 3, 5, 7]   # slot s of an 8-deep step holds k = SLOT[s]
     (40, 64, "tf32"),      # the v9p checkpoint's config
     (24, 64, "tf32"),      # band 100's boxes
     (16, 32, "tf32"),
-    (65, 128, "simt"),     # boxes above 64
-    (72, 128, "simt"),
-    (96, 128, "simt"),
+    (65, 128, "tf32"),     # boxes above 64: 2 x 2 tiles of A
+    (72, 128, "tf32"),
+    (96, 128, "tf32"),
+    (128, 128, "tf32"),
     (32, 120, "simt"),     # L not a multiple of 16
+    (96, 120, "simt"),
+    (32, 72, "simt"),
     (32, 144, "simt")])    # L above 128
 def test_k1_route_float32(box, L, want):
     assert tfused.k1_route(torch.float32, box, box, L, L, L, L) == want
@@ -58,7 +63,8 @@ def test_k1_route_float32(box, L, want):
 def test_k1_route_float32_checks_each_axis():
     f = torch.float32
     assert tfused.k1_route(f, 64, 16, 32, 32, 32, 32) == "tf32"
-    assert tfused.k1_route(f, 16, 65, 32, 32, 32, 32) == "simt"
+    assert tfused.k1_route(f, 16, 65, 32, 32, 32, 32) == "tf32"
+    assert tfused.k1_route(f, 96, 128, 128, 128, 128, 128) == "tf32"
     assert tfused.k1_route(f, 16, 16, 24, 32, 32, 32) == "simt"
     assert tfused.k1_route(f, 16, 16, 32, 32, 32, 8) == "simt"
     assert tfused.k1_route(torch.float64, 16, 16, 32, 32, 32, 32) == "simt"
@@ -118,7 +124,8 @@ def test_tf32_operands_layout(L, Ls):
 
 @pytest.mark.parametrize("L,Ls,dtype_name,route", [
     (32, 16, "float32", "tf32"), (64, 40, "float32", "tf32"),
-    (32, 16, "bfloat16", "tc"), (96, 72, "float32", "simt")])
+    (32, 16, "bfloat16", "tc"), (96, 72, "float32", "tf32"),
+    (120, 72, "float32", "simt")])
 def test_k1_layouts_made_once(L, Ls, dtype_name, route):
     """A correlator makes its twiddles' layouts for K1's route once (the
     v9p config launches K1 813 times per request) and keeps them; the
@@ -141,6 +148,18 @@ def test_tf32_smem_fits(L):
     # L = 128, P = 64: G 139,264 B + the split slab 73,728 B.
     assert tfused.tf32_smem_bytes(64, 64, 128, 128) == 212_992
     assert tfused.tf32_smem_bytes(20, 64, L, L) == sizes[-1]
+
+
+def test_tf32_smem_fits_every_box_and_l():
+    """Every box up to 128 at every L <= 128 that is a multiple of 16
+    fits a Hopper block: above 64 the slab holds one 64 x 64 tile, so
+    the size is that of a box of 64."""
+    for L in range(16, 129, 16):
+        for box in range(1, 129):
+            assert (tfused.tf32_smem_bytes(box, box, L, L)
+                    <= tfused.SMEM_OPTIN_BYTES)
+    for box in (65, 72, 96, 128):
+        assert tfused.tf32_smem_bytes(box, box, 128, 128) == 212_992
 
 
 # ---- a lane-level model of the kernel's m16n8k8 fragments ----
@@ -275,6 +294,7 @@ def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True):
     tw = [decode(o) for o in tfused.tf32_operands(*twiddles)]
     WyT, WxT, UxT, UyT = ((tw[n], tw[n + 1]) for n in range(0, 8, 2))
     P = WyT[0][0].shape[1]
+    edges = [(0, P)] if P <= 64 else [(0, 64), (64, P)]   # A's tiles
     X, Y = Are.shape[-2:]
     b, G = Are.shape[0], 1 if Hre.ndim == 4 else Hre.shape[0]
 
@@ -284,18 +304,30 @@ def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True):
     def pad(a):                                  # [.., X, Y] -> [.., P, P]
         return torch.nn.functional.pad(a, (0, P - Y, 0, P - X))
 
-    # 1. B^T[c, j, x] = sum_y Wy^T[j, y] A[c, x, y] (the twiddle is p).
-    Btr, Bti = cmm3(WyT, split(pad(Are), pad(Aim)), lo=lo,
-                    perm=(permute, True))
-    # 2. F[c, j, i] = sum_x B^T[c, j, x] Wx^T[i, x]; G += H conj(F).
+    def cols(m, e):
+        """Columns [e[0], e[1]) of every part of an operand."""
+        return tuple(tuple(x[..., e[0]:e[1]] for x in part) for part in m)
+
+    # 1. B^T[c, j, x] = sum_y Wy^T[j, y] A[c, x, y] (the twiddle is p),
+    #    float32 sums over the y tiles.
+    A = split(pad(Are), pad(Aim))
+    Btr = Bti = 0
+    for e in edges:
+        pr, pi = cmm3(cols(WyT, e), cols(A, e), lo=lo, perm=(permute, True))
+        Btr, Bti = Btr + pr, Bti + pi
+    # 2. Per x tile, F[c, j, i] = sum_x B^T[c, j, x] Wx^T[i, x] over the
+    #    tile's x; G += H conj(F).
     kw = dict(lo=lo, perm=(True, permute))
-    Fre, Fim = cmm3(split(Btr, Bti), WxT, **kw)
-    grouped = (G, b // G) + Fre.shape[1:]
-    Fre, Fim = Fre.reshape(grouped), Fim.reshape(grouped)
     Hr = Hre.reshape((G, 1) + Hre.shape[-4:])
     Hi = Him.reshape(Hr.shape)
-    Gre = (Hr * Fre + Hi * Fim).sum(dim=3).flatten(0, 1)
-    Gim = (Hi * Fre - Hr * Fim).sum(dim=3).flatten(0, 1)
+    Gre = Gim = 0
+    for e in edges:
+        Fre, Fim = cmm3(split(Btr[..., e[0]:e[1]], Bti[..., e[0]:e[1]]),
+                        cols(WxT, e), **kw)
+        grouped = (G, b // G) + Fre.shape[1:]
+        Fre, Fim = Fre.reshape(grouped), Fim.reshape(grouped)
+        Gre = Gre + (Hr * Fre + Hi * Fim).sum(dim=3).flatten(0, 1)
+        Gim = Gim + (Hi * Fre - Hr * Fim).sum(dim=3).flatten(0, 1)
     # 3. C[j, x'] = sum_i G[j, i] Ux^T[x', i].
     Cre, Cim = cmm3(split(Gre, Gim), UxT, **kw)
     # 4. D[x', y'] = sum_j C^T[x', j] Uy^T[y', j].
@@ -329,11 +361,34 @@ def test_emulation_matches_plain(L, Ls, C, G):
         assert _rel(g, w) <= TOL
 
 
+@pytest.mark.parametrize("L,Ls,C,G,b", [(96, 72, 2, None, 1),
+                                        (128, 96, 1, None, 1),
+                                        (128, 128, 1, None, 1),
+                                        (96, 80, 1, 2, 2)])
+def test_tiled_emulation_matches_plain(L, Ls, C, G, b):
+    """Boxes above 64 (A in 64 x 64 tiles, the last 16 or 32 wide at
+    boxes 72 and 96) against the plain version."""
+    args = _args(L, Ls, C, b, G, seed=L + Ls + C)
+    got = emulate_tf32(*args)
+    want = tfused.fused_correlate_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= TOL
+
+
 @pytest.mark.parametrize("Ls,C,G", [(16, 3, None), (24, 1, None),
                                     (16, 2, 2)])
 def test_emulation_matches_pallas_interpret(Ls, C, G):
-    b = 4
-    args = _args(32, Ls, C, b, G, seed=20 + Ls + C)
+    _matches_pallas_interpret(32, Ls, C, G, 4)
+
+
+def test_tiled_emulation_matches_pallas_interpret():
+    """A box above 64: L = 96, box 72 (2 x 2 tiles, the last 16 wide)."""
+    _matches_pallas_interpret(96, 72, 1, None, 1)
+
+
+def _matches_pallas_interpret(L, Ls, C, G, b):
+    args = _args(L, Ls, C, b, G, seed=20 + Ls + C)
     jargs = [jnp.asarray(np_(a)) for a in args]
     if G is None:
         want = jfused.fused_correlate(*jargs, interpret=True)

@@ -7,10 +7,11 @@ one.  The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order; 3xTF32 on the tensor cores), 2e-2 in bf16 (the same
-rounding points, where one bf16 ulp is 2^-8 relative).  K1 runs boxes up
-to 64 on the tensor cores (bf16 on its tc kernel, float32 on its tf32
-kernel) and larger boxes on its SIMT kernel (``fused.k1_route``); all
-three are held here, with one receptor spectrum or G of them, as are K2's and
+rounding points, where one bf16 ulp is 2^-8 relative).  K1 runs every
+box up to 128 on the tensor cores when L is a multiple of 16 (bf16 on
+its tc kernel, float32 on its tf32 kernel; boxes above 64 in tiles of
+A) and other L on its SIMT kernel (``fused.k1_route``); all three are
+held here, with one receptor spectrum or G of them, as are K2's and
 K3's FFT kernels (L = 64, 128) and dense kernels (other L;
 ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
 only.  One train step is held against the same step on the CPU.
@@ -73,15 +74,23 @@ def _rel(got, want):
     (32, 16, 2, 5, "bfloat16", 2e-2),
     (128, 16, 3, 2, "bfloat16", 2e-2),
     (128, 40, 3, 2, "bfloat16", 2e-2),
-    (128, 64, 3, 2, "bfloat16", 2e-2),    # the largest tensor-core box
+    (128, 64, 3, 2, "bfloat16", 2e-2),    # the largest one-tile box
     (64, 40, 16, 3, "bfloat16", 2e-2),
-    (128, 72, 3, 2, "bfloat16", 2e-2),    # bf16 on the SIMT kernel
-    (128, 96, 3, 2, "float32", 1e-4),     # float32 boxes above 64: SIMT
-    (128, 128, 3, 1, "float32", 1e-4)])
+    (128, 72, 3, 2, "bfloat16", 2e-2),    # boxes above 64: tiles of A
+    (128, 96, 3, 2, "bfloat16", 2e-2),
+    (128, 128, 3, 1, "bfloat16", 2e-2),
+    (128, 71, 3, 2, "bfloat16", 2e-2),    # odd Y: A by plain loads
+    (64, 33, 2, 2, "bfloat16", 2e-2),
+    (128, 72, 3, 2, "float32", 1e-4),
+    (128, 96, 3, 2, "float32", 1e-4),
+    (128, 128, 3, 1, "float32", 1e-4),
+    (96, 80, 16, 2, "float32", 1e-4),     # C = 16, the last tile 16 wide
+    (120, 72, 3, 2, "float32", 1e-4),     # L not a multiple of 16: SIMT
+    (120, 32, 2, 3, "bfloat16", 2e-2)])
 def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
     route = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L)
-    assert route == ("simt" if Ls > 64 else
+    assert route == ("simt" if L % 16 else
                      "tc" if dtype_name == "bfloat16" else "tf32")
     n0, tc0, tf0 = fused.launches, fused.launches_tc, fused.launches_tf32
     got = fused.fused_correlate(*args)
@@ -128,6 +137,36 @@ def test_k1_tf32_refuses_a_block_that_does_not_fit(cuda_device,
     assert (fused.launches, fused.launches_tf32) == (n0, tf0)
 
 
+def test_k1_tc_refuses_a_block_that_does_not_fit(cuda_device,
+                                                 monkeypatch):
+    """The tc route at box 128 on a card that gave a block less shared
+    memory than it needs: the wrapper raises before the launch."""
+    _, args = _k1_args(cuda_device, 128, 128, 1, 1, "bfloat16")
+    need = fused.tc_smem_bytes(128, 128, 128, 128, 128)
+    monkeypatch.setattr(fused, "SMEM_OPTIN_BYTES", need - 1)
+    n0, tc0 = fused.launches, fused.launches_tc
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.fused_correlate(*args)
+    assert (fused.launches, fused.launches_tc) == (n0, tc0)
+
+
+def test_k1_tc_takes_a_2_byte_aligned_a(cuda_device):
+    """A views 2 bytes off a 4-byte boundary: the tc kernel loads them
+    with plain loads instead of cp.async, to the same D bit for bit."""
+    _, args = _k1_args(cuda_device, 128, 72, 2, 2, "bfloat16")
+    want = fused.fused_correlate(*args)
+    shifted = []
+    for a in args[:2]:
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda_device)
+        view = flat[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 4 == 2
+        shifted.append(view)
+    got = fused.fused_correlate(*shifted, *args[2:])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_k1_tf32_refuses_misaligned_h(cuda_device):
     """The tf32 kernel reads H in pairs: an H view 4 bytes off an 8-byte
     boundary raises before the launch."""
@@ -146,8 +185,12 @@ def test_k1_tf32_refuses_misaligned_h(cuda_device):
     (64, 40, 16, 4, "bfloat16", 2e-2),
     (128, 32, 3, 8, "float32", 1e-4),     # tf32
     (64, 40, 16, 4, "float32", 1e-4),     # tf32 at the v9p config
-    (64, 72, 2, 4, "float32", 1e-4),      # SIMT (box above 64)
-    (64, 72, 2, 4, "bfloat16", 2e-2)])    # SIMT in bf16
+    (64, 72, 2, 4, "float32", 1e-4),      # tf32, box above 64 (2 x 2 tiles)
+    (64, 72, 2, 4, "bfloat16", 2e-2),     # tc, box above 64 (two x tiles)
+    (128, 96, 3, 8, "bfloat16", 2e-2),
+    (128, 96, 3, 8, "float32", 1e-4),
+    (120, 72, 2, 4, "float32", 1e-4),     # SIMT (L not a multiple of 16)
+    (120, 40, 2, 4, "bfloat16", 2e-2)])   # SIMT in bf16
 def test_k1_groups_match_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     """Every K1 route with G = 4 receptor spectra (rows [g b/4, (g+1)
     b/4) against H[g]) against the plain version."""
