@@ -19,8 +19,8 @@ phase that does not hold:
    still runs, at L = 120 (bf16 at the bench box, float32 at box 72); K2
    with a real translation mask, drill-down
    top-K; K3 on the summed spectrum of the ``dft`` engine's forward
-   half, on its FFT kernel, and on random spectra at L = 64 (FFT) and
-   L = 96 (dense)), plus the time of each kernel and its plain version
+   half, on its FFT kernel, and on random spectra at L = 64 and 96 (FFT)
+   and L = 80 (dense)), plus the time of each kernel and its plain version
    at the full batch of 128 (K1 also on its SIMT kernel in bf16 at the
    bench box and at L = 120, at the grid-120 request's shape; each
    tensor-core route against SIMT in turns at boxes 72 and 96 and alone
@@ -28,12 +28,15 @@ phase that does not hold:
    tf32 and SIMT kernels, timed
    in turns and each held against plain, at the bench box and at the v9p
    checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 on its FFT kernel at L = 128 on the bench
-   complex's D and at L = 64, and on its dense kernel at L = 96; both K2
-   kernels, timed in turns, held against plain at b = 128 and at the
-   rescore's b = 48 with 16 bias groups; both K3 kernels, timed in turns
-   and held against plain at b = 128, beside the library call
-   ``torch.fft.ifft2`` that computes K3's function; the dense K2 and K3
-   and ``ifft2`` again at L = 96, b = 128, where the dense routes run),
+   complex's D and at L = 64 and 96, and on its dense kernel at L = 32;
+   both K2 kernels, timed in turns, held against plain at b = 128 and at
+   the rescore's b = 48 with 16 bias groups; both K3 kernels, timed in
+   turns and held against plain at b = 128, beside the library call
+   ``torch.fft.ifft2`` that computes K3's function; both K2 and both K3
+   kernels in turns again at L = 96, b = 128, beside ``ifft2`` (the FFT
+   K3 must beat it, the FFT K2 the dense one); the dense kernels at the
+   L they still serve, b = 128: K2 at L = 32, K3 at L = 80 and 112
+   beside ``ifft2``),
    with each kernel's
    bound at those shapes: the bytes its function must move or the
    operations of that function done as FFTs at the peak rate for how
@@ -43,10 +46,13 @@ phase that does not hold:
    folded into the last conv, bf16, grid 128, top-K 64, chunk 128)
    serves three ``DockingPipeline.dock`` requests, proving through the
    launch counters that K1 (every launch on the tensor-core kernel) and
-   K2 (every launch on the FFT kernel) ran in each; then one request at
-   grid 96 runs K2's dense kernel, one at grid 120 (not a multiple of
-   16) runs K1's SIMT kernel, one float32 request at grid 128
-   with a ligand box of 96 runs K1's tf32 kernel in 2 x 2 tiles of A,
+   K2 (every launch on the FFT kernel) ran in each; then two float32
+   requests of 64 rotations, each also on the CPU (top-K values within
+   rtol 1e-3, the same top-1) and each first K2 launch held against
+   plain: one at grid 96 (the rep-score and train presets' grid) runs
+   K2's FFT kernel, one at grid 32 its dense kernel; one at grid 120
+   (not a multiple of 16) runs K1's SIMT kernel, one float32 request at
+   grid 128 with a ligand box of 96 runs K1's tf32 kernel in 2 x 2 tiles of A,
    and two float32
    requests of 2,048 rotations run every K1 launch on the tf32 kernel:
    the bench config in float32 and the v9p checkpoint's own
@@ -67,9 +73,11 @@ phase that does not hold:
    ligands of seeds 0-2 (``dock`` then ``rescore(top=16, nrot=48)``
    each; the first also ``refine(steps=30)`` through the cached
    engine), proving that K3 ran in every stage, every launch on its FFT
-   kernel; then one ``dft_pallas`` dock at grid 96 on K3's dense kernel,
-   and one ``rescore`` on the main-path ``dft_fused`` engine, whose K2
-   must see 16 bias groups;
+   kernel; then two float32 ``dft_pallas`` docks of 64 rotations, each
+   also on the CPU and each first K3 launch held against plain: grid 96
+   on K3's FFT kernel, grid 80 on its dense kernel; and one ``rescore``
+   on the main-path ``dft_fused`` engine, whose K2 must see 16 bias
+   groups;
 6. card against CPU for that path: dock -> rescore -> refine at
    float32, grid 64, 256 rotations, ``dft_pallas`` (K3 on its FFT
    kernel);
@@ -212,6 +220,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROT_SERVE = 2048          # per request; the JAX bench sweeps 13,000
 N_ROT_BOX96 = 64            # the float32 box-96 request, also run on the CPU
+# The float32 requests at grids 96, 32 (dft_fused) and 96, 80
+# (dft_pallas), each also run on the CPU: two launches each.
+N_ROT_SMALL_GRID = 64
+SMALL_GRID_CHUNK = 32
 # The full-depth requests' complex: a 250-residue polymer ligand, whose
 # own box at grid 128 (auto_ligand_grid) is 72.
 BIG_COMPLEX = dict(seed=0, n_res_rec=300, n_res_lig=250, backbone=True)
@@ -307,10 +319,11 @@ def fft_flops(n):
 def k2_fft_flops(L):
     """Operations of ``invz_blockmax_fft.cu`` per (rotation, x, y) column:
     the packing (12 per k), the radix-8 pass with its twiddles, the
-    radix-Q pass, the 1/L scale, the bias add and the max."""
+    radix-Q pass (radix 6: two radix-3 DFTs of 16 and a radix-2 step of
+    24), the 1/L scale, the bias add and the max."""
     M = L // 2
     Q = M // 8
-    radix = {4: 16, 8: 56}
+    radix = {4: 16, 6: 56, 8: 56}
     return 12 * M + Q * radix[8] + 6 * Q * 7 + 8 * radix[Q] + 3 * L
 
 
@@ -345,6 +358,18 @@ def k2_check(args):
     route = "fft" if invz_topk.launches_fft > f0 else "dense"
     return (rel_err(got, invz_topk.invz_blockmax_reference(*args)), route,
             got)
+
+
+def k3_check(args):
+    """((max abs err, rel err), route) of one K3 launch on ``args``, held
+    against the plain version."""
+    import torch
+    from deeplocalproteindocking_torch.correlate import idft
+    f0 = idft.launches_fft
+    got = idft.idft_bc(*args)
+    torch.cuda.synchronize()
+    route = "fft" if idft.launches_fft > f0 else "dense"
+    return rel_err(got, idft.idft_bc_reference(*args)), route
 
 
 def band100_local(dev, params):
@@ -2591,13 +2616,9 @@ def main():
         a random E, held against the plain version."""
         g = torch.Generator(device=dev).manual_seed(seed)
         corr = get_correlator(Lk, 16, "float32", dev)
-        args = [torch.randn((b, Lk, Lk, Lk), generator=g, device=dev)
-                for _ in range(2)] + [corr.UxRe32, corr.UxIm32] * 2
-        f0 = idft.launches_fft
-        got = idft.idft_bc(*args)
-        torch.cuda.synchronize()
-        route = "fft" if idft.launches_fft > f0 else "dense"
-        return rel_err(got, idft.idft_bc_reference(*args)), route
+        return k3_check([torch.randn((b, Lk, Lk, Lk), generator=g,
+                                     device=dev) for _ in range(2)]
+                        + [corr.UxRe32, corr.UxIm32] * 2)
 
     # ---- phase 2: kernels against their plain versions ----
     errs, routes = {}, {}
@@ -2634,7 +2655,8 @@ def main():
             (D[0], D[1], corr32.MzRe, corr32.MzIm, bias))
         check(route == "fft", "K2 at L=128 did not launch its FFT kernel")
         k2_routes = {}
-        for key, Lk in (("k2_fft_L64", 64), ("k2_dense_L96", 96)):
+        for key, Lk in (("k2_fft_L64", 64), ("k2_fft_L96", 96),
+                        ("k2_dense_L32", 32)):
             errs[key], k2_routes[key] = k2_random_check(Lk)
         top_k = serve_cfg.top_k
         dv, dflat = invz_topk.drill_topk(D[0], D[1], corr32.MzRe,
@@ -2656,7 +2678,8 @@ def main():
         errs["k3"] = rel_err(k3_got, idft.idft_bc_reference(*k3_args))
         del k3_args, k3_got
         k3_routes = {}
-        for key, Lk in (("k3_fft_L64", 64), ("k3_dense_L96", 96)):
+        for key, Lk in (("k3_fft_L64", 64), ("k3_fft_L96", 96),
+                        ("k3_dense_L80", 80)):
             errs[key], k3_routes[key] = k3_random_check(Lk)
     emit("kernels_vs_plain", batch=8, L=L, Ls=Ls, C=3, K=L // 2 + 1,
          k1_float32_max_abs_err=errs["k1_float32"][0],
@@ -2671,12 +2694,14 @@ def main():
          k2_fft_max_abs_err=errs["k2_fft"][0],
          k2_fft_rel_err=errs["k2_fft"][1],
          k2_fft_L64_rel_err=errs["k2_fft_L64"][1],
-         k2_dense_L96_rel_err=errs["k2_dense_L96"][1], k2_routes=k2_routes,
+         k2_fft_L96_rel_err=errs["k2_fft_L96"][1],
+         k2_dense_L32_rel_err=errs["k2_dense_L32"][1], k2_routes=k2_routes,
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
          k3_max_abs_err=errs["k3"][0], k3_rel_err=errs["k3"][1],
          k3_fft_L64_rel_err=errs["k3_fft_L64"][1],
-         k3_dense_L96_rel_err=errs["k3_dense_L96"][1], k3_routes=k3_routes,
+         k3_fft_L96_rel_err=errs["k3_fft_L96"][1],
+         k3_dense_L80_rel_err=errs["k3_dense_L80"][1], k3_routes=k3_routes,
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
     want_routes = {}
@@ -2688,14 +2713,14 @@ def main():
                             else "tf32" if f32 else "tc")
     check(len(routes) == 16 and routes == want_routes,
           f"K1 routes {routes}, expected {want_routes}")
-    for key in ("k2_fft", "k2_fft_L64", "k2_dense_L96"):
+    for key in ("k2_fft", "k2_fft_L64", "k2_fft_L96", "k2_dense_L32"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
-    check(k2_routes == {"k2_fft_L64": "fft", "k2_dense_L96": "dense"},
-          f"K2 routes {k2_routes}")
-    for key in ("k3", "k3_fft_L64", "k3_dense_L96"):
+    check(k2_routes == {"k2_fft_L64": "fft", "k2_fft_L96": "fft",
+                        "k2_dense_L32": "dense"}, f"K2 routes {k2_routes}")
+    for key in ("k3", "k3_fft_L64", "k3_fft_L96", "k3_dense_L80"):
         check(errs[key][1] <= TOL_F32, f"K3 {key} {errs}")
-    check(k3_routes == {"k3_fft_L64": "fft", "k3_dense_L96": "dense"},
-          f"K3 routes {k3_routes}")
+    check(k3_routes == {"k3_fft_L64": "fft", "k3_fft_L96": "fft",
+                        "k3_dense_L80": "dense"}, f"K3 routes {k3_routes}")
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
           f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
 
@@ -2720,10 +2745,10 @@ def main():
             invz_topk.invz_blockmax_reference, args)
         # Both routes compute one function; its least work is the FFT's.
         Dre, bk = args[0], args[4]
-        bb = Dre.shape[0]
+        bb, Lk = Dre.shape[0], args[2].shape[1]
         return turns, plain_ms, route_errs, bound(
-            (2 * Dre.numel() + bk.numel() + bb * L ** 3 // 32) * 4,
-            k2_fft_flops(L) * bb * L * L, "float32")
+            (2 * Dre.numel() + bk.numel() + bb * Lk ** 3 // 32) * 4,
+            k2_fft_flops(Lk) * bb * Lk * Lk, "float32")
 
     # Times at the main path's full chunk: b=128 rotations, bf16.
     with torch.inference_mode():
@@ -2796,56 +2821,92 @@ def main():
                              2 * (nvol // L) * fft_flops(L), "float32")
         del k3_args, k3_want
 
-        # Dense K2 and K3, and K3's library call, at L = 96, where the
-        # dense routes run (grid 96: the rep-score and train presets), b =
-        # 128; the bounds as at L = 128 (K2's c2r counted as half a
-        # complex FFT per column, plus the bias add and the max).
+        # Both K2 and both K3 kernels at L = 96 (grid 96: the rep-score
+        # and train presets; the FFT routes since the radix-3 stage), b =
+        # 128, timed in turns as at L = 128, beside K3's library call.
         L96, g96 = 96, torch.Generator(device=dev).manual_seed(96)
         corr96 = get_correlator(L96, 16, "float32", dev)
         d96 = [torch.randn((128, L96 // 2 + 1, L96, L96), generator=g96,
                            device=dev) for _ in range(2)]
         bias96 = torch.where(torch.rand((1, L96, L96, L96), generator=g96,
                                         device=dev) < 0.6, 0.0, float("-inf"))
-        k2a = (d96[0], d96[1], corr96.MzRe, corr96.MzIm, bias96)
-        n0, f0 = invz_topk.launches, invz_topk.launches_fft
-        k2_err96 = rel_err(invz_topk.invz_blockmax(*k2a),
-                           invz_topk.invz_blockmax_reference(*k2a))
-        at96 = {"k2_dense": dict(
-            route="dense" if (invz_topk.launches - n0, invz_topk.launches_fft
-                              - f0) == (1, 0) else "fft",
-            ms=cuda_time_ms(lambda: invz_topk.invz_blockmax(*k2a)),
-            plain_ms=cuda_time_ms(
-                lambda: invz_topk.invz_blockmax_reference(*k2a)),
-            max_abs_err=k2_err96[0], rel_err=k2_err96[1],
-            bound=bound((2 * d96[0].numel() + bias96.numel()
-                         + 128 * L96 ** 3 // 32) * 4,
-                        128 * L96 * L96 * (fft_flops(L96) / 2 + 3 * L96),
-                        "float32"))}
-        del d96, bias96, k2a
+        at96 = {"k2": dict(zip(("turns", "plain_ms", "errs", "bound"),
+                               k2_both_routes((d96[0], d96[1], corr96.MzRe,
+                                               corr96.MzIm, bias96))),
+                           route=invz_topk.k2_route(L96))}
+        del d96, bias96
         e96 = [torch.randn((128, L96, L96, L96), generator=g96, device=dev)
                for _ in range(2)]
         k3a = (*e96, corr96.UxRe32, corr96.UxIm32, corr96.UxRe32,
                corr96.UxIm32)
-        k3_want96 = idft.idft_bc_reference(*k3a)
-        n0, f0 = idft.launches, idft.launches_fft
-        k3_err96 = rel_err(idft.idft_bc(*k3a), k3_want96)
+        turns96, plain96, errs96, k3_want96 = both_routes(
+            {"dense": idft._launch_dense, "fft": idft._launch_fft},
+            idft.idft_bc_reference, k3a)
 
         def k3_library96():
             return torch.fft.ifft2(torch.complex(e96[0], e96[1]),
                                    dim=(1, 2)).real
 
-        at96["k3_dense"] = dict(
-            route="dense" if (idft.launches - n0, idft.launches_fft
-                              - f0) == (1, 0) else "fft",
-            ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
-            plain_ms=cuda_time_ms(lambda: idft.idft_bc_reference(*k3a)),
-            max_abs_err=k3_err96[0], rel_err=k3_err96[1],
-            library_ms=cuda_time_ms(k3_library96),
+        at96["k3"] = dict(
+            turns=turns96, plain_ms=plain96, errs=errs96,
+            route=idft.k3_route(L96), library_ms=cuda_time_ms(k3_library96),
             library_rel_err=rel_err(k3_library96(), k3_want96)[1],
             bound=bound((3 * e96[0].numel() + 4 * L96 * L96) * 4,
                         2 * (e96[0].numel() // L96) * fft_flops(L96),
                         "float32"))
         del e96, k3a, k3_want96
+        for rec in at96.values():
+            rec["ms"] = {r: sum(v) / 2 for r, v in rec["turns"].items()}
+
+        # The dense kernels at the L they still serve, b = 128: K2 at
+        # L = 32 (the other L % 32 == 0 up to 128), K3 at L = 80 and 112,
+        # beside ifft2; K2's bound counts its c2r as half a complex FFT
+        # per column, plus the bias add and the max.
+        g32 = torch.Generator(device=dev).manual_seed(32)
+        c32 = get_correlator(32, 16, "float32", dev)
+        d32 = [torch.randn((128, 17, 32, 32), generator=g32, device=dev)
+               for _ in range(2)]
+        b32 = torch.where(torch.rand((1, 32, 32, 32), generator=g32,
+                                     device=dev) < 0.6, 0.0, float("-inf"))
+        k2a = (d32[0], d32[1], c32.MzRe, c32.MzIm, b32)
+        err = rel_err(invz_topk.invz_blockmax(*k2a),
+                      invz_topk.invz_blockmax_reference(*k2a))
+        dense_at = {"k2_L32": dict(
+            route=invz_topk.k2_route(32), shape=list(d32[0].shape),
+            ms=cuda_time_ms(lambda: invz_topk.invz_blockmax(*k2a)),
+            plain_ms=cuda_time_ms(
+                lambda: invz_topk.invz_blockmax_reference(*k2a)),
+            max_abs_err=err[0], rel_err=err[1],
+            bound=bound((2 * d32[0].numel() + b32.numel()
+                         + 128 * 32 ** 3 // 32) * 4,
+                        128 * 32 * 32 * (fft_flops(32) / 2 + 3 * 32),
+                        "float32"))}
+        del d32, b32, k2a
+        for Lk in (80, 112):
+            ck = get_correlator(Lk, 16, "float32", dev)
+            ek = [torch.randn((128, Lk, Lk, Lk), generator=g32, device=dev)
+                  for _ in range(2)]
+            k3a = (*ek, ck.UxRe32, ck.UxIm32, ck.UxRe32, ck.UxIm32)
+            want = idft.idft_bc_reference(*k3a)
+            err = rel_err(idft.idft_bc(*k3a), want)
+
+            def k3_library_at():
+                return torch.fft.ifft2(torch.complex(ek[0], ek[1]),
+                                       dim=(1, 2)).real
+
+            dense_at[f"k3_L{Lk}"] = dict(
+                route=idft.k3_route(Lk), shape=list(ek[0].shape),
+                ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
+                plain_ms=cuda_time_ms(lambda: idft.idft_bc_reference(*k3a)),
+                max_abs_err=err[0], rel_err=err[1],
+                library_ms=cuda_time_ms(k3_library_at),
+                library_rel_err=rel_err(k3_library_at(), want)[1],
+                bound=bound((3 * ek[0].numel() + 4 * Lk * Lk) * 4,
+                            2 * (ek[0].numel() // Lk) * fft_flops(Lk),
+                            "float32"))
+            del ek, k3a, want
+            torch.cuda.empty_cache()
+
         def k1_routes(corr, args, reps=5, route="tf32", simt=True,
                       simt_reps=None):
             """K1's tensor-core ``route`` (with ``corr``'s kept twiddle
@@ -2953,6 +3014,7 @@ def main():
                          plain_ms=k2g_plain_ms, bound=k2g_bound,
                          rel_err={r: e[1] for r, e in k2g_errs.items()}),
          k1_above_box64=k1_big, k1_simt_L120=k1_simt_l120, at_L96=at96,
+         dense_routes=dense_at,
          k1_float32=dict(turns=k1_f32_turns, ms=k1_f32_ms,
                          plain_ms=k1_f32_plain_ms,
                          rel_err={r: e[1] for r, e in k1_f32_errs.items()},
@@ -2985,9 +3047,18 @@ def main():
         for route, e in rec["rel_err"].items():
             check(e <= tol, f"K1 {route} at b=128, {key}: {e}")
     for key, rec in at96.items():
-        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32
+        check(rec["route"] == "fft"
+              and all(e[1] <= TOL_F32 for e in rec["errs"].values())
               and rec.get("library_rel_err", 0.0) <= TOL_F32,
               f"{key} at L=96, b=128: {rec}")
+    check(at96["k2"]["ms"]["fft"] < at96["k2"]["ms"]["dense"],
+          f"the FFT K2 at L=96 is not faster than the dense one: {at96}")
+    check(at96["k3"]["ms"]["fft"] < at96["k3"]["library_ms"],
+          f"the FFT K3 at L=96 is not faster than ifft2: {at96}")
+    for key, rec in dense_at.items():
+        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32
+              and rec.get("library_rel_err", 0.0) <= TOL_F32,
+              f"dense {key}, b=128: {rec}")
     check(k1_simt_l120["route"] == "simt"
           and k1_simt_l120["rel_err"] <= TOL_BF16,
           f"K1 at L=120, b=128: {k1_simt_l120}")
@@ -3039,25 +3110,91 @@ def main():
                      "fused_correlate_tf32": fused.launches_tf32,
                      "invz_blockmax_fft": invz_topk.launches_fft}
 
-    # One request at grid 96, where K2 runs its dense kernel.
-    pipe96 = DockingPipeline(serve_cfg.replace(grid_size=96,
-                                               num_rotations=256),
-                             params=params, device=dev)
-    invz_topk.launches = invz_topk.launches_fft = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    poses96 = pipe96.dock_complex(cplx)
-    torch.cuda.synchronize()
-    dense_path = dict(grid=96, rotations=256,
-                      wall_seconds=time.perf_counter() - t0,
-                      poses=len(poses96), top1_score=float(poses96.scores[0]),
-                      k2_launches=invz_topk.launches,
-                      k2_fft_launches=invz_topk.launches_fft)
-    emit("dock_request_grid96", **dense_path)
-    check(len(poses96) > 0 and bool(np.isfinite(poses96.scores).all()),
-          f"grid-96 request: no or non-finite poses {dense_path}")
-    check(dense_path["k2_launches"] > 0 and dense_path["k2_fft_launches"] == 0,
-          f"grid-96 request: K2 did not run its dense kernel {dense_path}")
+    def grid_request(name, cfg):
+        """One request of ``cfg`` on the bench complex (unclustered), on
+        the card with K2's and K3's launch counts set to 0 just before it
+        and read just after, its first K2 and K3 launches held against
+        the plain versions, then again on the CPU (top-K values within
+        rtol 1e-3, the same top-1).  Emits and returns the record."""
+        k2_launch, k3_launch = invz_topk.invz_blockmax, idft.idft_bc
+        first = {}
+
+        def k2_spy(*args):
+            first.setdefault("k2", args)
+            return k2_launch(*args)
+
+        def k3_spy(*args):
+            first.setdefault("k3", args)
+            return k3_launch(*args)
+
+        p = DockingPipeline(cfg, params=params, device=dev)
+        invz_topk.launches = invz_topk.launches_fft = 0
+        idft.launches = idft.launches_fft = 0
+        invz_topk.invz_blockmax, idft.idft_bc = k2_spy, k3_spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = p.dock_complex(cplx, cluster=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            invz_topk.invz_blockmax, idft.idft_bc = k2_launch, k3_launch
+        rec = dict(grid=cfg.grid_size, engine=cfg.fft_impl,
+                   dtype=cfg.dft_dtype, rotations=cfg.num_rotations,
+                   chunk=cfg.rotation_chunk, wall_seconds=wall,
+                   poses=len(got), top1_score=float(got.scores[0]),
+                   k2_launches=invz_topk.launches,
+                   k2_fft_launches=invz_topk.launches_fft,
+                   k3_launches=idft.launches,
+                   k3_fft_launches=idft.launches_fft)
+        with torch.inference_mode():
+            for kernel, checker in (("k2", k2_check), ("k3", k3_check)):
+                if kernel in first:
+                    err, route = checker(first[kernel])[:2]
+                    rec[f"{kernel}_first_launch"] = dict(
+                        route=route, max_abs_err=err[0], rel_err=err[1])
+        t0 = time.perf_counter()
+        want = DockingPipeline(cfg, params=params, device="cpu").dock_complex(
+            cplx, cluster=False)
+        rec.update(
+            cpu_seconds=time.perf_counter() - t0,
+            max_rel_diff=float(np.max(np.abs(np.sort(got.scores)
+                                             - np.sort(want.scores))
+                                      / np.abs(np.sort(want.scores)))),
+            values_close=bool(np.allclose(np.sort(got.scores),
+                                          np.sort(want.scores), rtol=1e-3,
+                                          atol=0)),
+            top1_same=(int(got.rot_idx[0]) == int(want.rot_idx[0])
+                       and list(got.shifts[0]) == list(want.shifts[0])))
+        emit(name, **rec)
+        check(len(got) > 0 and bool(np.isfinite(got.scores).all()),
+              f"{name}: no or non-finite poses {rec}")
+        check(rec["values_close"] and rec["top1_same"],
+              f"{name}: the card and the CPU differ {rec}")
+        for kernel in first:
+            check(rec[f"{kernel}_first_launch"]["rel_err"] <= TOL_F32,
+                  f"{name}: first {kernel} launch against plain {rec}")
+        return rec
+
+    # Float32 requests at grid 96 (the rep-score and train presets' grid
+    # and dtype), where K2 runs its FFT kernel, and at grid 32, where it
+    # runs its dense one; each also on the CPU.
+    small_cfg = serve_cfg.replace(num_rotations=N_ROT_SMALL_GRID,
+                                  rotation_chunk=SMALL_GRID_CHUNK,
+                                  compute_dtype="float32",
+                                  dft_dtype="float32")
+    fft_path = grid_request("dock_request_grid96",
+                            small_cfg.replace(grid_size=96))
+    check(fft_path["k2_launches"] > 0
+          and fft_path["k2_fft_launches"] == fft_path["k2_launches"]
+          and fft_path["k2_first_launch"]["route"] == "fft",
+          f"grid-96 request: a K2 launch missed the FFT kernel {fft_path}")
+    dense_path = grid_request("dock_request_grid32",
+                              small_cfg.replace(grid_size=32))
+    check(dense_path["k2_launches"] > 0
+          and dense_path["k2_fft_launches"] == 0
+          and dense_path["k2_first_launch"]["route"] == "dense",
+          f"grid-32 request: K2 did not run its dense kernel {dense_path}")
 
     # One request at grid 120, not a multiple of 16, where K1 runs its
     # SIMT kernel (and the top-K runs without K2: 120 % 32 != 0).
@@ -3373,27 +3510,21 @@ def main():
           f"a grid-128 K3 launch missed the FFT kernel: {screen_launches} "
           f"launches, {screen_fft_launches} FFT")
 
-    # One dft_pallas dock at grid 96, where K3 runs its dense kernel.
-    pipe96p = DockingPipeline(screen_cfg.replace(grid_size=96,
-                                                 num_rotations=256),
-                              params=params, device=dev)
-    idft.launches = idft.launches_fft = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    poses96p = pipe96p.dock_complex(cplx)
-    torch.cuda.synchronize()
-    k3_dense_path = dict(grid=96, rotations=256,
-                         wall_seconds=time.perf_counter() - t0,
-                         poses=len(poses96p),
-                         top1_score=float(poses96p.scores[0]),
-                         k3_launches=idft.launches,
-                         k3_fft_launches=idft.launches_fft)
-    emit("screen_dock_grid96", **k3_dense_path)
-    check(len(poses96p) > 0 and bool(np.isfinite(poses96p.scores).all()),
-          f"grid-96 dft_pallas dock: no or non-finite poses {k3_dense_path}")
+    # Float32 dft_pallas docks at grid 96, where K3 runs its FFT kernel,
+    # and at grid 80, where it runs its dense one; each also on the CPU.
+    k3_fft96 = grid_request("screen_dock_grid96", small_cfg.replace(
+        fft_impl="dft_pallas", grid_size=96))
+    check(k3_fft96["k3_launches"] > 0
+          and k3_fft96["k3_fft_launches"] == k3_fft96["k3_launches"]
+          and k3_fft96["k3_first_launch"]["route"] == "fft",
+          f"grid-96 dft_pallas dock: a K3 launch missed the FFT kernel "
+          f"{k3_fft96}")
+    k3_dense_path = grid_request("screen_dock_grid80", small_cfg.replace(
+        fft_impl="dft_pallas", grid_size=80))
     check(k3_dense_path["k3_launches"] > 0
-          and k3_dense_path["k3_fft_launches"] == 0,
-          f"grid-96 dft_pallas dock: K3 did not run its dense kernel "
+          and k3_dense_path["k3_fft_launches"] == 0
+          and k3_dense_path["k3_first_launch"]["route"] == "dense",
+          f"grid-80 dft_pallas dock: K3 did not run its dense kernel "
           f"{k3_dense_path}")
 
     # One rescore on the main-path dft_fused engine: K2 takes the 16 head
@@ -3692,34 +3823,52 @@ def main():
              c: p12_err(f"{c}_k2") for c in p12["docks"]},
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k2"]["max_abs_err"],
+         "launches_grid96_request": fft_path["k2_fft_launches"],
+         "max_abs_err_grid96_first_launch":
+             fft_path["k2_first_launch"]["max_abs_err"],
          "max_abs_err": errs["k2_fft"][0],
          "max_abs_err_L64": errs["k2_fft_L64"][0],
+         "max_abs_err_L96": errs["k2_fft_L96"][0],
          "max_abs_err_b128": k2_errs["fft"][0],
          "max_abs_err_band100": band_errs("k2"),
          "tolerance": f"float32 {TOL_F32} x max|plain|",
          "ms": k2_fft_ms, "plain_ms": k2_plain_ms,
+         "at_L96": {"ms": at96["k2"]["ms"]["fft"],
+                    "ms_dense": at96["k2"]["ms"]["dense"],
+                    "turns": at96["k2"]["turns"],
+                    "plain_ms": at96["k2"]["plain_ms"],
+                    "max_abs_err": at96["k2"]["errs"]["fft"][0],
+                    "bound_ms": at96["k2"]["bound"]["bound_ms"]},
          "bound_ms": bounds["k2"]["bound_ms"],
          "bound_by": bounds["k2"]["bound_by"], "library_ms": None},
         {"name": "invz_blockmax", "route": "cuda",
          "source": src + "invz_blockmax.cu",
          "replaces": tpu + "pallas_invz_topk.py:54",
          "launches": dense_path["k2_launches"],
-         "launches_path": "one dock request at grid 96 (K2's dense route)",
+         "launches_path": "one float32 dock request at grid 32 (K2's "
+                          "dense route)",
          "launches_band100": band_count("k2") - band_count("k2_fft"),
          "launches_train": train_launches["k2"] - train_launches["k2_fft"],
          "launches_phase11": p11_count("k2", topk_approx=p11_approx["k2"]),
-         "max_abs_err": errs["k2_dense_L96"][0],
-         "max_abs_err_b128_L96": at96["k2_dense"]["max_abs_err"],
+         "max_abs_err": errs["k2_dense_L32"][0],
+         "max_abs_err_first_launch":
+             dense_path["k2_first_launch"]["max_abs_err"],
+         "max_abs_err_b128_L32": dense_at["k2_L32"]["max_abs_err"],
+         "max_abs_err_b128_L96": at96["k2"]["errs"]["dense"][0],
          "max_abs_err_b128_L128": k2_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "shape": [128, 49, 96, 96], "L": 96,
-         "ms": at96["k2_dense"]["ms"],
-         "plain_ms": at96["k2_dense"]["plain_ms"],
+         "shape": dense_at["k2_L32"]["shape"], "L": 32,
+         "ms": dense_at["k2_L32"]["ms"],
+         "plain_ms": dense_at["k2_L32"]["plain_ms"],
+         "at_L96": {"ms": at96["k2"]["ms"]["dense"],
+                    "ms_fft": at96["k2"]["ms"]["fft"],
+                    "plain_ms": at96["k2"]["plain_ms"],
+                    "bound_ms": at96["k2"]["bound"]["bound_ms"]},
          "at_L128": {"ms": k2_dense_ms, "ms_fft": k2_fft_ms,
                      "plain_ms": k2_plain_ms,
                      "bound_ms": bounds["k2"]["bound_ms"]},
-         "bound_ms": at96["k2_dense"]["bound"]["bound_ms"],
-         "bound_by": at96["k2_dense"]["bound"]["bound_by"],
+         "bound_ms": dense_at["k2_L32"]["bound"]["bound_ms"],
+         "bound_by": dense_at["k2_L32"]["bound"]["bound_by"],
          "library_ms": None},
         {"name": "idft_fft", "route": "cuda",
          "source": src + "idft_fft.cu",
@@ -3731,11 +3880,22 @@ def main():
          "launches_phase11": p11_count("k3_fft"),
          "max_abs_err_cli_screen_first_launch":
              clir["kernels_vs_plain"]["screen_k3"]["max_abs_err"],
+         "launches_grid96_dock": k3_fft96["k3_fft_launches"],
+         "max_abs_err_grid96_first_launch":
+             k3_fft96["k3_first_launch"]["max_abs_err"],
          "max_abs_err": errs["k3"][0],
          "max_abs_err_L64": errs["k3_fft_L64"][0],
+         "max_abs_err_L96": errs["k3_fft_L96"][0],
          "max_abs_err_b128": k3_errs["fft"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
          "ms": k3_fft_ms, "plain_ms": k3_plain_ms,
+         "at_L96": {"ms": at96["k3"]["ms"]["fft"],
+                    "ms_dense": at96["k3"]["ms"]["dense"],
+                    "turns": at96["k3"]["turns"],
+                    "plain_ms": at96["k3"]["plain_ms"],
+                    "library_ms": at96["k3"]["library_ms"],
+                    "max_abs_err": at96["k3"]["errs"]["fft"][0],
+                    "bound_ms": at96["k3"]["bound"]["bound_ms"]},
          "bound_ms": bounds["k3"]["bound_ms"],
          "bound_by": bounds["k3"]["bound_by"],
          "library_ms": k3_library_ms},
@@ -3743,24 +3903,36 @@ def main():
          "source": src + "idft_bc.cu",
          "replaces": tpu + "pallas_idft.py:34",
          "launches": k3_dense_path["k3_launches"],
-         "launches_path": "one dft_pallas dock at grid 96 (K3's dense "
-                          "route)",
+         "launches_path": "one float32 dft_pallas dock at grid 80 (K3's "
+                          "dense route)",
          "launches_band100": band_count("k3") - band_count("k3_fft"),
          "launches_phase11": p11_count("k3"),
-         "max_abs_err": errs["k3_dense_L96"][0],
-         "max_abs_err_b128_L96": at96["k3_dense"]["max_abs_err"],
+         "max_abs_err": errs["k3_dense_L80"][0],
+         "max_abs_err_first_launch":
+             k3_dense_path["k3_first_launch"]["max_abs_err"],
+         "max_abs_err_b128_L80": dense_at["k3_L80"]["max_abs_err"],
+         "max_abs_err_b128_L96": at96["k3"]["errs"]["dense"][0],
          "max_abs_err_b128_L128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "shape": [128, 96, 96, 96], "L": 96,
-         "ms": at96["k3_dense"]["ms"],
-         "plain_ms": at96["k3_dense"]["plain_ms"],
+         "shape": dense_at["k3_L80"]["shape"], "L": 80,
+         "ms": dense_at["k3_L80"]["ms"],
+         "plain_ms": dense_at["k3_L80"]["plain_ms"],
+         "at_L112": {k: (v["bound_ms"] if k == "bound" else v)
+                     for k, v in dense_at["k3_L112"].items()
+                     if k in ("ms", "plain_ms", "library_ms", "bound",
+                              "max_abs_err")},
+         "at_L96": {"ms": at96["k3"]["ms"]["dense"],
+                    "ms_fft": at96["k3"]["ms"]["fft"],
+                    "plain_ms": at96["k3"]["plain_ms"],
+                    "library_ms": at96["k3"]["library_ms"],
+                    "bound_ms": at96["k3"]["bound"]["bound_ms"]},
          "at_L128": {"ms": k3_dense_ms, "ms_fft": k3_fft_ms,
                      "plain_ms": k3_plain_ms,
                      "library_ms": k3_library_ms,
                      "bound_ms": bounds["k3"]["bound_ms"]},
-         "bound_ms": at96["k3_dense"]["bound"]["bound_ms"],
-         "bound_by": at96["k3_dense"]["bound"]["bound_by"],
-         "library_ms": at96["k3_dense"]["library_ms"]}]}), flush=True)
+         "bound_ms": dense_at["k3_L80"]["bound"]["bound_ms"],
+         "bound_by": dense_at["k3_L80"]["bound"]["bound_by"],
+         "library_ms": dense_at["k3_L80"]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

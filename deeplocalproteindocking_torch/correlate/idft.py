@@ -15,14 +15,15 @@ takes them.  :func:`idft_bc` runs the plain version
 hand-written CUDA kernels for CUDA tensors, chosen by :func:`k3_route`
 from the grid size L alone:
 
-- ``"fft"`` (``csrc/idft_fft.cu``), L = 64 or 128 -- the screening
-  path: ``Ux`` and ``Uy`` are the inverse DFT matrix
+- ``"fft"`` (``csrc/idft_fft.cu``), L = 64, 96 or 128 -- the screening
+  path and grid 96's presets: ``Ux`` and ``Uy`` are the inverse DFT matrix
   (:func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft`), so
   the kernel computes passes B and C as a complex FFT along ky and a c2r
   along kx and never reads them; the wrapper checks once per tensor that
   they are that matrix.
-- ``"dense"`` (``csrc/idft_bc.cu``), every other L: the two contractions
-  as float32 FMA loops.
+- ``"dense"`` (``csrc/idft_bc.cu``), every other L that the engine
+  takes (a multiple of 16 up to 128: 16, 32, 48, 80, 112): the two
+  contractions as float32 FMA loops.
 
 A CUDA tensor never falls back: the routed kernel launches or the call
 raises.
@@ -38,7 +39,7 @@ from deeplocalproteindocking_torch.correlate._contract import cmm, mm
 TX = 8          # x rows per block (the TPU kernel's TX)
 KYB = 16        # ky block (the TPU kernel's KYB)
 _MAX_L = 128
-FFT_GRIDS = (64, 128)
+FFT_GRIDS = (64, 96, 128)
 
 # Kernel launches since the last reset (the main path's proof of use):
 # every K3 launch, and those of the FFT kernel alone.

@@ -18,12 +18,13 @@ full volume's ``x*L^2 + y*L + z`` convention.
 hand-written CUDA kernels for CUDA tensors, chosen by :func:`k2_route`
 from the grid size L = Z alone:
 
-- ``"fft"`` (``csrc/invz_blockmax_fft.cu``), L = 64 or 128 -- the main
-  path: ``Mz`` is the c2r inverse along kz
+- ``"fft"`` (``csrc/invz_blockmax_fft.cu``), L = 64, 96 or 128 -- the
+  main path and grid 96's presets: ``Mz`` is the c2r inverse along kz
   (:func:`~deeplocalproteindocking_torch.correlate.dft.hermitian_inverse_z`),
   so the kernel computes it as a real FFT and never reads ``Mz``; the
   wrapper checks once per tensor that ``Mz`` is that matrix.
-- ``"dense"`` (``csrc/invz_blockmax.cu``), every other L: the
+- ``"dense"`` (``csrc/invz_blockmax.cu``), every other L (the fused
+  top-K tail, which needs L % 32 == 0, reaches it at L = 32): the
   contraction as float32 FMA loops.
 
 A CUDA tensor never falls back: the routed kernel launches or the call
@@ -41,7 +42,7 @@ from deeplocalproteindocking_torch.correlate.dft import hermitian_inverse_z
 from deeplocalproteindocking_torch.sweep.topk import exact_block_topk
 
 YB = 32         # block width along y
-FFT_GRIDS = (64, 128)
+FFT_GRIDS = (64, 96, 128)
 
 # Kernel launches since the last reset (the main path's proof of use):
 # every K2 launch, and those of the FFT kernel alone.

@@ -1,7 +1,7 @@
 // Shared pieces of the FFT kernels (invz_blockmax_fft.cu, idft_fft.cu):
-// complex float32 helpers, inverse DFTs of 4, 8 and 16 points in
-// registers, cp.async copies, and the c2r inverse of length L = 64 or 128
-// down the rows of a shared-memory tile of 32 columns.
+// complex float32 helpers, inverse DFTs of 3, 4, 6, 8, 12 and 16 points in
+// registers, cp.async copies, and the c2r inverse of length L = 64, 96 or
+// 128 down the rows of a shared-memory tile of 32 columns.
 #pragma once
 
 #include "common.cuh"
@@ -27,6 +27,18 @@ __device__ __forceinline__ cf times_i(cf a) { return {-a.im, a.re}; }
 __device__ __forceinline__ cf cconj(cf a) { return {a.re, -a.im}; }
 
 // In-place inverse DFTs (sign +, no scaling), natural order in and out.
+// The cube root of unity e^{+2 pi i/3} = -1/2 + i sqrt(3)/2.
+constexpr float kSin60 = 0.86602540378443865f;   // sin(pi/3) = sqrt(3)/2
+
+__device__ __forceinline__ void idft3(cf& a0, cf& a1, cf& a2) {
+  const cf t = a1 + a2, d = a1 - a2;
+  const cf m = {a0.re - 0.5f * t.re, a0.im - 0.5f * t.im};
+  const cf s = {-kSin60 * d.im, kSin60 * d.re};   // i sqrt(3)/2 (a1 - a2)
+  a0 = a0 + t;
+  a1 = m + s;
+  a2 = m - s;
+}
+
 __device__ __forceinline__ void idft4(cf& a0, cf& a1, cf& a2, cf& a3) {
   const cf t0 = a0 + a2, t1 = a0 - a2, t2 = a1 + a3, t3 = times_i(a1 - a3);
   a0 = t0 + t2;
@@ -41,6 +53,25 @@ __device__ __forceinline__ void idft(cf* v);
 template <>
 __device__ __forceinline__ void idft<4>(cf* v) {
   idft4(v[0], v[1], v[2], v[3]);
+}
+
+// Two inverse DFTs of 3 (even and odd inputs), then the radix-2 step with
+// the twiddles e^{+2 pi i n / 6}: output n and n + 3 from digit n.
+template <>
+__device__ __forceinline__ void idft<6>(cf* v) {
+  cf e0 = v[0], e1 = v[2], e2 = v[4];
+  cf o0 = v[1], o1 = v[3], o2 = v[5];
+  idft3(e0, e1, e2);
+  idft3(o0, o1, o2);
+  constexpr float h = kSin60;
+  o1 = {0.5f * o1.re - h * o1.im, h * o1.re + 0.5f * o1.im};   // x e^{i pi/3}
+  o2 = {-0.5f * o2.re - h * o2.im, h * o2.re - 0.5f * o2.im};  // x e^{2i pi/3}
+  v[0] = e0 + o0;
+  v[3] = e0 - o0;
+  v[1] = e1 + o1;
+  v[4] = e1 - o1;
+  v[2] = e2 + o2;
+  v[5] = e2 - o2;
 }
 
 template <>
@@ -88,6 +119,29 @@ __device__ __forceinline__ void idft<16>(cf* v) {
   }
 }
 
+// Two inverse DFTs of 6 (even and odd inputs), then the radix-2 step with
+// the twiddles e^{+2 pi i n / 12}.
+template <>
+__device__ __forceinline__ void idft<12>(cf* v) {
+  cf e[6], o[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    e[j] = v[2 * j];
+    o[j] = v[2 * j + 1];
+  }
+  idft<6>(e);
+  idft<6>(o);
+  constexpr float h = kSin60;
+  const float2 w[6] = {{1.f, 0.f}, {h, 0.5f},  {0.5f, h},
+                       {0.f, 1.f}, {-0.5f, h}, {-h, 0.5f}};
+#pragma unroll
+  for (int n = 0; n < 6; ++n) {
+    const cf t = cmul(o[n], w[n]);
+    v[n] = e[n] + t;
+    v[n + 6] = e[n] - t;
+  }
+}
+
 __device__ __forceinline__ void cp_async16(float* smem_dst,
                                            const float* gmem_src) {
   const unsigned dst =
@@ -120,7 +174,7 @@ __device__ __forceinline__ void fill_twiddles(float2* tw) {
   }
 }
 
-// The c2r inverse of length L (64 or 128) down the columns of a shared
+// The c2r inverse of length L (64, 96 or 128) down the columns of a shared
 // tile: rows re/im [L/2 + 1][kCols] hold the half spectrum X[k] of kCols
 // sequences, one per lane.  Called by all 8 warps of the block, after a
 // barrier that made the rows and `tw` (fill_twiddles<L>) visible.
@@ -134,7 +188,9 @@ __device__ __forceinline__ void fill_twiddles(float2* tw) {
 //     radix-8 inverse DFT in registers, then the twiddle
 //     e^{+2 pi i k2 n1 / M}; the results go back to shared memory in
 //     place (row n1 Q + k2).  Warp n1 then takes the Q entries of row
-//     block n1, a radix-Q (8 or 4) inverse DFT in registers.
+//     block n1, a radix-Q (8, 6 or 4) inverse DFT in registers.  At
+//     Q = 6 (L = 96) warps 6 and 7 sit out step 2's first half, and the
+//     twiddle index 2 k2 n1 <= 70 stays below L as at Q = 4 and 8.
 //
 // On return warp n1 holds u[n2] = z[n1 + 8 n2] for its lane's column; the
 // rows are overwritten, and a barrier must precede their next writes.
@@ -143,7 +199,7 @@ __device__ __forceinline__ void c2r_columns(float* re, float* im,
                                             const float2* tw,
                                             cf (&u)[L / 16]) {
   constexpr int M = L / 2, P = 8, Q = M / P;
-  static_assert(Q == 4 || Q == 8, "L must be 64 or 128");
+  static_assert(Q == 4 || Q == 6 || Q == 8, "L must be 64, 96 or 128");
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
   cf v[P];

@@ -1,5 +1,5 @@
 // K3, FFT route: passes B and C of the inverse DFT as a complex FFT along
-// ky and a c2r along kx, for L = 64 and 128.
+// ky and a c2r along kx, for L = 64, 96 and 128.
 //
 // Replaces the TPU kernel `_idft_bc_kernel` / `pallas_inverse` in
 // deeplocalproteindocking_tpu/correlate/pallas_idft.py, computing the same
@@ -30,15 +30,19 @@
 // run down the columns of shared-memory tiles.
 //  Pass 1: one block of 8 warps per (z run, kx pair {kx, L - kx},
 //   rotation): 4 x 65 x b blocks at L = 128.  Both kx planes' [ky][32]
-//   rows (re, im; 64 KB at L = 128) arrive by cp.async.  L = P x 8 with
-//   P = 16 (L = 128) or 8 (L = 64): a task (plane, k2) takes rows 8 k1 + k2
-//   over k1, a radix-P inverse DFT in registers, the twiddle
-//   e^{+2 pi i k2 n1 / L}, and writes back in place (row 8 n1 + k2: the
-//   task's own rows, so tasks need no barrier between them).  After one
-//   barrier warp w takes row blocks n1 = w (and w + 8) of both planes, a
-//   radix-8 inverse DFT each giving g[n1 + P n2], folds the two planes in
-//   registers and stores h rows.  kx = 0 and L/2 fold with themselves (one
-//   plane, one FFT).
+//   rows (re, im; 64 KB at L = 128) arrive by cp.async.  L = P x Q with
+//   (P, Q) = (16, 8) at L = 128, (8, 8) at 64 and (8, 12) at 96: a task
+//   (plane, k2) takes rows Q k1 + k2 over k1, a radix-P inverse DFT in
+//   registers, the twiddle e^{+2 pi i k2 n1 / L}, and writes back in place
+//   (row Q n1 + k2: the task's own rows, so tasks need no barrier between
+//   them).  After one barrier warp w takes row blocks n1 = w (and w + 8) of
+//   both planes, a radix-Q inverse DFT each giving g[n1 + P n2], folds the
+//   two planes in registers and stores h rows.  kx = 0 and L/2 fold with
+//   themselves (one plane, one FFT).  At L = 96 the split is 8 x 12 and not
+//   12 x 8: 24 tasks of radix 8 give each warp 3, and the 8 row blocks of
+//   radix 12 one each, where 12 x 8 would leave warps 4-7 one row block
+//   against warps 0-3's two.  Its pass-1 block needs 48 KB of dynamic
+//   shared memory, which with the twiddles passes the 48 KB default.
 //  Pass 2: one block per (z run, y, pair of rotations), as K2's FFT route:
 //   both rotations' h rows [L/2 + 1][32] (33 KB) by cp.async at once; the
 //   c2r leaves z[n] = L (S[2n] + i S[2n+1]) in warp n % 8, stored straight
@@ -65,10 +69,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ Eim,
                         float* __restrict__ Hre, float* __restrict__ Him) {
   constexpr int K = L / 2 + 1;
-  constexpr int Q = 8;                    // second radix
-  constexpr int P = L / Q;                // first radix: 16 or 8
+  constexpr int P = L == 128 ? 16 : 8;    // first radix
+  constexpr int Q = L / P;                // second radix: 8, or 12 at 96
   constexpr int kPlane = 2 * L * kCols;   // floats per plane: re, im rows
-  static_assert(P == 8 || P == 16, "L must be 64 or 128");
+  static_assert(P * Q == L && (Q == 8 || Q == 12), "L must be 64, 96 or 128");
 
   extern __shared__ __align__(16) float smem[];   // 2 x kPlane
   __shared__ float2 s_tw[L];                       // e^{+2 pi i j / L}
@@ -198,9 +202,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Opts the kernel in to `bytes` of dynamic shared memory where that and
+// its `static_bytes` pass the 48 KB that need no opt-in.
 template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
+int allow_smem(Kernel kernel, int bytes, int static_bytes) {
+  if (bytes + static_bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
@@ -212,9 +218,10 @@ int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
   constexpr int smem1 = 2 * 2 * L * kCols * sizeof(float);
   constexpr int smem2 = kRot * 2 * K * kCols * sizeof(float);
   static_assert(kRot <= 4, "cp_async_wait takes up to 3 pending groups");
-  int err = allow_smem(idft_ky_fold_kernel<L>, smem1);
+  constexpr int tw_bytes = L * sizeof(float2);    // each kernel's s_tw
+  int err = allow_smem(idft_ky_fold_kernel<L>, smem1, tw_bytes);
   if (err != 0) return err;
-  err = allow_smem(idft_kx_c2r_kernel<L>, smem2);
+  err = allow_smem(idft_kx_c2r_kernel<L>, smem2, tw_bytes);
   if (err != 0) return err;
   idft_ky_fold_kernel<L><<<dim3(L / kCols, K, B), kThreads, smem1, stream>>>(
       Ere, Eim, Hre, Him);
@@ -231,7 +238,7 @@ int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
 
 // E re/im [B, L, L, L] (kx, ky, z), S [B, L, L, L] (x, y, z), and the
 // scratch h re/im [B, L/2+1, L, L] (kx, y, z); all float32, contiguous,
-// E and h 16-byte aligned; L = 64 or 128.  Returns a cudaError_t: 0 on
+// E and h 16-byte aligned; L = 64, 96 or 128.  Returns a cudaError_t: 0 on
 // successful launches.
 extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
                              void* Him, void* S, int B, int L, void* stream) {
@@ -248,6 +255,7 @@ extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
   auto* s = static_cast<float*>(S);
   auto st = static_cast<cudaStream_t>(stream);
   if (L == 128) return dlpd::launch<128>(er, ei, hr, hi, s, B, st);
+  if (L == 96) return dlpd::launch<96>(er, ei, hr, hi, s, B, st);
   if (L == 64) return dlpd::launch<64>(er, ei, hr, hi, s, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

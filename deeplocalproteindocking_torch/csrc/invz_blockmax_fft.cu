@@ -1,5 +1,5 @@
 // K2, FFT route: the kz->z c2r inverse as a real FFT + translation mask +
-// block max, for L = 64 and 128.
+// block max, for L = 64, 96 and 128.
 //
 // Replaces the TPU kernel `_invz_bmax_kernel` / `_invz_blockmax_call` in
 // deeplocalproteindocking_tpu/correlate/pallas_invz_topk.py, computing the
@@ -28,14 +28,17 @@
 //  1-2. The c2r along kz (fft.cuh, c2r_columns): the half spectrum packed
 //     into a complex sequence of length M = L/2, a radix-8 pass with
 //     twiddles, one in-place exchange through shared memory, a radix-Q
-//     (8 or 4) pass; warp n1 ends with z[n1 + 8 n2] = L (S[2n] + i
+//     (8, 6 or 4) pass; warp n1 ends with z[n1 + 8 n2] = L (S[2n] + i
 //     S[2n+1]).  X[0] and X[M] count by their real parts only, as irfft
 //     and the dense Mz (whose sine row is 0 there) take them.
 //  3. S[y, z] goes to shared memory over the D buffer (rows padded to
 //     L + 1 floats: no bank conflicts); each thread owns one z of a y
 //     group, adds the bias (read coalesced along z, kept in registers
 //     across both rotations when they share a group) and takes the max;
-//     the groups' maxima combine through shared memory.
+//     the groups' maxima combine through shared memory.  The groups are
+//     256 / L of 32 L / 256 y each: 4 x 8 at L = 64, 2 x 16 at 128, and
+//     2 x 16 on 192 threads at L = 96 (which does not divide 256; the
+//     other 64 threads sit this step out).
 // Twiddles e^{+2 pi i j / L} are computed once per block into shared
 // memory (one sincospif per thread) and read as warp-wide broadcasts.
 // Float32 throughout, as the TPU kernel casts.
@@ -63,10 +66,12 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kLd = L + 1;           // padded row of the tile S[y][z]
   constexpr int NG = kThreads / L;     // y groups in the epilogue
   constexpr int YPG = kYB / NG;        // y per group
+  constexpr bool kAllThreads = NG * L == kThreads;   // L divides 256
   constexpr int kVec = kYB / 4;        // float4 per D row
-  static_assert(Q == 4 || Q == 8, "L must be 64 or 128");
+  static_assert(Q == 4 || Q == 6 || Q == 8, "L must be 64, 96 or 128");
   static_assert(kYB * kLd <= kBuf, "S must fit in the D buffer");
-  static_assert(P * kYB == kThreads && NG * L == kThreads, "block shape");
+  static_assert(P * kYB == kThreads && NG * YPG == kYB && NG * L <= kThreads,
+                "block shape");
 
   extern __shared__ __align__(16) float smem[];   // kRot x kBuf
   __shared__ float2 s_tw[L];                       // e^{+2 pi i j / L}
@@ -97,6 +102,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // The epilogue's bias: thread (grp, z) reads YPG rows of its group.
   const int z = tid % L, grp = tid / L;
+  const bool in_epilogue = kAllThreads || grp < NG;
   float bz[YPG];
   int g_loaded = -1;
 
@@ -105,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
     const int bb = b0 + r;
     if (bb >= b) break;                         // uniform over the block
     const int g = bb / rows_per_group;
-    if (g != g_loaded) {
+    if (in_epilogue && g != g_loaded) {
       const float* bp = bias + ((static_cast<size_t>(g) * X + x) * Y +
                                 yb * kYB + grp * YPG) * L + z;
 #pragma unroll
@@ -135,11 +141,13 @@ __global__ void __launch_bounds__(kThreads)
 
     // 3. Bias, then the max over the 32 y of the run.
     float mx = -INFINITY;
+    if (in_epilogue) {
 #pragma unroll
-    for (int j = 0; j < YPG; ++j) {
-      mx = fmaxf(mx, S[(grp * YPG + j) * kLd + z] + bz[j]);
+      for (int j = 0; j < YPG; ++j) {
+        mx = fmaxf(mx, S[(grp * YPG + j) * kLd + z] + bz[j]);
+      }
+      s_red[tid] = mx;
     }
-    s_red[tid] = mx;
     __syncthreads();
     if (grp == 0) {
 #pragma unroll
@@ -189,6 +197,7 @@ extern "C" int dlpd_invz_blockmax_fft(const void* Dre, const void* Dim,
   auto* out = static_cast<float*>(bmax);
   auto s = static_cast<cudaStream_t>(stream);
   if (L == 128) return dlpd::launch<128>(dre, dim, bs, out, b, X, Y, G, s);
+  if (L == 96) return dlpd::launch<96>(dre, dim, bs, out, b, X, Y, G, s);
   if (L == 64) return dlpd::launch<64>(dre, dim, bs, out, b, X, Y, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,15 +4,15 @@ that came with it: float32 K1's shared-memory rule and the port's own
 
 The CUDA kernel cannot run here, so this file holds its formulation: a
 torch emulation of its stages -- pass 1's complex inverse FFT along ky
-(L = P x 8 with P = 16 at L = 128 and 8 at L = 64: radix-P butterflies
-over k1, the twiddle e^{+2 pi i k2 n1 / L}, radix-8 over k2, output
-digit y = n1 + P n2), the Hermitian fold h[kx] = (g[kx] + conj g[L-kx]) / 2
-for kx <= L/2, and pass 2's c2r along kx (``fft.cuh``: packing, radix
-passes, even/odd interleave) -- against the plain version
-(``idft_bc_reference``, the dense contractions) and the JAX kernel in
-interpret mode; planted errors in the fold, the ky FFT and the packing
-move the result by O(1); and ``k3_route``, ``inverse_dft`` and the
-wrapper's check of ``Ux``/``Uy``.
+(L = P x Q with (P, Q) = (16, 8) at L = 128, (8, 8) at 64 and (8, 12) at
+96: radix-P butterflies over k1, the twiddle e^{+2 pi i k2 n1 / L},
+radix-Q over k2, output digit y = n1 + P n2), the Hermitian fold
+h[kx] = (g[kx] + conj g[L-kx]) / 2 for kx <= L/2, and pass 2's c2r along
+kx (``fft.cuh``: packing, radix passes, even/odd interleave) -- against
+the plain version (``idft_bc_reference``, the dense contractions) and
+the JAX kernel in interpret mode; planted errors in the fold, the ky
+FFT, the packing and the radix-3 stage move the result by O(1); and
+``k3_route``, ``inverse_dft`` and the wrapper's check of ``Ux``/``Uy``.
 
 Tolerance: 1e-5 relative to max |S| (float32; the FFTs and the dense
 contractions round in another order, O(1e-7) relative).  The kernel
@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_fft_emulation import IDFT, c2r_columns, twiddles
+from torch_fft_emulation import c2r_columns, idft, twiddles
 from torch_parity import V9P_CKPT, np_, t_
 
 from deeplocalproteindocking_torch import config as tconfig
@@ -39,7 +39,13 @@ from deeplocalproteindocking_tpu.correlate import dft as jdft
 from deeplocalproteindocking_tpu.correlate import pallas_idft as jidft
 
 TOL = 1e-5
-Q = 8           # pass 1's second radix
+
+
+def pass1_split(L):
+    """Pass 1's radices (P, Q), L = P x Q, as ``idft_fft.cu`` takes them:
+    (16, 8) at L = 128, (8, 8) at 64, (8, 12) at 96."""
+    P = 16 if L == 128 else 8
+    return P, L // P
 
 
 def emulate_idft_fft(Ere, Eim, mutate=None):
@@ -47,19 +53,20 @@ def emulate_idft_fft(Ere, Eim, mutate=None):
     ``E (re, im) [b, L, L, Z]`` (kx, ky, z) -> ``S [b, L, L, Z]`` float32.
     ``mutate`` plants one error (for the O(1) test)."""
     b, L, _, Z = Ere.shape
-    K, P = L // 2 + 1, L // Q
+    K = L // 2 + 1
+    P, Q = pass1_split(L)
     tw = twiddles(L)
     E = torch.complex(Ere, Eim)
     # Pass 1, radix-P: task k2 takes rows ky = Q k1 + k2 over k1, then
     # the twiddle e^{+2 pi i k2 n1 / L}.
     Ek = E.reshape(b, L, P, Q, Z)                      # [b, kx, k1, k2, z]
-    v = IDFT[P]([Ek[:, :, k1] for k1 in range(P)])     # v[n1]: [b, kx, k2, z]
+    v = idft([Ek[:, :, k1] for k1 in range(P)])        # v[n1]: [b, kx, k2, z]
     sign = -1 if mutate == "ky_twiddle_sign" else 1
     k2 = torch.arange(Q)
     A = torch.stack([v[n1] * tw[(sign * k2 * n1) % L, None]
                      for n1 in range(P)], dim=2)       # [b, kx, n1, k2, z]
-    # Radix-8: warp n1 takes A[n1, k2] over k2: g[n1 + P n2].
-    u = IDFT[Q]([A[:, :, :, j] for j in range(Q)])     # u[n2]: [b, kx, n1, z]
+    # Radix-Q: warp n1 takes A[n1, k2] over k2: g[n1 + P n2].
+    u = idft([A[:, :, :, j] for j in range(Q)], mutate)  # [b, kx, n1, z]
     g = torch.stack(u, dim=2)                          # [b, kx, n2, n1, z]
     if mutate == "ky_digit_order":
         g = g.transpose(2, 3)
@@ -87,7 +94,7 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("L", [64, 96, 128])
 def test_emulation_matches_plain(L):
     Ere, Eim = _e_inputs(L, 2, Z=32, seed=L)
     ux = [t_(a) for a in tdft.inverse_dft(L)]
@@ -100,7 +107,7 @@ def test_emulation_matches_plain(L):
     assert _rel(got, lib) <= TOL
 
 
-@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("L", [64, 96, 128])
 def test_emulation_matches_pallas_interpret(L):
     """The same G into JAX ``pallas_inverse`` (interpret mode) and into
     pass A then the emulation."""
@@ -131,9 +138,22 @@ def test_planted_errors_move_the_result(mutate):
 @pytest.mark.parametrize("L,want", [
     (128, "fft"),       # the screening path
     (64, "fft"),        # the card-vs-CPU phase
-    (96, "dense"), (32, "dense"), (16, "dense"), (112, "dense")])
+    (96, "fft"),        # grid 96: the rep-score and train presets
+    (32, "dense"), (16, "dense"), (112, "dense"), (48, "dense"),
+    (80, "dense")])
 def test_k3_route(L, want):
     assert tidft.k3_route(L) == want
+
+
+@pytest.mark.parametrize("mutate", ["radix3_sign", "radix6_digit_order"])
+def test_radix3_errors_move_the_result(mutate):
+    """At L = 96 pass 1's radix-12 and pass 2's radix-6 run through
+    ``idft<6>``: the cube root of unity with the wrong sign, or its 2 x 3
+    split's outputs in the wrong digit order, moves S by O(1)."""
+    Ere, Eim = _e_inputs(96, 1, Z=32, seed=7)
+    want = emulate_idft_fft(t_(Ere), t_(Eim))
+    got = emulate_idft_fft(t_(Ere), t_(Eim), mutate=mutate)
+    assert _rel(got, want) > 0.1
 
 
 @pytest.mark.parametrize("L", [64, 96, 128])

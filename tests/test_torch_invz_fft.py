@@ -5,11 +5,13 @@ The CUDA kernel cannot run here, so this file holds its formulation: a
 torch emulation of its stages -- the Hermitian packing of the half
 spectrum into a complex sequence of length M = L/2, the M = 8 x Q split
 (radix-8 butterflies over k1, the twiddle e^{+2 pi i k2 n1 / M}, radix-Q
-over k2, output digit n = n1 + 8 n2), the even/odd interleave with 1/L,
-the bias and the 32-wide block max -- against the plain version
-(``invz_blockmax_reference``, the dense Mz contraction) and the JAX
-kernel in interpret mode; a sign or index error in the packing moves the
-result by O(1); and ``k2_route``'s rule.
+over k2 -- Q = 4, 6 or 8 at L = 64, 96 or 128, radix 6 as two radix-3
+DFTs and a radix-2 step -- output digit n = n1 + 8 n2), the even/odd
+interleave with 1/L, the bias and the 32-wide block max -- against the
+plain version (``invz_blockmax_reference``, the dense Mz contraction)
+and the JAX kernel in interpret mode; a sign or index error in the
+packing or in the radix-3 stage moves the result by O(1); and
+``k2_route``'s rule.
 
 Tolerance: 1e-5 relative to max |finite block max| (float32; the FFT
 and the dense contraction round in another order, O(1e-6) at L = 128).
@@ -77,7 +79,7 @@ def _assert_close(got, want):
     assert err <= TOL, err
 
 
-@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("L", [64, 96, 128])
 @pytest.mark.parametrize("G", [1, 2])
 def test_emulation_matches_plain(L, G):
     Dre, Dim, MzRe, MzIm, bias = _inputs(L, 4, G, seed=L + G)
@@ -88,7 +90,7 @@ def test_emulation_matches_plain(L, G):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("L", [64, 96, 128])
 @pytest.mark.parametrize("G", [1, 2])
 def test_emulation_matches_pallas_interpret(L, G):
     Dre, Dim, MzRe, MzIm, bias = _inputs(L, 2, G, seed=10 + L + G)
@@ -106,6 +108,18 @@ def test_packing_errors_move_the_result(mutate):
     by O(1) of their scale, far outside TOL."""
     Dre, Dim, _, _, _ = _inputs(128, 2, 1, seed=3)
     bias = torch.zeros(1, 8, 64, 128)
+    want = emulate_fft(t_(Dre), t_(Dim), bias)
+    got = emulate_fft(t_(Dre), t_(Dim), bias, mutate=mutate)
+    assert ((got - want).abs().max() / want.abs().max()).item() > 0.1
+
+
+@pytest.mark.parametrize("mutate", ["radix3_sign", "radix6_digit_order"])
+def test_radix3_errors_move_the_result(mutate):
+    """At L = 96 the radix-Q pass is ``idft<6>``: the cube root of unity
+    with the wrong sign, or its 2 x 3 split's outputs in the wrong digit
+    order, moves the block maxima by O(1) of their scale."""
+    Dre, Dim, _, _, _ = _inputs(96, 2, 1, seed=6)
+    bias = torch.zeros(1, 8, 64, 96)
     want = emulate_fft(t_(Dre), t_(Dim), bias)
     got = emulate_fft(t_(Dre), t_(Dim), bias, mutate=mutate)
     assert ((got - want).abs().max() / want.abs().max()).item() > 0.1
@@ -129,7 +143,8 @@ def test_kz_edge_imaginary_parts_are_ignored():
 @pytest.mark.parametrize("L,want", [
     (128, "fft"),       # the main path
     (64, "fft"),        # the card-vs-CPU phases
-    (96, "dense"), (32, "dense"), (160, "dense"), (256, "dense")])
+    (96, "fft"),        # grid 96: the rep-score and train presets
+    (32, "dense"), (160, "dense"), (256, "dense")])
 def test_k2_route(L, want):
     assert tinvz.k2_route(L) == want
 

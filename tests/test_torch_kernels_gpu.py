@@ -12,8 +12,9 @@ box up to 128 on the tensor cores when L is a multiple of 16 (bf16 on
 its tc kernel, float32 on its tf32 kernel; boxes above 64 in tiles of
 A) and other L on its SIMT kernel (``fused.k1_route``); all three are
 held here, with one receptor spectrum or G of them, as are K2's and
-K3's FFT kernels (L = 64, 128) and dense kernels (other L;
-``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
+K3's FFT kernels (L = 64, 96, 128) and dense kernels (other L, and
+launched directly at 96, the L they served before the FFT routes took
+it; ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
 only.  One train step is held against the same step on the CPU.
 """
 import numpy as np
@@ -236,11 +237,12 @@ def _k2_inputs(dev, L, b, groups, source, seed=3):
     (64, 4, 4, "k1", "fft"), (128, 4, 1, "random", "fft"), (128, 3, 1, "random", "fft"),
     (128, 6, 3, "random", "fft"), (128, 5, 5, "random", "fft"),
     (64, 4, 2, "random", "fft"), (64, 7, 1, "random", "fft"),
-    (96, 4, 2, "random", "dense")])
+    (96, 4, 2, "k1", "fft"), (96, 5, 5, "random", "fft"),
+    (96, 3, 1, "random", "fft"), (32, 4, 2, "random", "dense")])
 def test_k2_matches_plain(cuda_device, L, b, groups, source, route):
     """Both K2 kernels against the plain version: the FFT kernel at
-    L = 64 and 128 (odd b: a block's second rotation missing; G = b:
-    every rotation its own group), the dense kernel at L = 96."""
+    L = 64, 96 and 128 (odd b: a block's second rotation missing; G = b:
+    every rotation its own group), the dense kernel at L = 32."""
     (Dre, Dim), corr, bias = _k2_inputs(cuda_device, L, b, groups, source)
     assert invz_topk.k2_route(L) == route
     n0, f0 = invz_topk.launches, invz_topk.launches_fft
@@ -255,6 +257,21 @@ def test_k2_matches_plain(cuda_device, L, b, groups, source, route):
     assert torch.equal(fin, torch.isfinite(got))
     assert not torch.isnan(got).any()
     assert got[0, 3, 0, 5].item() == float("-inf")
+    assert _rel(got[fin], want[fin]) <= 1e-4
+
+
+def test_k2_dense_kernel_at_96(cuda_device):
+    """The dense K2 kernel, launched directly, at the L it served before
+    the FFT route took it (odd b, two bias groups)."""
+    (Dre, Dim), corr, bias = _k2_inputs(cuda_device, 96, 6, 2, "random")
+    n0, f0 = invz_topk.launches, invz_topk.launches_fft
+    got = invz_topk._launch_dense(Dre, Dim, corr.MzRe, corr.MzIm, bias)
+    torch.cuda.synchronize()
+    assert (invz_topk.launches, invz_topk.launches_fft) == (n0 + 1, f0)
+    want = invz_topk.invz_blockmax_reference(Dre, Dim, corr.MzRe,
+                                             corr.MzIm, bias)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
     assert _rel(got[fin], want[fin]) <= 1e-4
 
 
@@ -278,11 +295,12 @@ def _k3_args(dev, L, b, seed=0):
 
 @pytest.mark.parametrize("L,b,route", [
     (64, 1, "fft"), (64, 2, "fft"), (64, 8, "fft"), (128, 1, "fft"),
-    (128, 2, "fft"), (128, 3, "fft"), (128, 8, "fft"), (96, 2, "dense")])
+    (128, 2, "fft"), (128, 3, "fft"), (128, 8, "fft"), (96, 1, "fft"),
+    (96, 3, "fft"), (96, 8, "fft"), (80, 2, "dense"), (112, 1, "dense")])
 def test_k3_matches_plain(cuda_device, L, b, route):
     """Both K3 kernels against the plain version: the FFT kernel at
-    L = 64 and 128 (odd b: a pass-2 block's second rotation missing),
-    the dense kernel at L = 96."""
+    L = 64, 96 and 128 (odd b: a pass-2 block's second rotation
+    missing), the dense kernel at L = 80 and 112."""
     args = _k3_args(cuda_device, L, b)
     assert idft.k3_route(L) == route
     n0, f0 = idft.launches, idft.launches_fft
@@ -293,6 +311,17 @@ def test_k3_matches_plain(cuda_device, L, b, route):
     want = idft.idft_bc_reference(*args)
     assert got.shape == (b, L, L, L) and got.dtype == torch.float32
     assert _rel(got, want) <= 1e-4
+
+
+def test_k3_dense_kernel_at_96(cuda_device):
+    """The dense K3 kernel, launched directly, at the L it served before
+    the FFT route took it."""
+    args = _k3_args(cuda_device, 96, 2)
+    n0, f0 = idft.launches, idft.launches_fft
+    got = idft._launch_dense(*args)
+    torch.cuda.synchronize()
+    assert (idft.launches, idft.launches_fft) == (n0 + 1, f0)
+    assert _rel(got, idft.idft_bc_reference(*args)) <= 1e-4
 
 
 def test_k3_fft_refuses_what_it_does_not_take(cuda_device):

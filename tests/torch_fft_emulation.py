@@ -11,6 +11,17 @@ import math
 import torch
 
 P = 8           # the c2r's first radix (c2r_columns)
+SIN60 = math.sqrt(3) / 2
+
+
+def idft3(a0, a1, a2, mutate=None):
+    """``idft3``: inverse DFT of 3, natural order, with the cube root of
+    unity e^{+2 pi i/3} = -1/2 + i sqrt(3)/2; ``"radix3_sign"`` plants
+    its conjugate."""
+    s = -SIN60 if mutate == "radix3_sign" else SIN60
+    t, d = a1 + a2, a1 - a2
+    m, r = a0 - 0.5 * t, 1j * s * d
+    return [a0 + t, m + r, m - r]
 
 
 def idft4(a0, a1, a2, a3):
@@ -30,6 +41,27 @@ def idft8(v):
     return [e[n] + o[n] for n in range(4)] + [e[n] - o[n] for n in range(4)]
 
 
+def idft6(v, mutate=None):
+    """``idft<6>``: ``idft3`` of the even and odd inputs, then the radix-2
+    step with e^{+2 pi i n / 6}, outputs n and n + 3 from digit n;
+    ``"radix6_digit_order"`` plants outputs 2n and 2n + 1 instead."""
+    e = idft3(v[0], v[2], v[4], mutate)
+    o = idft3(v[1], v[3], v[5], mutate)
+    t = [complex(0.5, SIN60) ** n * o[n] for n in range(3)]
+    if mutate == "radix6_digit_order":
+        return [x for n in range(3) for x in (e[n] + t[n], e[n] - t[n])]
+    return [e[n] + t[n] for n in range(3)] + [e[n] - t[n] for n in range(3)]
+
+
+def idft12(v, mutate=None):
+    """``idft<12>``: ``idft<6>`` of the even and odd inputs, then the
+    radix-2 step with e^{+2 pi i n / 12}."""
+    e, o = idft6(v[0::2], mutate), idft6(v[1::2], mutate)
+    t = [complex(math.cos(math.pi * n / 6), math.sin(math.pi * n / 6)) * o[n]
+         for n in range(6)]
+    return [e[n] + t[n] for n in range(6)] + [e[n] - t[n] for n in range(6)]
+
+
 def idft16(v):
     """``idft<16>``: ``idft<8>`` of the even and odd inputs, then the
     radix-2 step with e^{+2 pi i n / 16}."""
@@ -39,7 +71,12 @@ def idft16(v):
     return [e[n] + t[n] for n in range(8)] + [e[n] - t[n] for n in range(8)]
 
 
-IDFT = {4: lambda v: idft4(*v), 8: idft8, 16: idft16}
+def idft(v, mutate=None):
+    """The kernels' ``idft<N>`` for N = len(v) in {4, 6, 8, 12, 16};
+    ``mutate`` reaches the radix-3 stages only."""
+    if len(v) in (6, 12):
+        return (idft6 if len(v) == 6 else idft12)(v, mutate)
+    return {4: lambda v: idft4(*v), 8: idft8, 16: idft16}[len(v)](v)
 
 
 def twiddles(L):
@@ -51,8 +88,10 @@ def twiddles(L):
 def c2r_columns(X, mutate=None):
     """``c2r_columns`` and its 1/L: the half spectrum ``X [b, M+1, N]``
     (complex64, along dim 1) -> ``s [b, 2M, N]`` float32, the irfft of
-    each column.  ``mutate`` plants one error: ``"no_conj"``,
-    ``"minus_i"``, ``"mirror_index"`` (packing) or ``"digit_order"``."""
+    each column, for L = 64, 96 or 128 (Q = 4, 6 or 8).  ``mutate``
+    plants one error: ``"no_conj"``, ``"minus_i"``, ``"mirror_index"``
+    (packing), ``"digit_order"``, or one of :func:`idft`'s radix-3
+    errors."""
     b, K, N = X.shape
     M = K - 1
     L, Q = 2 * M, M // P
@@ -73,7 +112,7 @@ def c2r_columns(X, mutate=None):
     A = torch.stack([v[n1] * tw[(2 * k2 * n1) % L, None]
                      for n1 in range(P)], dim=1)       # [b, n1, k2, N]
     # Radix-Q pass: warp n1 takes A[n1, k2] over k2: z[n1 + P n2].
-    u = IDFT[Q]([A[:, :, j] for j in range(Q)])        # u[n2]: [b, n1, N]
+    u = idft([A[:, :, j] for j in range(Q)], mutate)   # u[n2]: [b, n1, N]
     zz = torch.stack(u, dim=1)                         # [b, n2, n1, N]
     if mutate == "digit_order":
         zz = zz.transpose(1, 2)
