@@ -10,32 +10,32 @@ phase that does not hold:
 1. environment: the card's name and power limit, torch/CUDA versions,
    and the build of the hand-written kernels from ``csrc/``;
 2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes with a batch of 8 rotations (K1 on its three
-   routes: bf16 on the tensor-core kernel at the bench complex's box, at
-   box 40, at box 64 and at the boxes above 64 that run in tiles of A
-   (72, 96, 128), float32 on the tf32 tensor-core kernel at the bench
-   box and at boxes 72, 96, 128 (with 4 receptor groups at the bench box
-   and at box 96, in both dtypes at 96), and the SIMT kernel where it
-   still runs, at L = 120 (bf16 at the bench box, float32 at box 72); K2
-   with a real translation mask, drill-down
-   top-K; K3 on the summed spectrum of the ``dft`` engine's forward
-   half, on its FFT kernel, and on random spectra at L = 64 and 96 (FFT)
-   and L = 80 (dense)), plus the time of each kernel and its plain version
-   at the full batch of 128 (K1 also on its SIMT kernel in bf16 at the
-   bench box and at L = 120, at the grid-120 request's shape; each
-   tensor-core route against SIMT in turns at boxes 72 and 96 and alone
-   at 128, each held against plain, with its bound; in float32 on its
-   tf32 and SIMT kernels, timed
-   in turns and each held against plain, at the bench box and at the v9p
-   checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 on its FFT kernel at L = 128 on the bench
-   complex's D and at L = 64 and 96, and on its dense kernel at L = 32;
-   both K2 kernels, timed in turns, held against plain at b = 128 and at
-   the rescore's b = 48 with 16 bias groups; both K3 kernels, timed in
-   turns and held against plain at b = 128, beside the library call
-   ``torch.fft.ifft2`` that computes K3's function; both K2 and both K3
-   kernels in turns again at L = 96, b = 128, beside ``ifft2`` (the FFT
-   K3 must beat it, the FFT K2 the dense one); the dense kernels at the
-   L they still serve, b = 128: K2 at L = 32, K3 at L = 80 and 112
+   main path's shapes with a batch of 8 rotations (K1 on its two
+   routes: bf16 on the tc kernel at the bench complex's box, at box 40,
+   at box 64 and at the boxes above 64 that run in tiles of A (72, 96,
+   128), float32 on the tf32 kernel at the bench box and at boxes 72,
+   96, 128 (with 4 receptor groups at the bench box and at box 96, in
+   both dtypes at 96), and both at L = 120, padded to 128 in the kernel
+   (bf16 at the bench box, float32 at box 72); K2 with a real
+   translation mask, drill-down top-K; K3 on the summed spectrum of the
+   ``dft`` engine's forward half, on its FFT kernel, and on random
+   spectra at L = 48, 64, 80, 96 and 112 (FFT) and L = 16 and 32
+   (dense)), plus the time of each kernel and its plain version at the
+   full batch of 128 (K1 at L = 120, the grid-120 request's shape, on
+   tc and in float32 at box 72 on tf32; each tensor-core route at boxes
+   72, 96 and 128, each held against plain, with its bound; in float32
+   on its tf32 kernel, held against plain, at the bench box and at the
+   v9p checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 on its
+   FFT kernel at L = 128 on the bench complex's D and at L = 64 and 96,
+   and on its dense kernel at L = 32; both K2 kernels, timed in turns,
+   held against plain at b = 128 and at the rescore's b = 48 with 16
+   bias groups; both K3 kernels, timed in turns and held against plain
+   at b = 128, beside the library call ``torch.fft.ifft2`` that computes
+   K3's function; both K2 and both K3 kernels in turns again at L = 96,
+   b = 128, beside ``ifft2`` (the FFT K3 must beat it, the FFT K2 the
+   dense one); both K3 kernels in turns at L = 48, 80 and 112 beside
+   ``ifft2`` (the FFT K3 must beat it at 80 and 112); the dense kernels
+   at the L they still serve, b = 128: K2 at L = 32, K3 at L = 16 and 32
    beside ``ifft2``),
    with each kernel's
    bound at those shapes: the bytes its function must move or the
@@ -51,17 +51,18 @@ phase that does not hold:
    rtol 1e-3, the same top-1) and each first K2 launch held against
    plain: one at grid 96 (the rep-score and train presets' grid) runs
    K2's FFT kernel, one at grid 32 its dense kernel; one at grid 120
-   (not a multiple of 16) runs K1's SIMT kernel, one float32 request at
-   grid 128 with a ligand box of 96 runs K1's tf32 kernel in 2 x 2 tiles of A,
-   and two float32
+   (not a multiple of 16) runs K1's tc kernel padded to 128 (bf16, 256
+   rotations), and one more at grid 120 in float32 (64 rotations, also
+   on the CPU) its tf32 kernel; one float32 request at grid 128 with a
+   ligand box of 96 runs K1's tf32 kernel in 2 x 2 tiles of A, and two
+   float32
    requests of 2,048 rotations run every K1 launch on the tf32 kernel:
    the bench config in float32 and the v9p checkpoint's own
    ``config.json`` (grid 64, box 40, chunk 16, full-rank coupling);
    then two requests uncut at 13,000 rotations on a 250-residue polymer
    ligand whose own box (``auto_ligand_grid``) is above 64: the
    ``full-sweep`` preset's settings in float32 and the serve config in
-   bf16, every K1 launch on the tensor cores (tf32, tc) and none on
-   SIMT;
+   bf16, every K1 launch on the tensor cores (tf32, tc);
 4. card against CPU: one request at grid 64, 256 rotations, once on CUDA
    tensors (kernels) and once on CPU tensors (plain versions), in
    float32 (K1 on the tf32 kernel; top-K values within rtol 1e-3 and the
@@ -73,9 +74,10 @@ phase that does not hold:
    ligands of seeds 0-2 (``dock`` then ``rescore(top=16, nrot=48)``
    each; the first also ``refine(steps=30)`` through the cached
    engine), proving that K3 ran in every stage, every launch on its FFT
-   kernel; then two float32 ``dft_pallas`` docks of 64 rotations, each
-   also on the CPU and each first K3 launch held against plain: grid 96
-   on K3's FFT kernel, grid 80 on its dense kernel; and one ``rescore``
+   kernel; then four float32 ``dft_pallas`` docks of 64 rotations, each
+   also on the CPU and each first K3 launch held against plain: grids
+   96, 80 and 112 on K3's FFT kernel, grid 32 on its dense kernel; and
+   one ``rescore``
    on the main-path ``dft_fused`` engine, whose K2 must see 16 bias
    groups;
 6. card against CPU for that path: dock -> rescore -> refine at
@@ -220,10 +222,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROT_SERVE = 2048          # per request; the JAX bench sweeps 13,000
 N_ROT_BOX96 = 64            # the float32 box-96 request, also run on the CPU
-# The float32 requests at grids 96, 32 (dft_fused) and 96, 80
-# (dft_pallas), each also run on the CPU: two launches each.
+# The float32 requests at grids 96, 32, 120 (dft_fused) and 96, 80, 112,
+# 32 (dft_pallas), each also run on the CPU: two launches each.
 N_ROT_SMALL_GRID = 64
 SMALL_GRID_CHUNK = 32
+# K3 on random spectra (b = 8, phase 2): its FFT kernel at every L it
+# takes, its dense kernel at the L it still serves; key k3_<route>_L<L>.
+K3_RANDOM_CHECKS = {"k3_fft_L48": 48, "k3_fft_L64": 64, "k3_fft_L80": 80,
+                    "k3_fft_L96": 96, "k3_fft_L112": 112,
+                    "k3_dense_L16": 16, "k3_dense_L32": 32}
 # The full-depth requests' complex: a 250-residue polymer ligand, whose
 # own box at grid 128 (auto_ligand_grid) is 72.
 BIG_COMPLEX = dict(seed=0, n_res_rec=300, n_res_lig=250, backbone=True)
@@ -441,8 +448,6 @@ def band100_local(dev, params):
                          complexes=row["complexes"])
         launches[key] = dict(k1=fused.launches, k1_tc=fused.launches_tc,
                              k1_tf32=fused.launches_tf32,
-                             k1_simt=fused.launches - fused.launches_tc
-                             - fused.launches_tf32,
                              k2=invz_topk.launches,
                              k2_fft=invz_topk.launches_fft, k3=idft.launches,
                              k3_fft=idft.launches_fft)
@@ -2639,9 +2644,9 @@ def main():
             key = f"k1_f32_box{box}_random"
             errs[key], routes[key], _ = k1_check(
                 k1_random_inputs(2, box, dtype_name="float32"))
-        # The SIMT kernel where it still runs: L not a multiple of 16.
-        for key, box, name in (("k1_bf16_simt_L120", Ls, "bfloat16"),
-                               ("k1_f32_simt_L120", 72, "float32")):
+        # L not a multiple of 16: both tensor-core kernels pad it to 128.
+        for key, box, name in (("k1_bf16_L120", Ls, "bfloat16"),
+                               ("k1_f32_L120", 72, "float32")):
             errs[key], routes[key], _ = k1_check(
                 k1_random_inputs(2, box, dtype_name=name, Lk=120))
         errs["k1_f32_G4"], routes["k1_f32_G4"], _ = k1_check(
@@ -2678,8 +2683,7 @@ def main():
         errs["k3"] = rel_err(k3_got, idft.idft_bc_reference(*k3_args))
         del k3_args, k3_got
         k3_routes = {}
-        for key, Lk in (("k3_fft_L64", 64), ("k3_fft_L96", 96),
-                        ("k3_dense_L80", 80)):
+        for key, Lk in K3_RANDOM_CHECKS.items():
             errs[key], k3_routes[key] = k3_random_check(Lk)
     emit("kernels_vs_plain", batch=8, L=L, Ls=Ls, C=3, K=L // 2 + 1,
          k1_float32_max_abs_err=errs["k1_float32"][0],
@@ -2699,9 +2703,8 @@ def main():
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
          k3_max_abs_err=errs["k3"][0], k3_rel_err=errs["k3"][1],
-         k3_fft_L64_rel_err=errs["k3_fft_L64"][1],
-         k3_fft_L96_rel_err=errs["k3_fft_L96"][1],
-         k3_dense_L80_rel_err=errs["k3_dense_L80"][1], k3_routes=k3_routes,
+         k3_rel_errs={k: errs[k][1] for k in K3_RANDOM_CHECKS},
+         k3_routes=k3_routes,
          tolerance={"float32": TOL_F32, "bfloat16": TOL_BF16},
          masked_fraction=1.0 - mask.float().mean().item())
     want_routes = {}
@@ -2709,18 +2712,17 @@ def main():
         f32 = key == "k1_float32" or key.startswith("k1_f32_")
         check(errs[key][1] <= (TOL_F32 if f32 else TOL_BF16),
               f"K1 {key} {errs}")
-        want_routes[key] = ("simt" if "simt" in key
-                            else "tf32" if f32 else "tc")
+        want_routes[key] = "tf32" if f32 else "tc"
     check(len(routes) == 16 and routes == want_routes,
           f"K1 routes {routes}, expected {want_routes}")
     for key in ("k2_fft", "k2_fft_L64", "k2_fft_L96", "k2_dense_L32"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
     check(k2_routes == {"k2_fft_L64": "fft", "k2_fft_L96": "fft",
                         "k2_dense_L32": "dense"}, f"K2 routes {k2_routes}")
-    for key in ("k3", "k3_fft_L64", "k3_fft_L96", "k3_dense_L80"):
+    for key in ("k3", *K3_RANDOM_CHECKS):
         check(errs[key][1] <= TOL_F32, f"K3 {key} {errs}")
-    check(k3_routes == {"k3_fft_L64": "fft", "k3_fft_L96": "fft",
-                        "k3_dense_L80": "dense"}, f"K3 routes {k3_routes}")
+    check(k3_routes == {k: k.split("_")[1] for k in K3_RANDOM_CHECKS},
+          f"K3 routes {k3_routes}")
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
           f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
 
@@ -2754,11 +2756,8 @@ def main():
     with torch.inference_mode():
         corr16, args16 = k1_inputs(128, "bfloat16")
         D16 = fused.fused_correlate(*args16)
-        dims = tuple(args16[0].shape) + (L, L, L, L)
         k1_ms = cuda_time_ms(lambda: fused.fused_correlate(
             *args16, layouts=corr16.k1_layouts))
-        k1_simt_ms = cuda_time_ms(
-            lambda: fused._launch_simt(args16, dims, *D16))
         k1_plain_ms = cuda_time_ms(
             lambda: fused.fused_correlate_reference(*args16))
         b, K, C, X, Y = args16[0].shape
@@ -2858,10 +2857,9 @@ def main():
         for rec in at96.values():
             rec["ms"] = {r: sum(v) / 2 for r, v in rec["turns"].items()}
 
-        # The dense kernels at the L they still serve, b = 128: K2 at
-        # L = 32 (the other L % 32 == 0 up to 128), K3 at L = 80 and 112,
-        # beside ifft2; K2's bound counts its c2r as half a complex FFT
-        # per column, plus the bias add and the max.
+        # The dense K2 at the L it still serves, b = 128: L = 32 (the
+        # other L % 32 == 0 up to 128); its bound counts its c2r as half a
+        # complex FFT per column, plus the bias add and the max.
         g32 = torch.Generator(device=dev).manual_seed(32)
         c32 = get_correlator(32, 16, "float32", dev)
         d32 = [torch.randn((128, 17, 32, 32), generator=g32, device=dev)
@@ -2882,40 +2880,53 @@ def main():
                         128 * 32 * 32 * (fft_flops(32) / 2 + 3 * 32),
                         "float32"))}
         del d32, b32, k2a
-        for Lk in (80, 112):
+        # K3 at b = 128: its dense kernel at the L it still serves (16,
+        # 32), and its FFT kernel at 48, 80 and 112 (the last z run half
+        # full) timed in turns against the dense kernel launched directly,
+        # as at L = 96; each beside ifft2 and its bound.
+        k3_at = {}
+        for Lk in (16, 32, 48, 80, 112):
             ck = get_correlator(Lk, 16, "float32", dev)
             ek = [torch.randn((128, Lk, Lk, Lk), generator=g32, device=dev)
                   for _ in range(2)]
             k3a = (*ek, ck.UxRe32, ck.UxIm32, ck.UxRe32, ck.UxIm32)
-            want = idft.idft_bc_reference(*k3a)
-            err = rel_err(idft.idft_bc(*k3a), want)
 
             def k3_library_at():
                 return torch.fft.ifft2(torch.complex(ek[0], ek[1]),
                                        dim=(1, 2)).real
 
-            dense_at[f"k3_L{Lk}"] = dict(
-                route=idft.k3_route(Lk), shape=list(ek[0].shape),
-                ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
-                plain_ms=cuda_time_ms(lambda: idft.idft_bc_reference(*k3a)),
-                max_abs_err=err[0], rel_err=err[1],
-                library_ms=cuda_time_ms(k3_library_at),
-                library_rel_err=rel_err(k3_library_at(), want)[1],
-                bound=bound((3 * ek[0].numel() + 4 * Lk * Lk) * 4,
-                            2 * (ek[0].numel() // Lk) * fft_flops(Lk),
-                            "float32"))
+            rec = dict(route=idft.k3_route(Lk), shape=list(ek[0].shape),
+                       bound=bound((3 * ek[0].numel() + 4 * Lk * Lk) * 4,
+                                   2 * (ek[0].numel() // Lk)
+                                   * fft_flops(Lk), "float32"))
+            if rec["route"] == "fft":
+                turns_k, plain_k, errs_k, want = both_routes(
+                    {"dense": idft._launch_dense, "fft": idft._launch_fft},
+                    idft.idft_bc_reference, k3a)
+                rec.update(turns=turns_k,
+                           ms={r: sum(v) / 2 for r, v in turns_k.items()},
+                           plain_ms=plain_k,
+                           max_abs_err={r: e[0] for r, e in errs_k.items()},
+                           rel_err={r: e[1] for r, e in errs_k.items()})
+            else:
+                want = idft.idft_bc_reference(*k3a)
+                err = rel_err(idft.idft_bc(*k3a), want)
+                rec.update(ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
+                           plain_ms=cuda_time_ms(
+                               lambda: idft.idft_bc_reference(*k3a)),
+                           max_abs_err=err[0], rel_err=err[1])
+            rec.update(library_ms=cuda_time_ms(k3_library_at),
+                       library_rel_err=rel_err(k3_library_at(), want)[1])
+            k3_at[Lk] = rec
             del ek, k3a, want
             torch.cuda.empty_cache()
 
-        def k1_routes(corr, args, reps=5, route="tf32", simt=True,
-                      simt_reps=None):
+        def k1_routes(corr, args, reps=5, route="tf32"):
             """K1's tensor-core ``route`` (with ``corr``'s kept twiddle
-            layouts, as the main path launches it) and its SIMT kernel
-            on ``args``, timed in turns (route, SIMT, SIMT, route; the
-            route alone, twice, if ``simt`` is False) on the same
-            inputs, then each output held against plain.  Returns
-            (turns, {route: mean ms}, plain ms, {route: (max abs err,
-            rel err)})."""
+            layouts, as the main path launches it) on ``args``, timed
+            twice, then its output held against plain.  Returns (turns,
+            {route: mean ms}, plain ms, {route: (max abs err, rel
+            err)})."""
             Lk = args[8].shape[1]
             dims = tuple(args[0].shape) + (Lk,) * 4
             D = [torch.empty((args[0].shape[0], args[0].shape[1], Lk, Lk),
@@ -2924,13 +2935,8 @@ def main():
             tensor_cores = fused._launch_tc if route == "tc" else (
                 fused._launch_tf32)
             launch = {route: lambda: tensor_cores(ops, dims, *D)}
-            if simt:
-                launch["simt"] = lambda: fused._launch_simt(args, dims, *D)
-            turns = {r: [] for r in launch}
-            for r in ((route, "simt", "simt", route) if simt
-                      else (route, route)):
-                turns[r].append(cuda_time_ms(
-                    launch[r], reps if r == route else simt_reps or reps))
+            turns = {route: [cuda_time_ms(launch[route], reps)
+                             for _ in range(2)]}
             plain_ms = cuda_time_ms(
                 lambda: fused.fused_correlate_reference(*args), reps)
             want = fused.fused_correlate_reference(*args)
@@ -2973,7 +2979,7 @@ def main():
                          + 2 * b_ * K_ * Lk * Lk * 4, flops, peak)
 
         # Boxes above 64, b = 128, L = 128: each tensor-core route (tiles
-        # of A) against SIMT in turns at boxes 72 and 96, alone at 128.
+        # of A) at boxes 72, 96 and 128.
         k1_big = {}
         for name, route, peak in (("bfloat16", "tc", "bfloat16"),
                                   ("float32", "tf32", "3xtf32")):
@@ -2981,7 +2987,7 @@ def main():
                 ab = k1_random_inputs(128, box, dtype_name=name)
                 turns_b, ms_b, plain_b, errs_b = k1_routes(
                     get_correlator(L, box, name, dev), ab, reps=3,
-                    route=route, simt=box < 128, simt_reps=2)
+                    route=route)
                 k1_big[f"{route}_box{box}"] = dict(
                     shape=list(ab[0].shape), L=L, turns=turns_b, ms=ms_b,
                     plain_ms=plain_b,
@@ -2990,21 +2996,26 @@ def main():
                     bound=k1_bound_at(ab, peak))
                 del ab
                 torch.cuda.empty_cache()
-        # The SIMT kernel at the shape of the grid-120 request (bf16, the
-        # bench complex's box, 128 rows, L = 120), where it still runs.
-        a120 = k1_random_inputs(128, Ls, Lk=120)
-        k1_simt_l120 = dict(
-            shape=list(a120[0].shape), L=120,
-            ms=cuda_time_ms(lambda: fused.fused_correlate(*a120), reps=3),
-            plain_ms=cuda_time_ms(
-                lambda: fused.fused_correlate_reference(*a120), reps=3),
-            bound=k1_bound_at(a120, "bfloat16"))
-        err120, route120, _ = k1_check(a120)
-        k1_simt_l120.update(route=route120, max_abs_err=err120[0],
-                            rel_err=err120[1])
-        del a120
+        # L = 120, padded to 128 in the tensor-core kernels, b = 128: the
+        # grid-120 request's shape (bf16, the bench complex's box) on tc,
+        # and float32 at box 72 on tf32.
+        k1_l120 = {}
+        for name, box, route, peak in (
+                ("bfloat16", Ls, "tc", "bfloat16"),
+                ("float32", 72, "tf32", "3xtf32")):
+            a120 = k1_random_inputs(128, box, dtype_name=name, Lk=120)
+            turns_b, ms_b, plain_b, errs_b = k1_routes(
+                get_correlator(120, box, name, dev), a120, reps=3,
+                route=route)
+            k1_l120[route] = dict(
+                shape=list(a120[0].shape), L=120, turns=turns_b,
+                ms=ms_b[route], plain_ms=plain_b,
+                max_abs_err=errs_b[route][0], rel_err=errs_b[route][1],
+                bound=k1_bound_at(a120, peak))
+            del a120
+            torch.cuda.empty_cache()
     emit("kernel_times", batch=128, dtype="bfloat16", Ls=Ls, k1_ms=k1_ms,
-         k1_simt_ms=k1_simt_ms, k1_plain_ms=k1_plain_ms,
+         k1_plain_ms=k1_plain_ms,
          k1_groups=dict(G=4, turns=k1_turns, ms=k1_g4_ms, route=k1g_route,
                         max_abs_err=k1g_err[0], rel_err=k1g_err[1]),
          k2_fft_ms=k2_fft_ms, k2_dense_ms=k2_dense_ms, k2_turns=k2_turns,
@@ -3013,8 +3024,8 @@ def main():
          k2_rescore=dict(batch=48, groups=16, turns=k2g_turns,
                          plain_ms=k2g_plain_ms, bound=k2g_bound,
                          rel_err={r: e[1] for r, e in k2g_errs.items()}),
-         k1_above_box64=k1_big, k1_simt_L120=k1_simt_l120, at_L96=at96,
-         dense_routes=dense_at,
+         k1_above_box64=k1_big, k1_L120=k1_l120, at_L96=at96,
+         k2_dense_routes=dense_at, k3_at={str(k): v for k, v in k3_at.items()},
          k1_float32=dict(turns=k1_f32_turns, ms=k1_f32_ms,
                          plain_ms=k1_f32_plain_ms,
                          rel_err={r: e[1] for r, e in k1_f32_errs.items()},
@@ -3032,8 +3043,8 @@ def main():
          bounds=bounds, peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                                "flops_per_s": PEAK_FLOPS},
          timer="cuda events, mean of 5 after 1 warm-up (3 for K1 above "
-               "box 64 and at L = 120, 2 for SIMT above box 64, 20 for K1 "
-               "at the v9p config)", card=card)
+               "box 64 and at L = 120, 20 for K1 at the v9p config)",
+         card=card)
     check(k3_library_err[1] <= TOL_F32,
           f"torch.fft.ifft2 is not K3's function: {k3_library_err}")
     check(k1g_route == "tc" and k1g_err[1] <= TOL_BF16,
@@ -3056,12 +3067,21 @@ def main():
     check(at96["k3"]["ms"]["fft"] < at96["k3"]["library_ms"],
           f"the FFT K3 at L=96 is not faster than ifft2: {at96}")
     for key, rec in dense_at.items():
-        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32
-              and rec.get("library_rel_err", 0.0) <= TOL_F32,
+        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32,
               f"dense {key}, b=128: {rec}")
-    check(k1_simt_l120["route"] == "simt"
-          and k1_simt_l120["rel_err"] <= TOL_BF16,
-          f"K1 at L=120, b=128: {k1_simt_l120}")
+    for Lk, rec in k3_at.items():
+        errs_k = (rec["rel_err"].values() if rec["route"] == "fft"
+                  else [rec["rel_err"]])
+        check(rec["route"] == ("fft" if Lk in idft.FFT_GRIDS else "dense")
+              and all(e <= TOL_F32 for e in errs_k)
+              and rec["library_rel_err"] <= TOL_F32,
+              f"K3 at L={Lk}, b=128: {rec}")
+    for Lk in (80, 112):
+        check(k3_at[Lk]["ms"]["fft"] < k3_at[Lk]["library_ms"],
+              f"the FFT K3 at L={Lk} is not faster than ifft2: {k3_at[Lk]}")
+    for route, rec in k1_l120.items():
+        check(rec["rel_err"] <= (TOL_BF16 if route == "tc" else TOL_F32),
+              f"K1 {route} at L=120, b=128: {rec}")
     for shape, route_errs in (("b=128", k2_errs), ("b=48, G=16", k2g_errs)):
         for route, e in route_errs.items():
             check(e[1] <= TOL_F32, f"K2 {route} at {shape}: {e}")
@@ -3112,10 +3132,11 @@ def main():
 
     def grid_request(name, cfg):
         """One request of ``cfg`` on the bench complex (unclustered), on
-        the card with K2's and K3's launch counts set to 0 just before it
-        and read just after, its first K2 and K3 launches held against
-        the plain versions, then again on the CPU (top-K values within
-        rtol 1e-3, the same top-1).  Emits and returns the record."""
+        the card with K1's, K2's and K3's launch counts set to 0 just
+        before it and read just after, then once more warm (timed, not
+        counted), its first K2 and K3 launches held against the plain
+        versions, then again on the CPU (top-K values within rtol 1e-3,
+        the same top-1).  Emits and returns the record."""
         k2_launch, k3_launch = invz_topk.invz_blockmax, idft.idft_bc
         first = {}
 
@@ -3128,6 +3149,7 @@ def main():
             return k3_launch(*args)
 
         p = DockingPipeline(cfg, params=params, device=dev)
+        fused.launches = fused.launches_tc = fused.launches_tf32 = 0
         invz_topk.launches = invz_topk.launches_fft = 0
         idft.launches = idft.launches_fft = 0
         invz_topk.invz_blockmax, idft.idft_bc = k2_spy, k3_spy
@@ -3143,10 +3165,21 @@ def main():
                    dtype=cfg.dft_dtype, rotations=cfg.num_rotations,
                    chunk=cfg.rotation_chunk, wall_seconds=wall,
                    poses=len(got), top1_score=float(got.scores[0]),
+                   k1_launches=fused.launches,
+                   k1_tc_launches=fused.launches_tc,
+                   k1_tf32_launches=fused.launches_tf32,
                    k2_launches=invz_topk.launches,
                    k2_fft_launches=invz_topk.launches_fft,
                    k3_launches=idft.launches,
                    k3_fft_launches=idft.launches_fft)
+        # The same request again, warm (the first one pays the set-up of
+        # its grid: cuFFT plans, cuDNN's choice of conv algorithms); these
+        # launches are not counted.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.dock_complex(cplx, cluster=False)
+        torch.cuda.synchronize()
+        rec["warm_seconds"] = time.perf_counter() - t0
         with torch.inference_mode():
             for kernel, checker in (("k2", k2_check), ("k3", k3_check)):
                 if kernel in first:
@@ -3196,8 +3229,9 @@ def main():
           and dense_path["k2_first_launch"]["route"] == "dense",
           f"grid-32 request: K2 did not run its dense kernel {dense_path}")
 
-    # One request at grid 120, not a multiple of 16, where K1 runs its
-    # SIMT kernel (and the top-K runs without K2: 120 % 32 != 0).
+    # One request at grid 120, not a multiple of 16, where K1 pads L to
+    # 128 on the tensor cores (and the top-K runs without K2:
+    # 120 % 32 != 0).
     pipe120 = DockingPipeline(serve_cfg.replace(grid_size=120,
                                                 num_rotations=256),
                               params=params, device=dev)
@@ -3206,20 +3240,28 @@ def main():
     t0 = time.perf_counter()
     poses120 = pipe120.dock_complex(cplx)
     torch.cuda.synchronize()
-    simt_path = dict(grid=120, rotations=256,
-                     wall_seconds=time.perf_counter() - t0,
-                     poses=len(poses120),
-                     top1_score=float(poses120.scores[0]),
-                     k1_launches=fused.launches,
-                     k1_tc_launches=fused.launches_tc,
-                     k1_tf32_launches=fused.launches_tf32)
-    emit("dock_request_grid120", **simt_path)
+    grid120 = dict(grid=120, rotations=256,
+                   wall_seconds=time.perf_counter() - t0,
+                   poses=len(poses120),
+                   top1_score=float(poses120.scores[0]),
+                   k1_launches=fused.launches,
+                   k1_tc_launches=fused.launches_tc,
+                   k1_tf32_launches=fused.launches_tf32)
+    emit("dock_request_grid120", **grid120)
     check(len(poses120) > 0 and bool(np.isfinite(poses120.scores).all()),
-          f"grid-120 request: no or non-finite poses {simt_path}")
-    check(simt_path["k1_launches"] > 0 and simt_path["k1_tc_launches"] == 0
-          and simt_path["k1_tf32_launches"] == 0,
-          f"grid-120 request: K1 did not run its SIMT kernel {simt_path}")
+          f"grid-120 request: no or non-finite poses {grid120}")
+    check(grid120["k1_launches"] > 0
+          and grid120["k1_tc_launches"] == grid120["k1_launches"],
+          f"grid-120 request: a K1 launch missed the tc kernel {grid120}")
     del pipe120, poses120
+    # The same grid in float32 (64 rotations; tf32 K1 padded to 128),
+    # on the card and on the CPU.
+    grid120_f32 = grid_request("dock_request_grid120_float32",
+                               small_cfg.replace(grid_size=120))
+    check(grid120_f32["k1_launches"] > 0
+          and grid120_f32["k1_tf32_launches"] == grid120_f32["k1_launches"],
+          f"float32 grid-120 request: a K1 launch missed the tf32 kernel "
+          f"{grid120_f32}")
 
     # One float32 request at grid 128 with a ligand box of 96, where K1
     # runs its tf32 kernel in 2 x 2 tiles of A; phase 4 runs the same
@@ -3297,7 +3339,7 @@ def main():
     # Two requests uncut at 13,000 rotations on a ligand whose own box
     # is above 64: the full-sweep preset's settings in float32 (tf32 K1)
     # and the serve config in bf16 (tc K1), each after a warm-up request
-    # of 256 rotations; every K1 launch on the tensor cores, none SIMT.
+    # of 256 rotations; every K1 launch on the tensor cores.
     from deeplocalproteindocking_torch.correlate import dft as dft_module
     big = synthetic_complex(**BIG_COMPLEX)
     sweep = PRESETS["full-sweep"]
@@ -3348,7 +3390,7 @@ def main():
                    rotations_per_second=cfg.num_rotations / wall,
                    poses=len(poses), top1_score=float(poses.scores[0]),
                    k1_launches=n[0], k1_tc_launches=n[1],
-                   k1_tf32_launches=n[2], k1_simt_launches=n[0] - n[1] - n[2],
+                   k1_tf32_launches=n[2],
                    k2_launches=n[3], k2_fft_launches=n[4],
                    k1_first_launch=dict(route=first_route,
                                         max_abs_err=first_err[0],
@@ -3359,8 +3401,7 @@ def main():
         check(len(poses) > 0 and bool(np.isfinite(poses.scores).all()),
               f"{name}: no or non-finite poses {rec}")
         check(n_route == rec["k1_launches"] == math.ceil(
-            cfg.num_rotations / cfg.rotation_chunk)
-              and rec["k1_simt_launches"] == 0,
+            cfg.num_rotations / cfg.rotation_chunk),
               f"{name}: a K1 launch missed the {route} kernel {rec}")
         check(rec["k2_fft_launches"] == rec["k2_launches"] > 0,
               f"{name}: a K2 launch missed the FFT kernel {rec}")
@@ -3510,21 +3551,25 @@ def main():
           f"a grid-128 K3 launch missed the FFT kernel: {screen_launches} "
           f"launches, {screen_fft_launches} FFT")
 
-    # Float32 dft_pallas docks at grid 96, where K3 runs its FFT kernel,
-    # and at grid 80, where it runs its dense one; each also on the CPU.
-    k3_fft96 = grid_request("screen_dock_grid96", small_cfg.replace(
-        fft_impl="dft_pallas", grid_size=96))
-    check(k3_fft96["k3_launches"] > 0
-          and k3_fft96["k3_fft_launches"] == k3_fft96["k3_launches"]
-          and k3_fft96["k3_first_launch"]["route"] == "fft",
-          f"grid-96 dft_pallas dock: a K3 launch missed the FFT kernel "
-          f"{k3_fft96}")
-    k3_dense_path = grid_request("screen_dock_grid80", small_cfg.replace(
-        fft_impl="dft_pallas", grid_size=80))
+    # Float32 dft_pallas docks at grids 96, 80 and 112, where K3 runs its
+    # FFT kernel (a half-full last z run at 80 and 112), and at grid 32,
+    # where it runs its dense one; each also on the CPU.
+    k3_fft_docks = {}
+    for Lk in (96, 80, 112):
+        rec = grid_request(f"screen_dock_grid{Lk}", small_cfg.replace(
+            fft_impl="dft_pallas", grid_size=Lk))
+        check(rec["k3_launches"] > 0
+              and rec["k3_fft_launches"] == rec["k3_launches"]
+              and rec["k3_first_launch"]["route"] == "fft",
+              f"grid-{Lk} dft_pallas dock: a K3 launch missed the FFT "
+              f"kernel {rec}")
+        k3_fft_docks[Lk] = rec
+    k3_dense_path = grid_request("screen_dock_grid32", small_cfg.replace(
+        fft_impl="dft_pallas", grid_size=32))
     check(k3_dense_path["k3_launches"] > 0
           and k3_dense_path["k3_fft_launches"] == 0
           and k3_dense_path["k3_first_launch"]["route"] == "dense",
-          f"grid-80 dft_pallas dock: K3 did not run its dense kernel "
+          f"grid-32 dft_pallas dock: K3 did not run its dense kernel "
           f"{k3_dense_path}")
 
     # One rescore on the main-path dft_fused engine: K2 takes the 16 head
@@ -3683,26 +3728,19 @@ def main():
         {"name": "fused_correlate", "route": "cuda",
          "source": src + "fused_correlate_tc.cu",
          "sources": {"tc": src + "fused_correlate_tc.cu",
-                     "tf32": src + "fused_correlate_tf32.cu",
-                     "simt": src + "fused_correlate.cu"},
+                     "tf32": src + "fused_correlate_tf32.cu"},
          "replaces": tpu + "pallas_fused.py:57",
          "launches": main_launches["fused_correlate"],
          "launches_by_route": {
              "tc": main_launches["fused_correlate_tc"],
-             "tf32": main_launches["fused_correlate_tf32"],
-             "simt": main_launches["fused_correlate"]
-             - main_launches["fused_correlate_tc"]
-             - main_launches["fused_correlate_tf32"]},
+             "tf32": main_launches["fused_correlate_tf32"]},
          "launches_band100": {"tc": band_count("k1_tc"),
-                              "tf32": band_count("k1_tf32"),
-                              "simt": band_count("k1_simt")},
+                              "tf32": band_count("k1_tf32")},
          "max_abs_err": errs["k1_bfloat16"][0],
          "max_abs_err_float32": errs["k1_float32"][0],
          "max_abs_err_band100": band_errs("k1"),
          "launches_batched": {"tc": batched_launches["k1_tc"],
-                              "simt": batched_launches["k1"]
-                              - batched_launches["k1_tc"]
-                              - batched_launches["k1_tf32"],
+                              "all": batched_launches["k1"],
                               "h_groups": phase8["batched"]["k1_groups"]},
          "max_abs_err_groups": {
              "tc_G4_b128": k1g_err[0], "tf32_float32_G4_b8":
@@ -3711,9 +3749,7 @@ def main():
                  "max_abs_err"]},
          "launches_train": {"tc": train_launches["k1_tc"],
                             "tf32": train_launches["k1_tf32"],
-                            "simt": train_launches["k1"]
-                            - train_launches["k1_tc"]
-                            - train_launches["k1_tf32"]},
+                            "all": train_launches["k1"]},
          "launches_cli": {"tc": cli_count("k1_tc"),
                           "tf32": cli_count("k1_tf32")},
          "launches_phase11": p11_count(
@@ -3735,9 +3771,11 @@ def main():
              for k in ("box72", "box96", "box128")},
          "above_box64": {k[3:]: box_summary(v) for k, v in k1_big.items()
                          if k.startswith("tc_")},
-         "ms": k1_ms, "simt_ms": k1_simt_ms,
-         "simt_float32_ms": k1_f32_ms["simt"],
-         "plain_ms": k1_plain_ms,
+         "launches_grid120_request": grid120["k1_tc_launches"],
+         "max_abs_err_L120_b2": errs["k1_bf16_L120"][0],
+         "at_L120": box_summary(k1_l120["tc"]),
+         "max_abs_err_L120_b128": k1_l120["tc"]["max_abs_err"],
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": bounds["k1"]["bound_ms"],
          "bound_by": bounds["k1"]["bound_by"], "library_ms": None},
         {"name": "fused_correlate_tf32", "route": "cuda",
@@ -3769,7 +3807,7 @@ def main():
          "max_abs_err_band100": band_errs("k1")["shape_local"],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
          "ms": k1_f32_ms["tf32"], "ms_turns": k1_f32_turns,
-         "simt_ms": k1_f32_ms["simt"], "plain_ms": k1_f32_plain_ms,
+         "plain_ms": k1_f32_plain_ms,
          "v9p_config": {"shape": k1_v9p["shape"], "ms": k1_v9p["ms"],
                         "plain_ms": k1_v9p["plain_ms"]},
          "launches_box96_request": box96["k1_tf32_launches"],
@@ -3783,27 +3821,13 @@ def main():
              for k in ("box72", "box96", "box128")},
          "above_box64": {k[5:]: box_summary(v) for k, v in k1_big.items()
                          if k.startswith("tf32_")},
+         "launches_grid120_float32_request":
+             grid120_f32["k1_tf32_launches"],
+         "max_abs_err_L120_b2": errs["k1_f32_L120"][0],
+         "at_L120": box_summary(k1_l120["tf32"]),
+         "max_abs_err_L120_b128": k1_l120["tf32"]["max_abs_err"],
          "bound_ms": bounds["k1_float32"]["bound_ms"],
          "bound_by": bounds["k1_float32"]["bound_by"], "library_ms": None},
-        {"name": "fused_correlate_simt", "route": "cuda",
-         "source": src + "fused_correlate.cu",
-         "replaces": tpu + "pallas_fused.py:57",
-         "launches": simt_path["k1_launches"],
-         "launches_path": "one dock request at grid 120 (L not a multiple "
-                          "of 16: K1's SIMT route)",
-         "launches_main_path": main_launches["fused_correlate"]
-         - main_launches["fused_correlate_tc"]
-         - main_launches["fused_correlate_tf32"],
-         "max_abs_err": k1_simt_l120["max_abs_err"],
-         "max_abs_err_L120_b2": {"bf16": errs["k1_bf16_simt_L120"][0],
-                                 "float32": errs["k1_f32_simt_L120"][0]},
-         "shape": k1_simt_l120["shape"], "L": 120, "dtype": "bfloat16",
-         "tolerance": f"bf16 {TOL_BF16}, float32 {TOL_F32} x max|plain|",
-         "ms": k1_simt_l120["ms"], "plain_ms": k1_simt_l120["plain_ms"],
-         "in_turns_above_box64": {k: v["ms"].get("simt")
-                                  for k, v in k1_big.items()},
-         "bound_ms": k1_simt_l120["bound"]["bound_ms"],
-         "bound_by": k1_simt_l120["bound"]["bound_by"], "library_ms": None},
         {"name": "invz_blockmax_fft", "route": "cuda",
          "source": src + "invz_blockmax_fft.cu",
          "replaces": tpu + "pallas_invz_topk.py:54",
@@ -3880,12 +3904,14 @@ def main():
          "launches_phase11": p11_count("k3_fft"),
          "max_abs_err_cli_screen_first_launch":
              clir["kernels_vs_plain"]["screen_k3"]["max_abs_err"],
-         "launches_grid96_dock": k3_fft96["k3_fft_launches"],
-         "max_abs_err_grid96_first_launch":
-             k3_fft96["k3_first_launch"]["max_abs_err"],
+         "launches_docks": {f"grid{Lk}": rec["k3_fft_launches"]
+                            for Lk, rec in k3_fft_docks.items()},
+         "max_abs_err_docks_first_launch": {
+             f"grid{Lk}": rec["k3_first_launch"]["max_abs_err"]
+             for Lk, rec in k3_fft_docks.items()},
          "max_abs_err": errs["k3"][0],
-         "max_abs_err_L64": errs["k3_fft_L64"][0],
-         "max_abs_err_L96": errs["k3_fft_L96"][0],
+         "max_abs_err_b8": {k.split("_")[-1]: errs[k][0]
+                            for k in K3_RANDOM_CHECKS if "_fft_" in k},
          "max_abs_err_b128": k3_errs["fft"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
          "ms": k3_fft_ms, "plain_ms": k3_plain_ms,
@@ -3896,6 +3922,14 @@ def main():
                     "library_ms": at96["k3"]["library_ms"],
                     "max_abs_err": at96["k3"]["errs"]["fft"][0],
                     "bound_ms": at96["k3"]["bound"]["bound_ms"]},
+         **{f"at_L{Lk}": {"ms": k3_at[Lk]["ms"]["fft"],
+                          "ms_dense": k3_at[Lk]["ms"]["dense"],
+                          "turns": k3_at[Lk]["turns"],
+                          "plain_ms": k3_at[Lk]["plain_ms"],
+                          "library_ms": k3_at[Lk]["library_ms"],
+                          "max_abs_err": k3_at[Lk]["max_abs_err"]["fft"],
+                          "bound_ms": k3_at[Lk]["bound"]["bound_ms"]}
+            for Lk in (48, 80, 112)},
          "bound_ms": bounds["k3"]["bound_ms"],
          "bound_by": bounds["k3"]["bound_by"],
          "library_ms": k3_library_ms},
@@ -3903,24 +3937,31 @@ def main():
          "source": src + "idft_bc.cu",
          "replaces": tpu + "pallas_idft.py:34",
          "launches": k3_dense_path["k3_launches"],
-         "launches_path": "one float32 dft_pallas dock at grid 80 (K3's "
+         "launches_path": "one float32 dft_pallas dock at grid 32 (K3's "
                           "dense route)",
          "launches_band100": band_count("k3") - band_count("k3_fft"),
          "launches_phase11": p11_count("k3"),
-         "max_abs_err": errs["k3_dense_L80"][0],
+         "max_abs_err": errs["k3_dense_L32"][0],
+         "max_abs_err_L16_b8": errs["k3_dense_L16"][0],
          "max_abs_err_first_launch":
              k3_dense_path["k3_first_launch"]["max_abs_err"],
-         "max_abs_err_b128_L80": dense_at["k3_L80"]["max_abs_err"],
+         "max_abs_err_b128_L32": k3_at[32]["max_abs_err"],
          "max_abs_err_b128_L96": at96["k3"]["errs"]["dense"][0],
          "max_abs_err_b128_L128": k3_errs["dense"][0],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "shape": dense_at["k3_L80"]["shape"], "L": 80,
-         "ms": dense_at["k3_L80"]["ms"],
-         "plain_ms": dense_at["k3_L80"]["plain_ms"],
-         "at_L112": {k: (v["bound_ms"] if k == "bound" else v)
-                     for k, v in dense_at["k3_L112"].items()
-                     if k in ("ms", "plain_ms", "library_ms", "bound",
-                              "max_abs_err")},
+         "shape": k3_at[32]["shape"], "L": 32,
+         "ms": k3_at[32]["ms"],
+         "plain_ms": k3_at[32]["plain_ms"],
+         "at_L16": {k: (v["bound_ms"] if k == "bound" else v)
+                    for k, v in k3_at[16].items()
+                    if k in ("ms", "plain_ms", "library_ms", "bound",
+                             "max_abs_err")},
+         **{f"at_L{Lk}": {"ms": k3_at[Lk]["ms"]["dense"],
+                          "ms_fft": k3_at[Lk]["ms"]["fft"],
+                          "plain_ms": k3_at[Lk]["plain_ms"],
+                          "library_ms": k3_at[Lk]["library_ms"],
+                          "bound_ms": k3_at[Lk]["bound"]["bound_ms"]}
+            for Lk in (48, 80, 112)},
          "at_L96": {"ms": at96["k3"]["ms"]["dense"],
                     "ms_fft": at96["k3"]["ms"]["fft"],
                     "plain_ms": at96["k3"]["plain_ms"],
@@ -3930,9 +3971,9 @@ def main():
                      "plain_ms": k3_plain_ms,
                      "library_ms": k3_library_ms,
                      "bound_ms": bounds["k3"]["bound_ms"]},
-         "bound_ms": dense_at["k3_L80"]["bound"]["bound_ms"],
-         "bound_by": dense_at["k3_L80"]["bound"]["bound_by"],
-         "library_ms": dense_at["k3_L80"]["library_ms"]}]}), flush=True)
+         "bound_ms": k3_at[32]["bound"]["bound_ms"],
+         "bound_by": k3_at[32]["bound"]["bound_by"],
+         "library_ms": k3_at[32]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -176,8 +176,9 @@ class DFTCorrelator:
     @functools.cached_property
     def k1_layouts(self):
         """K1's twiddles in the layouts of its tensor-core kernel
-        (``fused.twiddle_layouts``; None where K1 runs SIMT), made at the
-        first use and kept: a sweep launches K1 hundreds of times."""
+        (``fused.twiddle_layouts``; None where no kernel takes the
+        shapes), made at the first use and kept: a sweep launches K1
+        hundreds of times."""
         return twiddle_layouts(self.WyRe, self.WyIm, self.WxRe, self.WxIm,
                                self.UxRe, self.UxIm, self.UyRe, self.UyIm)
 

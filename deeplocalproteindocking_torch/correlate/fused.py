@@ -15,24 +15,24 @@ Port of ``deeplocalproteindocking_tpu/correlate/pallas_fused.py``.  Per
 correlate against ``H[g]``, the rule K2's bias groups follow, so one
 launch serves a batched sweep step of G complexes.
 :func:`fused_correlate` runs the plain version
-:func:`fused_correlate_reference` for CPU tensors and launches one of three
+:func:`fused_correlate_reference` for CPU tensors and launches one of two
 hand-written CUDA kernels for CUDA tensors, chosen by :func:`k1_route`
-from dtype and shapes alone:
+from the dtype alone, for ligand boxes X, Y <= 128 and even I, J, X', Y'
+up to 128 (every grid the ``dft_fused`` engine takes):
 
 - ``"tc"`` (``csrc/fused_correlate_tc.cu``): bf16 on the tensor cores
-  (``mma.sync``), for ligand boxes X, Y <= 128 and I, J, X', Y'
-  multiples of 16 up to 128 -- the main path.  Its twiddles go in the
-  layouts of :func:`tc_operands`; boxes above 64 run as two x tiles of
-  A (:func:`tc_smem_bytes`).
+  (``mma.sync``) -- the main path.  Its twiddles go in the layouts of
+  :func:`tc_operands`; boxes above 64 run as two x tiles of A
+  (:func:`tc_smem_bytes`).
 - ``"tf32"`` (``csrc/fused_correlate_tf32.cu``): float32 on the tensor
   cores, each real product as three TF32 products of hi/lo splits
-  (3xTF32), for the same shapes -- every float32 config the repository
-  ships.  Its twiddles go in the split layout of :func:`tf32_operands`;
-  boxes above 64 run as 2 x 2 tiles of A (:func:`tf32_smem_bytes`).
-- ``"simt"`` (``csrc/fused_correlate.cu``): float32 FMA loops, for the
-  shapes whose I, J, X' or Y' is not a multiple of 16 (L up to 128), in
-  either dtype.  Its shared memory (:func:`simt_smem_bytes`) does not
-  grow with the ligand box's area.
+  (3xTF32) -- every float32 config the repository ships.  Its twiddles
+  go in the split layout of :func:`tf32_operands`; boxes above 64 run as
+  2 x 2 tiles of A (:func:`tf32_smem_bytes`).
+
+Both pad J, I, X' and Y' to a multiple of 16 inside the kernel (grid
+120, say): the twiddles come zero-padded to that size, H is read as 0
+past J and I (never copied), and D is stored only below X' and Y'.
 
 A tensor-core route's twiddle layouts (:func:`twiddle_layouts`) are
 made once by a caller that launches often (``DFTCorrelator.k1_layouts``)
@@ -46,10 +46,9 @@ import torch
 from deeplocalproteindocking_torch import _build
 from deeplocalproteindocking_torch.correlate._contract import cmm
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.bfloat16: "tc", torch.float32: "tf32"}   # by dtype
 _MAX_L = 128                   # also the largest box of every route
 _TILE = 64                     # the tensor-core kernels' A tile edge
-_SIMT_JT = 8                   # the SIMT kernel's j rows per tile (kJT)
 _TF32_NC = 32                  # the tf32 kernel's x' rows per pass (kNC)
 SMEM_OPTIN_BYTES = 232_448     # shared memory a Hopper block may opt in to
 
@@ -96,42 +95,60 @@ def fused_correlate_reference(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     return cmm("bkjx,jy->bkxy", Cre, Cim, UyRe, UyIm)
 
 
-def k1_route(dtype, X, Y, I, J, Xp, Yp) -> str:
-    """``"tc"``, ``"tf32"`` or ``"simt"``: the kernel K1 launches for
-    CUDA tensors.
+def _route(dtype, X, Y, I, J, Xp, Yp):
+    """:func:`k1_route`'s answer, or None where no kernel takes the
+    dtype and shapes."""
+    if (0 < max(X, Y) <= _MAX_L
+            and all(0 < n <= _MAX_L and n % 2 == 0 for n in (I, J, Xp, Yp))):
+        return _ROUTES.get(dtype)
+    return None
 
-    A ligand box with X, Y <= 128 and I, J, X', Y' multiples of 16 no
-    larger than 128 go to the tensor cores: ``"tc"`` in bf16, ``"tf32"``
-    in float32.  Every other shape (or dtype) runs ``"simt"``.
+
+def k1_route(dtype, X, Y, I, J, Xp, Yp) -> str:
+    """``"tc"`` or ``"tf32"``: the kernel K1 launches for CUDA tensors.
+
+    A ligand box with X, Y <= 128 and even I, J, X', Y' no larger than
+    128 goes to the tensor cores: ``"tc"`` in bf16, ``"tf32"`` in
+    float32.  Raises ``ValueError`` for any other dtype or shape: no
+    kernel takes it.
     """
-    if (max(X, Y) <= _MAX_L
-            and all(n > 0 and n % 16 == 0 and n <= _MAX_L
-                    for n in (I, J, Xp, Yp))):
-        if dtype == torch.bfloat16:
-            return "tc"
-        if dtype == torch.float32:
-            return "tf32"
-    return "simt"
+    route = _route(dtype, X, Y, I, J, Xp, Yp)
+    if route is None:
+        raise ValueError(
+            f"fused_correlate: no kernel takes {dtype} at X={X}, Y={Y}, "
+            f"I={I}, J={J}, X'={Xp}, Y'={Yp} (float32 or bfloat16, boxes "
+            f"up to {_MAX_L}, even I, J, X', Y' up to {_MAX_L})")
+    return route
+
+
+def _up16(n) -> int:
+    """``n`` rounded up to a multiple of 16."""
+    return -(-n // 16) * 16
 
 
 def _padded_box(X, Y) -> int:
     """P: the larger of X and Y rounded up to 16."""
-    return -(-max(X, Y) // 16) * 16
+    return _up16(max(X, Y))
 
 
 def tc_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
-    """The tensor-core kernel's twiddles: ``Wy^T [J, P]`` and
-    ``Wx^T [I, P]`` zero-padded to ``P`` = the larger of X and Y rounded
-    up to 16, ``Ux^T [X', I]`` and ``Uy^T [Y', J]``, all contiguous.
-    Each is an MMA operand stored with its contraction axis innermost."""
+    """The tensor-core kernel's twiddles, zero-padded: ``Wy^T [J16, P]``
+    and ``Wx^T [I16, P]`` (P = the larger of X and Y rounded up to 16),
+    ``Ux^T [X'16, I16]`` and ``Uy^T [Y'16, J16]``, where N16 is N rounded
+    up to 16; all contiguous.  Each is an MMA operand stored with its
+    contraction axis innermost."""
     P = _padded_box(WyRe.shape[0], WxRe.shape[0])
 
-    def pad_t(w):
-        return torch.nn.functional.pad(w.T, (0, P - w.shape[0])).contiguous()
+    def pad_t(w, cols):
+        """``w^T`` zero-padded to ``[rows rounded up to 16, cols]``."""
+        n, k = w.shape[1], w.shape[0]
+        return torch.nn.functional.pad(
+            w.T, (0, cols - k, 0, _up16(n) - n)).contiguous()
 
-    return (pad_t(WyRe), pad_t(WyIm), pad_t(WxRe), pad_t(WxIm),
-            UxRe.T.contiguous(), UxIm.T.contiguous(), UyRe.T.contiguous(),
-            UyIm.T.contiguous())
+    I16, J16 = _up16(WxRe.shape[1]), _up16(WyRe.shape[1])
+    return (pad_t(WyRe, P), pad_t(WyIm, P), pad_t(WxRe, P), pad_t(WxIm, P),
+            pad_t(UxRe, I16), pad_t(UxIm, I16), pad_t(UyRe, J16),
+            pad_t(UyIm, J16))
 
 
 def tf32_split(x: torch.Tensor):
@@ -159,9 +176,9 @@ def tf32_layout(m: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
-    """The tf32 kernel's twiddles: :func:`tc_operands`' ``Wy^T [J, P]``,
-    ``Wx^T [I, P]`` (zero-padded), ``Ux^T [X', I]`` and ``Uy^T [Y', J]``,
-    each in :func:`tf32_layout`."""
+    """The tf32 kernel's twiddles: :func:`tc_operands`' ``Wy^T [J16,
+    P]``, ``Wx^T [I16, P]``, ``Ux^T [X'16, I16]`` and ``Uy^T [Y'16,
+    J16]`` (zero-padded), each in :func:`tf32_layout`."""
     return tuple(tf32_layout(o) for o in tc_operands(
         WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm))
 
@@ -169,14 +186,15 @@ def tf32_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
 def twiddle_layouts(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
     """The twiddles in the layouts of the kernel :func:`k1_route` picks
     for their dtype and shapes: :func:`tc_operands` for ``"tc"``,
-    :func:`tf32_operands` for ``"tf32"``, None for ``"simt"`` (which
-    reads them as they are).  Made as normal tensors outside autograd,
-    so they may be kept across inference and training calls."""
+    :func:`tf32_operands` for ``"tf32"``; None where no kernel takes
+    them (the plain version reads them as they are).  Made as normal
+    tensors outside autograd, so they may be kept across inference and
+    training calls."""
     tw = (WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm)
-    route = k1_route(WyRe.dtype, WxRe.shape[0], WyRe.shape[0],
-                     WxRe.shape[1], WyRe.shape[1], UxRe.shape[1],
-                     UyRe.shape[1])
-    if route == "simt":
+    route = _route(WyRe.dtype, WxRe.shape[0], WyRe.shape[0],
+                   WxRe.shape[1], WyRe.shape[1], UxRe.shape[1],
+                   UyRe.shape[1])
+    if route is None:
         return None
     with torch.inference_mode(False), torch.no_grad():
         return tc_operands(*tw) if route == "tc" else tf32_operands(*tw)
@@ -187,55 +205,26 @@ def tc_smem_bytes(X, Y, J, I, Xp) -> int:
     ``csrc/fused_correlate_tc.cu``), bf16 (re, im): two buffers of the x
     tile of the ligand slab ``[T, P+8]`` (T = min(P, 64) rows, the whole
     padded y range; one is filled by cp.async while the other is read),
-    G ``[J, I+8]`` and C^T ``[X', J+8]``."""
+    G ``[J16, I16+8]`` and C^T ``[X'16, J16+8]`` (N16: N rounded up to
+    16)."""
     P = _padded_box(X, Y)
+    J, I, Xp = _up16(J), _up16(I), _up16(Xp)
     return 2 * 2 * (2 * min(P, _TILE) * (P + 8) + J * (I + 8)
                     + Xp * (J + 8))
 
 
 def tf32_smem_bytes(X, Y, J, I) -> int:
     """Dynamic shared memory of one tf32-kernel block (``smem_bytes`` in
-    ``csrc/fused_correlate_tf32.cu``): G ``[J, I+8]`` float32 (re, im),
-    plus the larger of the split tile of the ligand slab ``[T, 2T+16]``
-    (T = min(P, 64): boxes above 64 run as 2 x 2 tiles) and the split
-    C^T pass ``[kNC, 2J+16]`` (re, im), which share their space."""
+    ``csrc/fused_correlate_tf32.cu``): G ``[J16, I16+8]`` float32 (re,
+    im; N16: N rounded up to 16), plus the larger of the split tile of
+    the ligand slab ``[T, 2T+16]`` (T = min(P, 64): boxes above 64 run as
+    2 x 2 tiles) and the split C^T pass ``[kNC, 2 J16+16]`` (re, im),
+    which share their space."""
     T = min(_padded_box(X, Y), _TILE)
+    J, I = _up16(J), _up16(I)
     a = 2 * T * (2 * T + 16)
     c = 2 * _TF32_NC * (2 * J + 16)
     return 4 * (2 * J * (I + 8) + max(a, c))
-
-
-def simt_smem_bytes(X, I, Xp, Yp, dtype) -> int:
-    """Dynamic shared memory of one SIMT-kernel block (``smem_bytes`` in
-    ``csrc/fused_correlate.cu``): the float32 D accumulator ``[X', Y']``
-    (re, im) and the B, G, C and Uy tiles of 8 rows in the operand
-    dtype.  The ligand slab A is read from device memory, so only X of
-    the box counts."""
-    elt = torch.empty((), dtype=dtype).element_size()
-    return 2 * 4 * Xp * Yp + 2 * elt * _SIMT_JT * (X + I + Xp + Yp)
-
-
-def _launch_simt(args, dims, Dre, Dim):
-    """``csrc/fused_correlate.cu`` on ``args`` as :func:`fused_correlate`
-    takes them; ``dims = (b, K, C, X, Y, J, I, Xp, Yp)``, the receptor
-    groups G read from H's shape.  Raises before the launch if a block
-    would need more shared memory than Hopper gives one."""
-    global launches
-    b, _, _, X, _, _, I, Xp, Yp = dims
-    smem = simt_smem_bytes(X, I, Xp, Yp, args[0].dtype)
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(
-            f"fused_correlate: the SIMT kernel needs {smem} B of shared "
-            f"memory per block at X={X}, I={I}, X'={Xp}, Y'={Yp}, more "
-            f"than the {SMEM_OPTIN_BYTES} B a block may have")
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        err = _build.library().dlpd_fused_correlate(
-            _KERNEL_DTYPES[args[0].dtype], *(t.data_ptr() for t in args),
-            Dre.data_ptr(), Dim.data_ptr(), *dims, h_groups(args[2], b),
-            _build.stream(args[0]))
-    _build.check(err, "fused_correlate")
-    launches += 1
 
 
 def _launch_tc(ops, dims, Dre, Dim):
@@ -298,8 +287,7 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     ``Wy [Y, J]``, ``Wx [X, I]``, ``Ux [I, X']``, ``Uy [J, Y']``; all of
     one dtype (float32 or bfloat16) and device.  ``layouts``:
     :func:`twiddle_layouts` of these twiddles, made once by a caller
-    that launches often; made here for a tensor-core route when not
-    given.
+    that launches often; made here when not given.
     """
     args = (Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe,
             UyIm)
@@ -312,7 +300,7 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     b, K, C, X, Y = Are.shape
     J, I = WyRe.shape[1], WxRe.shape[1]
     Xp, Yp = UxRe.shape[1], UyRe.shape[1]
-    if Are.dtype not in _KERNEL_DTYPES:
+    if Are.dtype not in _ROUTES:
         raise TypeError(f"fused_correlate: kernel takes float32 or "
                         f"bfloat16, got {Are.dtype}")
     if max(I, Xp, Yp, J) > _MAX_L:
@@ -330,16 +318,14 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     Dim = torch.empty_like(Dre)
     dims = (b, K, C, X, Y, J, I, Xp, Yp)
     route = k1_route(Are.dtype, X, Y, I, J, Xp, Yp)
-    if route == "simt":
-        _launch_simt(args, dims, Dre, Dim)
-    else:
-        if layouts is None:
-            layouts = twiddle_layouts(*args[4:])
-        P, w = _padded_box(X, Y), 1 if route == "tc" else 2
-        _build.check_tensors("fused_correlate", Are.device, Are.dtype, zip(
-            ("WyTre", "WyTim", "WxTre", "WxTim", "UxTre", "UxTim", "UyTre",
-             "UyTim"), layouts, ((J, w * P),) * 2 + ((I, w * P),) * 2
-            + ((Xp, w * I),) * 2 + ((Yp, w * J),) * 2))
-        launch = _launch_tc if route == "tc" else _launch_tf32
-        launch(args[:4] + tuple(layouts), dims, Dre, Dim)
+    if layouts is None:
+        layouts = twiddle_layouts(*args[4:])
+    P, w = _padded_box(X, Y), 1 if route == "tc" else 2
+    J16, I16 = _up16(J), _up16(I)
+    _build.check_tensors("fused_correlate", Are.device, Are.dtype, zip(
+        ("WyTre", "WyTim", "WxTre", "WxTim", "UxTre", "UxTim", "UyTre",
+         "UyTim"), layouts, ((J16, w * P),) * 2 + ((I16, w * P),) * 2
+        + ((_up16(Xp), w * I16),) * 2 + ((_up16(Yp), w * J16),) * 2))
+    launch = _launch_tc if route == "tc" else _launch_tf32
+    launch(args[:4] + tuple(layouts), dims, Dre, Dim)
     return Dre, Dim

@@ -15,15 +15,17 @@ takes them.  :func:`idft_bc` runs the plain version
 hand-written CUDA kernels for CUDA tensors, chosen by :func:`k3_route`
 from the grid size L alone:
 
-- ``"fft"`` (``csrc/idft_fft.cu``), L = 64, 96 or 128 -- the screening
-  path and grid 96's presets: ``Ux`` and ``Uy`` are the inverse DFT matrix
+- ``"fft"`` (``csrc/idft_fft.cu``), L = 48, 64, 80, 96, 112 or 128 --
+  the screening path, grid 96's presets and every other grid of 48 and
+  up: ``Ux`` and ``Uy`` are the inverse DFT matrix
   (:func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft`), so
   the kernel computes passes B and C as a complex FFT along ky and a c2r
   along kx and never reads them; the wrapper checks once per tensor that
-  they are that matrix.
-- ``"dense"`` (``csrc/idft_bc.cu``), every other L that the engine
-  takes (a multiple of 16 up to 128: 16, 32, 48, 80, 112): the two
-  contractions as float32 FMA loops.
+  they are that matrix.  At 48, 80 and 112 the last 32-wide z run is
+  half full and masked.
+- ``"dense"`` (``csrc/idft_bc.cu``), the other L that the engine takes
+  (a multiple of 16 up to 128: 16 and 32): the two contractions as
+  float32 FMA loops.
 
 A CUDA tensor never falls back: the routed kernel launches or the call
 raises.
@@ -39,7 +41,7 @@ from deeplocalproteindocking_torch.correlate._contract import cmm, mm
 TX = 8          # x rows per block (the TPU kernel's TX)
 KYB = 16        # ky block (the TPU kernel's KYB)
 _MAX_L = 128
-FFT_GRIDS = (64, 96, 128)
+FFT_GRIDS = (48, 64, 80, 96, 112, 128)
 
 # Kernel launches since the last reset (the main path's proof of use):
 # every K3 launch, and those of the FFT kernel alone.

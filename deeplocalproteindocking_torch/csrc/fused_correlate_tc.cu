@@ -2,10 +2,10 @@
 // inverse-x/y correlator for bf16 operands.
 //
 // Replaces the TPU kernel `_kernel` / `fused_correlate` in
-// deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = bf16 and
-// ligand boxes X, Y <= 128 (fused_correlate_tf32.cu keeps float32,
-// fused_correlate.cu the shapes whose L is not a multiple of 16).  For
-// one (kz frequency k, rotation b) it computes
+// deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = bf16,
+// ligand boxes X, Y <= 128 and even J, I, X', Y' <= 128
+// (fused_correlate_tf32.cu keeps float32).  For one (kz frequency k,
+// rotation b) it computes
 //
 //   B^T[c,j,x] = sum_y Wy[y,j]  A[c,x,y]            (forward y)
 //   F[c,j,i]   = sum_x B^T[c,j,x] Wx[x,i]           (forward x)
@@ -28,8 +28,19 @@
 // pace.
 //
 // What the design does.  One block per (b, k), b the fastest grid axis
-// so consecutive blocks share H[k] in L2; J/16 warps, warp w owning the
+// so consecutive blocks share H[k] in L2; J16/16 warps, warp w owning the
 // rows j in [16w, 16w+16) through stages 1-3.
+//  0. J, I, X' and Y' are padded to multiples of 16 (J16 ...: at L = 120,
+//     128) in the kernel: the wrapper's twiddles are zero-padded to those
+//     sizes, H is read as 0 at j >= J or i >= I (never copied), so every
+//     padded row and column of B^T, F, G and C is an exact 0 -- G_s and C_s
+//     are written whole from the accumulators and hold no stale shared
+//     memory, which would turn 0 x NaN into NaN -- and D is stored only at
+//     x' < X', y' < Y' (float2 stores: Y' even keeps them 8-byte aligned).
+//     The rounding points do not move: padded terms add exact zeros.
+//     Each box size has two instantiations: kPad = true pads, and
+//     kPad = false (J, I, X', Y' all multiples of 16: every grid of the
+//     presets) folds every bound and guard back to the unpadded kernel.
 //  1. Per channel and x tile, rows [x0, x0+TX) of A[c] (TX = min(P, 64),
 //     P = X, Y rounded up to 16) go to shared memory, zero-padded to P
 //     columns of y: by cp.async into one of two buffers while the warps
@@ -73,7 +84,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxThreads = 256;   // J <= 128: at most 8 warps
+constexpr int kMaxThreads = 256;   // J16 <= 128: at most 8 warps
 constexpr int kIC = 64;            // i columns of G held in registers
 constexpr int kNC = 32;            // x' / y' columns per stage 3-4 pass
 constexpr uint32_t kNegBF16x2 = 0x80008000u;
@@ -97,17 +108,37 @@ __device__ __forceinline__ float2 ldg_bf16x2(const bf16* p) {
 }
 
 // An accumulator tile's (c0, c1) at p and (c2, c3) at p + 8 ld: its rows
-// g and g + 8, rounded to bf16 or kept float32.
+// g and g + 8, rounded to bf16.
 __device__ __forceinline__ void store_rows(bf16* p, int ld,
                                            const float (&c)[4]) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(c[0], c[1]);
   *reinterpret_cast<uint32_t*>(p + 8 * ld) = pack_bf16x2(c[2], c[3]);
 }
 
-__device__ __forceinline__ void store_rows(float* p, int ld,
-                                           const float (&c)[4]) {
-  *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(c[2], c[3]);
+// n rounded up to a multiple of 16 where the launch pads (kPad: some of J,
+// I, X', Y' is not a multiple of 16), else n.  A launch that needs no
+// padding takes the kPad = false kernel, whose guards all fold away.
+template <bool kPad>
+__device__ __forceinline__ int up16(int n) {
+  return kPad ? (n + 15) & ~15 : n;
+}
+
+// An accumulator tile's columns (2t, 2t+1) of rows g and g + 8 into D at
+// p (row g) with row stride ld: only rows below `rows` (counted from g),
+// and only where the columns lie below Y' (`cols_in`).
+__device__ __forceinline__ void store_d(float* p, int ld, int rows,
+                                        bool cols_in, const float (&c)[4]) {
+  if (!cols_in) return;
+  if (rows > 0) *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
+  if (rows > 8) {
+    *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(c[2], c[3]);
+  }
+}
+
+// bf16 pair (i, i+1) of H at p, or zeros where the pair lies in the
+// padding (in is false).
+__device__ __forceinline__ float2 ldg_h(const bf16* p, bool in) {
+  return in ? ldg_bf16x2(p) : make_float2(0.f, 0.f);
 }
 
 // The A-operand fragment of one 16-deep step from the float32
@@ -218,7 +249,7 @@ __device__ __forceinline__ void load_tile(bf16* sre, bf16* sim,
   }
 }
 
-template <int PK>
+template <int PK, bool kPad>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_correlate_tc_kernel(const bf16* __restrict__ Are,
                           const bf16* __restrict__ Aim,
@@ -239,9 +270,11 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   constexpr int XK = PK < 4 ? PK : 4;   // 16-row steps of x per tile
   constexpr int TX = 16 * XK;     // x rows per tile (A's slab)
   constexpr int NXT = (PK + XK - 1) / XK;   // x tiles: 1, or 2 above 64
+  const int J16 = up16<kPad>(J), I16 = up16<kPad>(I);   // padded
+  const int Xp16 = up16<kPad>(Xp), Yp16 = up16<kPad>(Yp);
   constexpr int SA = P + 8;       // row strides in shared memory (+8: no
-  const int SG = I + 8;           // bank conflicts on fragment loads)
-  const int SC = J + 8;
+  const int SG = I16 + 8;         // bank conflicts on fragment loads)
+  const int SC = J16 + 8;
   const int bb = blockIdx.x;      // rotation
   const int k = blockIdx.y;       // kz frequency
   const int tid = threadIdx.x;
@@ -254,10 +287,10 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   // Two buffers of A[c]'s x tile, each [TX][SA] re then im: with async_a
   // the next tile is copied into one while the warps read the other.
   bf16* slab = reinterpret_cast<bf16*>(smem);
-  bf16* gs_re = slab + 4 * TX * SA;              // G [J][SG]
-  bf16* gs_im = gs_re + J * SG;
-  bf16* cs_re = gs_im + J * SG;                  // C^T [Xp][SC]
-  bf16* cs_im = cs_re + Xp * SC;
+  bf16* gs_re = slab + 4 * TX * SA;              // G [J16][SG]
+  bf16* gs_im = gs_re + J16 * SG;
+  bf16* cs_re = gs_im + J16 * SG;                // C^T [Xp16][SC]
+  bf16* cs_im = cs_re + Xp16 * SC;
 
   const size_t a_base = (static_cast<size_t>(bb) * K + k) * C * X * Y;
   // Receptor group of this row: rows [g b/G, (g+1) b/G) share H[g].
@@ -271,7 +304,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   }
 
   // ---- stages 1-2: G rows j0.. in chunks of kIC columns ----
-  for (int ic = 0; ic < I; ic += kIC) {
+  for (int ic = 0; ic < I16; ic += kIC) {
     float gr[kIC / 8][4], gi[kIC / 8][4];
 #pragma unroll
     for (int nt = 0; nt < kIC / 8; ++nt) {
@@ -290,7 +323,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
           // The next tile in (ic, c, xt) order, into the other buffer.
           const int nxt = xt + 1 < NXT ? xt + 1 : 0;
           const int nc = xt + 1 < NXT ? c : (c + 1 < C ? c + 1 : 0);
-          if (xt + 1 < NXT || c + 1 < C || ic + kIC < I) {
+          if (xt + 1 < NXT || c + 1 < C || ic + kIC < I16) {
             const size_t off = a_base + static_cast<size_t>(nc) * X * Y;
             bf16* next = slab + 2 * (buf ^ 1) * TX * SA;
             load_tile<P, SA>(next, next + TX * SA, Are + off, Aim + off,
@@ -336,11 +369,11 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
         }
 
         // Stage 2: this tile's F = B^T Wx in 8-wide tiles of i, folded
-        // into G with H upcast: G += H conj(F).
+        // into G with H upcast (0 in the padding): G += H conj(F).
 #pragma unroll
         for (int nt = 0; nt < kIC / 8; ++nt) {
           const int i0 = ic + 8 * nt;
-          if (i0 < I) {
+          if (i0 < I16) {
             float fr[4] = {}, fi[4] = {};
 #pragma unroll
             for (int xc = 0; xc < XK; ++xc) {
@@ -352,11 +385,15 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
                 cmma(fr, fi, bt_re[xc], bt_im[xc], bn, qr0, qr1, qi0, qi1);
               }
             }
-            const int h0 = (j0 + g) * I + i0 + 2 * t, h1 = h0 + 8 * I;
-            const float2 hr0 = ldg_bf16x2(hr_c + h0);
-            const float2 hr1 = ldg_bf16x2(hr_c + h1);
-            const float2 hi0 = ldg_bf16x2(hi_c + h0);
-            const float2 hi1 = ldg_bf16x2(hi_c + h1);
+            // I even: the pair (i, i + 1) is in or out of H together.
+            const int i = i0 + 2 * t;
+            const bool in0 = !kPad || (j0 + g < J && i < I);
+            const bool in1 = !kPad || (j0 + g + 8 < J && i < I);
+            const int h0 = (j0 + g) * I + i, h1 = h0 + 8 * I;
+            const float2 hr0 = ldg_h(hr_c + h0, in0);
+            const float2 hr1 = ldg_h(hr_c + h1, in1);
+            const float2 hi0 = ldg_h(hi_c + h0, in0);
+            const float2 hi1 = ldg_h(hi_c + h1, in1);
             const float hr[4] = {hr0.x, hr0.y, hr1.x, hr1.y};
             const float hi[4] = {hi0.x, hi0.y, hi1.x, hi1.y};
 #pragma unroll
@@ -373,7 +410,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 #pragma unroll
     for (int nt = 0; nt < kIC / 8; ++nt) {
       const int i0 = ic + 8 * nt;
-      if (i0 < I) {
+      if (i0 < I16) {
         const int o = (j0 + g) * SG + i0 + 2 * t;
         store_rows(gs_re + o, SG, gr[nt]);
         store_rows(gs_im + o, SG, gi[nt]);
@@ -384,9 +421,9 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
   __syncwarp();   // G_s rows are warp-private: only this warp reads them
 
   // ---- stage 3: C[j0.., x'] = sum_i G[j, i] Ux[i, x'], stored C^T ----
-  for (int nc = 0; nc < Xp; nc += kNC) {
+  for (int nc = 0; nc < Xp16; nc += kNC) {
     float cr[kNC / 8][4] = {}, ci[kNC / 8][4] = {};
-    for (int kc = 0; kc < I; kc += 16) {
+    for (int kc = 0; kc < I16; kc += 16) {
       uint32_t pr[4], pi[4], pn[4];
       load_a<false>(pr, gs_re, SG, j0, kc, g, t);
       load_a<false>(pi, gs_im, SG, j0, kc, g, t);
@@ -394,10 +431,10 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 #pragma unroll
       for (int nt = 0; nt < kNC / 8; ++nt) {
         const int n0 = nc + 8 * nt;
-        if (n0 < Xp) {
+        if (n0 < Xp16) {
           uint32_t qr0, qr1, qi0, qi1;
-          load_b(qr0, qr1, UxTRe, I, n0, kc, g, t);
-          load_b(qi0, qi1, UxTIm, I, n0, kc, g, t);
+          load_b(qr0, qr1, UxTRe, I16, n0, kc, g, t);
+          load_b(qi0, qi1, UxTIm, I16, n0, kc, g, t);
           cmma(cr[nt], ci[nt], pr, pi, pn, qr0, qr1, qi0, qi1);
         }
       }
@@ -405,7 +442,7 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 #pragma unroll
     for (int nt = 0; nt < kNC / 8; ++nt) {
       const int n0 = nc + 8 * nt;
-      if (n0 < Xp) {
+      if (n0 < Xp16) {
         // Accumulator (row j, col x'): j = j0+g (+8), x' = n0+2t (+1).
         const int o = (n0 + 2 * t) * SC + j0 + g;
         cs_re[o] = __float2bfloat16_rn(cr[nt][0]);
@@ -423,10 +460,10 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 
   // ---- stage 4: D[x', y'] = sum_j C[j, x'] Uy[j, y'] -> device memory ----
   const size_t d_base = (static_cast<size_t>(bb) * K + k) * Xp * Yp;
-  for (int m0 = 16 * warp; m0 < Xp; m0 += 16 * nwarps) {
-    for (int nc = 0; nc < Yp; nc += kNC) {
+  for (int m0 = 16 * warp; m0 < Xp16; m0 += 16 * nwarps) {
+    for (int nc = 0; nc < Yp16; nc += kNC) {
       float dr[kNC / 8][4] = {}, di[kNC / 8][4] = {};
-      for (int kc = 0; kc < J; kc += 16) {
+      for (int kc = 0; kc < J16; kc += 16) {
         uint32_t pr[4], pi[4], pn[4];
         load_a<false>(pr, cs_re, SC, m0, kc, g, t);
         load_a<false>(pi, cs_im, SC, m0, kc, g, t);
@@ -434,10 +471,10 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 #pragma unroll
         for (int nt = 0; nt < kNC / 8; ++nt) {
           const int n0 = nc + 8 * nt;
-          if (n0 < Yp) {
+          if (n0 < Yp16) {
             uint32_t qr0, qr1, qi0, qi1;
-            load_b(qr0, qr1, UyTRe, J, n0, kc, g, t);
-            load_b(qi0, qi1, UyTIm, J, n0, kc, g, t);
+            load_b(qr0, qr1, UyTRe, J16, n0, kc, g, t);
+            load_b(qi0, qi1, UyTIm, J16, n0, kc, g, t);
             cmma(dr[nt], di[nt], pr, pi, pn, qr0, qr1, qi0, qi1);
           }
         }
@@ -445,19 +482,23 @@ fused_correlate_tc_kernel(const bf16* __restrict__ Are,
 #pragma unroll
       for (int nt = 0; nt < kNC / 8; ++nt) {
         const int n0 = nc + 8 * nt;
-        if (n0 < Yp) {
+        if (n0 < Yp16) {
           const size_t o =
               d_base + static_cast<size_t>(m0 + g) * Yp + n0 + 2 * t;
-          store_rows(Dre + o, Yp, dr[nt]);
-          store_rows(Dim + o, Yp, di[nt]);
+          // Y' even: the pair (y', y' + 1) is in or out of D together.
+          const bool cols_in = !kPad || n0 + 2 * t < Yp;
+          const int rows = kPad ? Xp - m0 - g : 16;
+          store_d(Dre + o, Yp, rows, cols_in, dr[nt]);
+          store_d(Dim + o, Yp, rows, cols_in, di[nt]);
         }
       }
     }
   }
 }
 
-// Two buffers of A's x tile [min(P, 64)][P+8], G_s [J][I+8] and C_s
-// [Xp][J+8], each re and im (``fused.tc_smem_bytes``).
+// Two buffers of A's x tile [min(P, 64)][P+8], G_s [J16][I16+8] and C_s
+// [Xp16][J16+8], each re and im (``fused.tc_smem_bytes``; J16, I16, Xp16
+// padded to 16).
 size_t smem_bytes(int P, int J, int I, int Xp) {
   const size_t tx = P < 64 ? P : 64;
   return 2 * sizeof(bf16) *
@@ -469,7 +510,9 @@ template <int PK>
 int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
            int X, int Y, int J, int I, int Xp, int Yp, int G,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(16 * PK, J, I, Xp);
+  const int J16 = (J + 15) & ~15;
+  const size_t smem = smem_bytes(16 * PK, J16, (I + 15) & ~15,
+                                 (Xp + 15) & ~15);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -479,7 +522,9 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
   if (smem > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  err = cudaFuncSetAttribute(fused_correlate_tc_kernel<PK>,
+  const bool pad = (J | I | Xp | Yp) % 16 != 0;
+  const auto kernel = pad ? fused_correlate_tc_kernel<PK, true> : fused_correlate_tc_kernel<PK, false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -488,7 +533,7 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
   const int async_a = Y % 2 == 0 &&
                       reinterpret_cast<uintptr_t>(p[0]) % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(p[1]) % 4 == 0;
-  fused_correlate_tc_kernel<PK><<<dim3(b, K), 32 * (J / 16), smem, stream>>>(
+  kernel<<<dim3(b, K), 2 * J16, smem, stream>>>(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], static_cast<float*>(Dre), static_cast<float*>(Dim), K, C, X, Y,
       J, I, Xp, Yp, b / G, async_a);
@@ -500,10 +545,11 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
 
 // Returns a cudaError_t: 0 on a successful launch.  Operands are bf16:
 // Are/Aim [b, K, C, X, Y], Hre/Him [G, K, C, J, I] with G dividing b
-// (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]), WyT [J, P], WxT [I, P]
-// (P = max(X, Y) rounded up to 16, zero-padded), UxT [Xp, I],
-// UyT [Yp, J].  Takes X, Y <= 128 and I, J, Xp, Yp multiples of 16 up
-// to 128.
+// (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]), and the twiddles
+// zero-padded (N16: N rounded up to 16; ``fused.tc_operands``): WyT
+// [J16, P], WxT [I16, P] (P = max(X, Y) rounded up to 16), UxT [Xp16,
+// I16], UyT [Yp16, J16].  Takes X, Y <= 128 and even I, J, Xp, Yp up to
+// 128.
 extern "C" int dlpd_fused_correlate_tc(
     const void* Are, const void* Aim, const void* Hre, const void* Him,
     const void* WyTRe, const void* WyTIm, const void* WxTRe,
@@ -512,9 +558,8 @@ extern "C" int dlpd_fused_correlate_tc(
     int C, int X, int Y, int J, int I, int Xp, int Yp, int G, void* stream) {
   const int P = ((X > Y ? X : Y) + 15) / 16 * 16;
   if (X < 1 || Y < 1 || P > 128 || C < 1 || G < 1 || b % G || K > 65535 ||
-      J % 16 ||
-      I % 16 || Xp % 16 || Yp % 16 || J > 128 || I > 128 || Xp > 128 ||
-      Yp > 128 || J < 16 || I < 16 || Xp < 16 || Yp < 16) {
+      J % 2 || I % 2 || Xp % 2 || Yp % 2 || J > 128 || I > 128 ||
+      Xp > 128 || Yp > 128 || J < 2 || I < 2 || Xp < 2 || Yp < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* in[12] = {Are,   Aim,   Hre,   Him,   WyTRe, WyTIm,

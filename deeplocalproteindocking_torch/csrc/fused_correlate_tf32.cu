@@ -2,10 +2,10 @@
 // + inverse-x/y correlator, each real product run as 3xTF32.
 //
 // Replaces the TPU kernel `_kernel` / `fused_correlate` in
-// deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = float32
-// and ligand boxes X, Y <= 128 (fused_correlate_tc.cu keeps bf16,
-// fused_correlate.cu the shapes whose L is not a multiple of 16).  For
-// one (kz frequency k, rotation b) it computes
+// deeplocalproteindocking_tpu/correlate/pallas_fused.py for T = float32,
+// ligand boxes X, Y <= 128 and even J, I, X', Y' <= 128
+// (fused_correlate_tc.cu keeps bf16).  For one (kz frequency k, rotation
+// b) it computes
 //
 //   B^T[c,j,x] = sum_y Wy[y,j]  A[c,x,y]            (forward y)
 //   F[c,j,i]   = sum_x B^T[c,j,x] Wx[x,i]           (forward x)
@@ -30,8 +30,13 @@
 // from L1/L2, not device memory, set the pace.
 //
 // What the design does.  One block per (b, k), b the fastest grid axis so
-// consecutive blocks share H[g, k] in L2; J/16 warps, warp w owning the
-// rows j in [16w, 16w+16) through stages 1-3.
+// consecutive blocks share H[g, k] in L2; J16/16 warps, warp w owning the
+// rows j in [16w, 16w+16) through stages 1-3.  J, I, X' and Y' are padded
+// to multiples of 16 (J16 ...) in the kernel, as in fused_correlate_tc.cu:
+// zero-padded twiddles, H read as 0 at j >= J or i >= I, G_s and C_s
+// written whole (exact zeros in the padding, never stale shared memory),
+// D stored only at x' < X', y' < Y'; kPad = false (every size a multiple
+// of 16) compiles to the unpadded kernel.
 //
 // Fragments.  m16n8k8 holds A as a0 (g, t), a1 (g+8, t), a2 (g, t+4),
 // a3 (g+8, t+4), B as b0 (k t, n g), b1 (k t+4, n g), and a tile of sums
@@ -66,8 +71,8 @@
 //  4. After one __syncthreads the warps share the chunk's x' rows of D by
 //     (16-row m tile, 32-column n group); the j sum runs over C_s, and the
 //     float32 sums are stored straight to D in device memory.
-// Shared memory (``fused.tf32_smem_bytes``): G 2 J (I+8) floats plus the
-// larger of A's slab 2 T (2T+16) and C_s 2 kNC (2J+16): 212,992 B at
+// Shared memory (``fused.tf32_smem_bytes``): G 2 J16 (I16+8) floats plus
+// the larger of A's slab 2 T (2T+16) and C_s 2 kNC (2 J16+16): 212,992 B at
 // L = 128, T = 64, under the 232,448 B a block may opt in to, for every
 // box the route takes.  Next steps: `wgmma` with the twiddles in shared
 // memory, which would stop every warp reading every twiddle fragment.
@@ -78,7 +83,7 @@
 namespace dlpd {
 namespace {
 
-constexpr int kMaxThreads = 256;   // J <= 128: at most 8 warps
+constexpr int kMaxThreads = 256;   // J16 <= 128: at most 8 warps
 constexpr int kIC = 32;            // i columns of F per stage-2 pass
 constexpr int kNC = 32;            // x' rows of C^T per stage 3-4 pass
 constexpr int kNG = 32;            // y' columns of a stage-4 work item
@@ -213,14 +218,27 @@ __device__ __forceinline__ void store_split(float* m, int ld, int r, int k,
   p[2] = __uint_as_float(l);
 }
 
-// A tile of sums' (c0, c1) at p and (c2, c3) at p + 8 ld.
-__device__ __forceinline__ void store_rows(float* p, int ld,
-                                           const float (&c)[4]) {
-  *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(c[2], c[3]);
+// n rounded up to a multiple of 16 where the launch pads (kPad: some of J,
+// I, X', Y' is not a multiple of 16), else n.  A launch that needs no
+// padding takes the kPad = false kernel, whose guards all fold away.
+template <bool kPad>
+__device__ __forceinline__ int up16(int n) {
+  return kPad ? (n + 15) & ~15 : n;
 }
 
-template <int PK>
+// A tile of sums' (c0, c1) at p and (c2, c3) at p + 8 ld (its rows g and
+// g + 8): only rows below `rows` (counted from g), and only where the
+// columns lie below Y' (`cols_in`; Y' even keeps float2 stores aligned).
+__device__ __forceinline__ void store_d(float* p, int ld, int rows,
+                                        bool cols_in, const float (&c)[4]) {
+  if (!cols_in) return;
+  if (rows > 0) *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
+  if (rows > 8) {
+    *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(c[2], c[3]);
+  }
+}
+
+template <int PK, bool kPad>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fused_correlate_tf32_kernel(const float* __restrict__ Are,
                             const float* __restrict__ Aim,
@@ -242,9 +260,11 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
   constexpr int T = 16 * TK;      // tile edge (A's slab is T x T)
   constexpr int NT = (PK + TK - 1) / TK;   // tiles per axis: 1, or 2
   constexpr int NB = T / 8;       // 8-wide steps over a tile
+  const int J16 = up16<kPad>(J), I16 = up16<kPad>(I);   // padded
+  const int Xp16 = up16<kPad>(Xp), Yp16 = up16<kPad>(Yp);
   constexpr int SA = 2 * T + 16;  // row strides in floats (split rows: 16
-  const int SC = 2 * J + 16;      // mod 32, float4 loads conflict-free;
-  const int SG = I + 8;           // float rows: 8 mod 32, float2 loads)
+  const int SC = 2 * J16 + 16;    // mod 32, float4 loads conflict-free;
+  const int SG = I16 + 8;         // float rows: 8 mod 32, float2 loads)
   const int bb = blockIdx.x;      // rotation
   const int k = blockIdx.y;       // kz frequency
   const int tid = threadIdx.x;
@@ -254,9 +274,9 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
   const int j0 = 16 * warp;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* gs_re = reinterpret_cast<float*>(smem);   // G [J][SG]
-  float* gs_im = gs_re + J * SG;
-  float* as_re = gs_im + J * SG;                   // A[c] tile [T][SA]
+  float* gs_re = reinterpret_cast<float*>(smem);   // G [J16][SG]
+  float* gs_im = gs_re + J16 * SG;
+  float* as_re = gs_im + J16 * SG;                 // A[c] tile [T][SA]
   float* as_im = as_re + T * SA;
   float* cs_re = as_re;                            // C^T split [kNC][SC]
   float* cs_im = cs_re + kNC * SC;                 // (aliases A's slab)
@@ -329,8 +349,8 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
       }
 
       // Stage 2: this tile's F = B^T Wx in chunks of kIC columns of i,
-      // each folded into G: G += H conj(F).
-      for (int ic = 0; ic < I; ic += kIC) {
+      // each folded into G: G += H conj(F), H 0 in the padding.
+      for (int ic = 0; ic < I16; ic += kIC) {
         float fr[kIC / 8][4], fi[kIC / 8][4];
 #pragma unroll
         for (int nt = 0; nt < kIC / 8; ++nt) {
@@ -345,7 +365,7 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 #pragma unroll
             for (int nt = 0; nt < kIC / 8; ++nt) {
               const int i0 = ic + 8 * nt;
-              if (i0 < I) {
+              if (i0 < I16) {
                 const BFrag qr =
                     load_b<true>(WxTRe, 2 * P, i0, x0 + 8 * xc, g, t);
                 const BFrag qi =
@@ -359,15 +379,21 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 #pragma unroll
         for (int nt = 0; nt < kIC / 8; ++nt) {
           const int i0 = ic + 8 * nt;
-          if (i0 < I) {
+          if (i0 < I16) {
             const int h0 = (j0 + g) * I + i0 + 2 * t;
             const int o = (j0 + g) * SG + i0 + 2 * t;
 #pragma unroll
             for (int half = 0; half < 2; ++half) {   // rows g and g + 8
-              const float2 hr = __ldg(
-                  reinterpret_cast<const float2*>(hr_c + h0 + 8 * I * half));
-              const float2 hi = __ldg(
-                  reinterpret_cast<const float2*>(hi_c + h0 + 8 * I * half));
+              // I even: the pair (i, i + 1) is in or out of H together.
+              const bool in =
+                  !kPad || (j0 + g + 8 * half < J && i0 + 2 * t < I);
+              const float2 zero = make_float2(0.f, 0.f);
+              const float2 hr = in ? __ldg(reinterpret_cast<const float2*>(
+                                         hr_c + h0 + 8 * I * half))
+                                   : zero;
+              const float2 hi = in ? __ldg(reinterpret_cast<const float2*>(
+                                         hi_c + h0 + 8 * I * half))
+                                   : zero;
               float2* pgr =
                   reinterpret_cast<float2*>(gs_re + o + 8 * SG * half);
               float2* pgi =
@@ -391,7 +417,7 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 
   // ---- stages 3-4 per chunk of kNC columns x' ----
   const size_t d_base = (static_cast<size_t>(bb) * K + k) * Xp * Yp;
-  for (int nc = 0; nc < Xp; nc += kNC) {
+  for (int nc = 0; nc < Xp16; nc += kNC) {
     __syncthreads();   // A's slab, or the last chunk's C_s, is done with
 
     // Stage 3: C[j0.., x'] = sum_i G[j, i] Ux[i, x'], stored C^T split.
@@ -401,22 +427,22 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 #pragma unroll
       for (int r = 0; r < 4; ++r) cr[nt][r] = ci[nt][r] = 0.f;
     }
-    for (int kc = 0; kc < I; kc += 8) {
+    for (int kc = 0; kc < I16; kc += 8) {
       const AFrag pr = load_a_f32(gs_re, SG, j0, kc, g, t);
       const AFrag pi = load_a_f32(gs_im, SG, j0, kc, g, t);
 #pragma unroll
       for (int nt = 0; nt < kNC / 8; ++nt) {
         const int n0 = nc + 8 * nt;
-        if (n0 < Xp) {
-          const BFrag qr = load_b<true>(UxTRe, 2 * I, n0, kc, g, t);
-          const BFrag qi = load_b<true>(UxTIm, 2 * I, n0, kc, g, t);
+        if (n0 < Xp16) {
+          const BFrag qr = load_b<true>(UxTRe, 2 * I16, n0, kc, g, t);
+          const BFrag qi = load_b<true>(UxTIm, 2 * I16, n0, kc, g, t);
           cmma3(cr[nt], ci[nt], pr, pi, qr, qi);
         }
       }
     }
 #pragma unroll
     for (int nt = 0; nt < kNC / 8; ++nt) {
-      if (nc + 8 * nt < Xp) {
+      if (nc + 8 * nt < Xp16) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           // Sum r sits at row j = j0+g (+8), column x' = 8nt+2t (+1).
@@ -430,8 +456,8 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 
     // Stage 4: D[x', y'] = sum_j C[j, x'] Uy[j, y'] -> device memory, one
     // (16-row m tile, kNG-column group) item per warp at a time.
-    const int mtiles = (Xp - nc < kNC ? Xp - nc : kNC) / 16;
-    const int items = mtiles * ((Yp + kNG - 1) / kNG);
+    const int mtiles = (Xp16 - nc < kNC ? Xp16 - nc : kNC) / 16;
+    const int items = mtiles * ((Yp16 + kNG - 1) / kNG);
     for (int it = warp; it < items; it += nwarps) {
       const int m0 = 16 * (it % mtiles), y0 = kNG * (it / mtiles);
       float dr[kNG / 8][4], di[kNG / 8][4];
@@ -440,15 +466,15 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 #pragma unroll
         for (int r = 0; r < 4; ++r) dr[nt][r] = di[nt][r] = 0.f;
       }
-      for (int kc = 0; kc < J; kc += 8) {
+      for (int kc = 0; kc < J16; kc += 8) {
         const AFrag pr = load_a<false>(cs_re, SC, m0, kc, g, t);
         const AFrag pi = load_a<false>(cs_im, SC, m0, kc, g, t);
 #pragma unroll
         for (int nt = 0; nt < kNG / 8; ++nt) {
           const int n0 = y0 + 8 * nt;
-          if (n0 < Yp) {
-            const BFrag qr = load_b<true>(UyTRe, 2 * J, n0, kc, g, t);
-            const BFrag qi = load_b<true>(UyTIm, 2 * J, n0, kc, g, t);
+          if (n0 < Yp16) {
+            const BFrag qr = load_b<true>(UyTRe, 2 * J16, n0, kc, g, t);
+            const BFrag qi = load_b<true>(UyTIm, 2 * J16, n0, kc, g, t);
             cmma3(dr[nt], di[nt], pr, pi, qr, qi);
           }
         }
@@ -456,11 +482,13 @@ fused_correlate_tf32_kernel(const float* __restrict__ Are,
 #pragma unroll
       for (int nt = 0; nt < kNG / 8; ++nt) {
         const int n0 = y0 + 8 * nt;
-        if (n0 < Yp) {
+        if (n0 < Yp16) {
           const size_t o = d_base +
                            static_cast<size_t>(nc + m0 + g) * Yp + n0 + 2 * t;
-          store_rows(Dre + o, Yp, dr[nt]);
-          store_rows(Dim + o, Yp, di[nt]);
+          const int rows = kPad ? Xp - nc - m0 - g : 16;
+          const bool cols_in = !kPad || n0 + 2 * t < Yp;
+          store_d(Dre + o, Yp, rows, cols_in, dr[nt]);
+          store_d(Dim + o, Yp, rows, cols_in, di[nt]);
         }
       }
     }
@@ -479,7 +507,8 @@ template <int PK>
 int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
            int X, int Y, int J, int I, int Xp, int Yp, int G,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(16 * PK, J, I);
+  const int J16 = (J + 15) & ~15;
+  const size_t smem = smem_bytes(16 * PK, J16, (I + 15) & ~15);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -489,13 +518,14 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
   if (smem > static_cast<size_t>(optin)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  err = cudaFuncSetAttribute(fused_correlate_tf32_kernel<PK>,
+  const bool pad = (J | I | Xp | Yp) % 16 != 0;
+  const auto kernel = pad ? fused_correlate_tf32_kernel<PK, true> : fused_correlate_tf32_kernel<PK, false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* const* p = reinterpret_cast<const float* const*>(in);
-  fused_correlate_tf32_kernel<PK>
-      <<<dim3(b, K), 32 * (J / 16), smem, stream>>>(
+  kernel<<<dim3(b, K), 2 * J16, smem, stream>>>(
           p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
           p[11], static_cast<float*>(Dre), static_cast<float*>(Dim), K, C, X,
           Y, J, I, Xp, Yp, b / G);
@@ -508,10 +538,10 @@ int launch(const void* const* in, void* Dre, void* Dim, int b, int K, int C,
 // Returns a cudaError_t: 0 on a successful launch.  Operands are float32:
 // Are/Aim [b, K, C, X, Y], Hre/Him [G, K, C, J, I] with G dividing b
 // (G = 1: [K, C, J, I]; row bb reads H[bb / (b/G)]; 8-byte aligned), and
-// the twiddles in the split layout (``fused.tf32_operands``): WyT [J, 2P],
-// WxT [I, 2P] (P = max(X, Y) rounded up to 16, zero-padded), UxT
-// [Xp, 2I], UyT [Yp, 2J], 16-byte aligned.  Takes X, Y <= 128 and I, J,
-// Xp, Yp multiples of 16 up to 128.
+// the twiddles zero-padded (N16: N rounded up to 16) in the split layout
+// (``fused.tf32_operands``): WyT [J16, 2P], WxT [I16, 2P] (P = max(X, Y)
+// rounded up to 16), UxT [Xp16, 2 I16], UyT [Yp16, 2 J16], 16-byte
+// aligned.  Takes X, Y <= 128 and even I, J, Xp, Yp up to 128.
 extern "C" int dlpd_fused_correlate_tf32(
     const void* Are, const void* Aim, const void* Hre, const void* Him,
     const void* WyTRe, const void* WyTIm, const void* WxTRe,
@@ -520,9 +550,9 @@ extern "C" int dlpd_fused_correlate_tf32(
     int C, int X, int Y, int J, int I, int Xp, int Yp, int G, void* stream) {
   const int P = ((X > Y ? X : Y) + 15) / 16 * 16;
   if (b < 1 || X < 1 || Y < 1 || P > 128 || C < 1 || G < 1 || b % G ||
-      K < 1 || K > 65535 || J % 16 || I % 16 || Xp % 16 || Yp % 16 ||
-      J > 128 || I > 128 || Xp > 128 || Yp > 128 || J < 16 || I < 16 ||
-      Xp < 16 || Yp < 16) {
+      K < 1 || K > 65535 || J % 2 || I % 2 || Xp % 2 || Yp % 2 ||
+      J > 128 || I > 128 || Xp > 128 || Yp > 128 || J < 2 || I < 2 ||
+      Xp < 2 || Yp < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* in[12] = {Are,   Aim,   Hre,   Him,   WyTRe, WyTIm,

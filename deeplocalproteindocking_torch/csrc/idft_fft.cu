@@ -1,5 +1,5 @@
 // K3, FFT route: passes B and C of the inverse DFT as a complex FFT along
-// ky and a c2r along kx, for L = 64, 96 and 128.
+// ky and a c2r along kx, for L = 48, 64, 80, 96, 112 and 128.
 //
 // Replaces the TPU kernel `_idft_bc_kernel` / `pallas_inverse` in
 // deeplocalproteindocking_tpu/correlate/pallas_idft.py, computing the same
@@ -31,7 +31,8 @@
 //  Pass 1: one block of 8 warps per (z run, kx pair {kx, L - kx},
 //   rotation): 4 x 65 x b blocks at L = 128.  Both kx planes' [ky][32]
 //   rows (re, im; 64 KB at L = 128) arrive by cp.async.  L = P x Q with
-//   (P, Q) = (16, 8) at L = 128, (8, 8) at 64 and (8, 12) at 96: a task
+//   (P, Q) = (16, 8) at L = 128 and P = 8 below (Q = 6, 8, 10, 12, 14 at
+//   L = 48, 64, 80, 96, 112): a task
 //   (plane, k2) takes rows Q k1 + k2 over k1, a radix-P inverse DFT in
 //   registers, the twiddle e^{+2 pi i k2 n1 / L}, and writes back in place
 //   (row Q n1 + k2: the task's own rows, so tasks need no barrier between
@@ -41,12 +42,26 @@
 //   themselves (one plane, one FFT).  At L = 96 the split is 8 x 12 and not
 //   12 x 8: 24 tasks of radix 8 give each warp 3, and the 8 row blocks of
 //   radix 12 one each, where 12 x 8 would leave warps 4-7 one row block
-//   against warps 0-3's two.  Its pass-1 block needs 48 KB of dynamic
-//   shared memory, which with the twiddles passes the 48 KB default.
+//   against warps 0-3's two.  For the same reason L = 80 is 8 x 10 and
+//   not 16 x 5 (20 radix-8 tasks, 3 or 2 a warp, then one radix-10 row
+//   block each, where 16 x 5 would give warps 0-1 two radix-16 tasks
+//   against the others' one, then two radix-5 blocks each), and L = 112
+//   is 8 x 14 (28 tasks, 4 or 3 a warp, one radix-14 row block each);
+//   L = 48 is 8 x 6 (12 tasks, 2 or 1 a warp).  The pass-1 block needs
+//   512 L bytes of dynamic shared memory: at L = 96 and 112 (48 KB and
+//   56 KB) that, with the twiddles, passes the 48 KB default.
 //  Pass 2: one block per (z run, y, pair of rotations), as K2's FFT route:
 //   both rotations' h rows [L/2 + 1][32] (33 KB) by cp.async at once; the
 //   c2r leaves z[n] = L (S[2n] + i S[2n+1]) in warp n % 8, stored straight
 //   from registers as 128 B rows of S.
+// z runs.  At L = 48, 80 and 112, L mod 32 = 16: both passes launch
+//   ceil(L / 32) runs and the last one is half full.  Its cp.async copies
+//   read only the 16-byte chunks below L and fill the others with zeros,
+//   and every store of h and S is guarded by z0 + lane < L.  The masked
+//   run was chosen over 16-column tiles (two half-warp columns a warp):
+//   it keeps every FFT, shared-memory layout and index of the whole runs,
+//   and idles only 1/6 (L = 48, 80) or 1/8 (L = 112) of the lanes, where
+//   half-warp tiles would halve every access's width at every L.
 // Scaling: 1/(2L) in pass 1 (the ky inverse and the fold's half), 1/L in
 // pass 2.  Twiddles e^{+2 pi i j / L} are computed once per block into
 // shared memory and read as warp-wide broadcasts.  Float32 throughout, as
@@ -63,6 +78,27 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRot = 2;               // rotations per pass-2 block
 constexpr int kVec = kCols / 4;       // float4 per 32-float row
 
+// Chunk c (4 floats) of a z run starting at z0 of a row of L floats into
+// shared memory: only the chunks below L where the run is half full (L mod
+// 32 = 16), zeros for the others; the whole runs of the other L copy
+// every chunk, with no test.
+template <int L>
+__device__ __forceinline__ void copy_chunk(float* dst, const float* row,
+                                           int z0, int c) {
+  if constexpr (L % kCols == 0) {
+    cp_async16(dst, row + 4 * c);
+  } else {
+    const bool in = z0 + 4 * c < L;               // L % 16 == 0: whole chunks
+    cp_async16(dst, in ? row + 4 * c : row, in);
+  }
+}
+
+// Whether lane's column z0 + lane of a z run lies below L.
+template <int L>
+__device__ __forceinline__ bool in_run(int z0, int lane) {
+  return L % kCols == 0 || z0 + lane < L;
+}
+
 template <int L>
 __global__ void __launch_bounds__(kThreads)
     idft_ky_fold_kernel(const float* __restrict__ Ere,
@@ -70,9 +106,10 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ Hre, float* __restrict__ Him) {
   constexpr int K = L / 2 + 1;
   constexpr int P = L == 128 ? 16 : 8;    // first radix
-  constexpr int Q = L / P;                // second radix: 8, or 12 at 96
+  constexpr int Q = L / P;                // second radix: 6 .. 14
   constexpr int kPlane = 2 * L * kCols;   // floats per plane: re, im rows
-  static_assert(P * Q == L && (Q == 8 || Q == 12), "L must be 64, 96 or 128");
+  static_assert(P * Q == L && Q % 2 == 0 && Q >= 6 && Q <= 14,
+                "L must be 48, 64, 80, 96, 112 or 128");
 
   extern __shared__ __align__(16) float smem[];   // 2 x kPlane
   __shared__ float2 s_tw[L];                       // e^{+2 pi i j / L}
@@ -82,6 +119,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t b = blockIdx.z;
   const int kx_pair = (L - kx) % L;
   const int planes = kx_pair == kx ? 1 : 2;       // uniform over the block
+  const bool z_in = in_run<L>(z0, lane);          // this lane's column
 
   for (int p = 0; p < planes; ++p) {
     const size_t base = (b * L + (p ? kx_pair : kx)) * L * L + z0;
@@ -89,9 +127,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = threadIdx.x; o < 2 * L * kVec; o += kThreads) {
       const int half = o / (L * kVec), rem = o % (L * kVec);
       const int ky = rem / kVec, c = rem % kVec;
-      cp_async16(buf + half * L * kCols + ky * kCols + 4 * c,
-                 (half ? Eim : Ere) + base + static_cast<size_t>(ky) * L +
-                     4 * c);
+      copy_chunk<L>(buf + half * L * kCols + ky * kCols + 4 * c,
+                    (half ? Eim : Ere) + base + static_cast<size_t>(ky) * L,
+                    z0, c);
     }
   }
   cp_async_commit();
@@ -142,8 +180,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int n2 = 0; n2 < Q; ++n2) {
       const size_t at = out + static_cast<size_t>(n1 + P * n2) * L;
       const cf h = g0[n2] + cconj(g1[n2]);
-      Hre[at] = h.re * kScale;
-      Him[at] = h.im * kScale;
+      if (z_in) {
+        Hre[at] = h.re * kScale;
+        Him[at] = h.im * kScale;
+      }
     }
   }
 }
@@ -172,10 +212,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int o = threadIdx.x; o < 2 * K * kVec; o += kThreads) {
         const int half = o / (K * kVec), rem = o % (K * kVec);
         const int k = rem / kVec, c = rem % kVec;
-        cp_async16(buf + half * K * kCols + k * kCols + 4 * c,
-                   (half ? Him : Hre) +
-                       (static_cast<size_t>(b0 + r) * K + k) * kPlane +
-                       y * L + z0 + 4 * c);
+        copy_chunk<L>(buf + half * K * kCols + k * kCols + 4 * c,
+                      (half ? Him : Hre) +
+                          (static_cast<size_t>(b0 + r) * K + k) * kPlane +
+                          y * L + z0,
+                      z0, c);
       }
     }
     cp_async_commit();
@@ -193,11 +234,13 @@ __global__ void __launch_bounds__(kThreads)
     cf u[Q];
     c2r_columns<L>(re, re + K * kCols, s_tw, u);
     float* out = S + static_cast<size_t>(bb) * L * kPlane + y * L + z0 + lane;
+    if (in_run<L>(z0, lane)) {
 #pragma unroll
-    for (int n2 = 0; n2 < Q; ++n2) {
-      const int n = warp + 8 * n2;
-      out[2 * n * kPlane] = u[n2].re * kScale;
-      out[(2 * n + 1) * kPlane] = u[n2].im * kScale;
+      for (int n2 = 0; n2 < Q; ++n2) {
+        const int n = warp + 8 * n2;
+        out[2 * n * kPlane] = u[n2].re * kScale;
+        out[(2 * n + 1) * kPlane] = u[n2].im * kScale;
+      }
     }
   }
 }
@@ -223,12 +266,13 @@ int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
   if (err != 0) return err;
   err = allow_smem(idft_kx_c2r_kernel<L>, smem2, tw_bytes);
   if (err != 0) return err;
-  idft_ky_fold_kernel<L><<<dim3(L / kCols, K, B), kThreads, smem1, stream>>>(
+  constexpr int runs = (L + kCols - 1) / kCols;   // the last may be half
+  idft_ky_fold_kernel<L><<<dim3(runs, K, B), kThreads, smem1, stream>>>(
       Ere, Eim, Hre, Him);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   idft_kx_c2r_kernel<L>
-      <<<dim3(L / kCols, L, (B + kRot - 1) / kRot), kThreads, smem2,
+      <<<dim3(runs, L, (B + kRot - 1) / kRot), kThreads, smem2,
          stream>>>(Hre, Him, S, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -238,8 +282,8 @@ int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
 
 // E re/im [B, L, L, L] (kx, ky, z), S [B, L, L, L] (x, y, z), and the
 // scratch h re/im [B, L/2+1, L, L] (kx, y, z); all float32, contiguous,
-// E and h 16-byte aligned; L = 64, 96 or 128.  Returns a cudaError_t: 0 on
-// successful launches.
+// E and h 16-byte aligned; L = 48, 64, 80, 96, 112 or 128.  Returns a
+// cudaError_t: 0 on successful launches.
 extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
                              void* Him, void* S, int B, int L, void* stream) {
   if (B < 1 || B > 65535 ||
@@ -254,8 +298,13 @@ extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
   auto* hi = static_cast<float*>(Him);
   auto* s = static_cast<float*>(S);
   auto st = static_cast<cudaStream_t>(stream);
-  if (L == 128) return dlpd::launch<128>(er, ei, hr, hi, s, B, st);
-  if (L == 96) return dlpd::launch<96>(er, ei, hr, hi, s, B, st);
-  if (L == 64) return dlpd::launch<64>(er, ei, hr, hi, s, B, st);
+  switch (L) {
+    case 48: return dlpd::launch<48>(er, ei, hr, hi, s, B, st);
+    case 64: return dlpd::launch<64>(er, ei, hr, hi, s, B, st);
+    case 80: return dlpd::launch<80>(er, ei, hr, hi, s, B, st);
+    case 96: return dlpd::launch<96>(er, ei, hr, hi, s, B, st);
+    case 112: return dlpd::launch<112>(er, ei, hr, hi, s, B, st);
+    case 128: return dlpd::launch<128>(er, ei, hr, hi, s, B, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

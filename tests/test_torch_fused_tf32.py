@@ -3,17 +3,19 @@ the CPU.
 
 The CUDA kernel cannot run here, so this file holds its formulation:
 ``k1_route``'s float32 edges, the TF32 split (``fused.tf32_split``) and
-the split layout of the twiddles (``fused.tf32_operands``), the
-kernel's shared-memory rule (``fused.tf32_smem_bytes``, every box up to
-128 at every L), a lane-level model of its m16n8k8 fragments (loads, the
-k order, the chaining of one stage's sums into the next stage's A
-operand), and a torch emulation of what it computes -- every operand
-split into hi + lo by bit masking, every contraction's k axis in the
-kernel's slot order on both sides, each real product as hi*hi + hi*lo +
-lo*hi with float32 sums, boxes above 64 in 64 x 64 tiles of A (B^T
-summed over the y tiles, each x tile's F folded into G) -- against the
-plain version (``fused_correlate_reference``) and the JAX kernel in
-interpret mode, with one receptor spectrum and with G = 2.
+the zero-padded split layout of the twiddles (``fused.tf32_operands``),
+the kernel's shared-memory rule (``fused.tf32_smem_bytes``, every box up
+to 128 at every even L), a lane-level model of its m16n8k8 fragments
+(loads, the k order, the chaining of one stage's sums into the next
+stage's A operand), and a torch emulation of what it computes -- J, I,
+X' and Y' padded to multiples of 16 (H read as 0 past J and I, D
+cropped), every operand split into hi + lo by bit masking, every
+contraction's k axis in the kernel's slot order on both sides, each real
+product as hi*hi + hi*lo + lo*hi with float32 sums, boxes above 64 in
+64 x 64 tiles of A (B^T summed over the y tiles, each x tile's F folded
+into G) -- against the plain version (``fused_correlate_reference``) and
+the JAX kernel in interpret mode, with one receptor spectrum and with
+G = 2.
 
 Tolerance: 5e-6 relative to max |D|.  3xTF32 drops only lo*lo (2^-22
 relative per product) and rounds lo to TF32 (again ~2^-22 of x); over
@@ -30,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fused_tc import nan_pad, pad_h
 from torch_parity import np_, t_
 
 from deeplocalproteindocking_torch.correlate import fused as tfused
@@ -52,10 +55,11 @@ SLOT = [0, 2, 4, 6, 1, 3, 5, 7]   # slot s of an 8-deep step holds k = SLOT[s]
     (72, 128, "tf32"),
     (96, 128, "tf32"),
     (128, 128, "tf32"),
-    (32, 120, "simt"),     # L not a multiple of 16
-    (96, 120, "simt"),
-    (32, 72, "simt"),
-    (32, 144, "simt")])    # L above 128
+    (32, 120, "tf32"),     # L padded to 128 in the kernel
+    (96, 120, "tf32"),
+    (72, 120, "tf32"),     # the grid-120 float32 request's box
+    (32, 72, "tf32"),
+    (40, 98, "tf32")])     # L = 2 mod 4: D's rows 8-byte aligned only
 def test_k1_route_float32(box, L, want):
     assert tfused.k1_route(torch.float32, box, box, L, L, L, L) == want
 
@@ -65,9 +69,13 @@ def test_k1_route_float32_checks_each_axis():
     assert tfused.k1_route(f, 64, 16, 32, 32, 32, 32) == "tf32"
     assert tfused.k1_route(f, 16, 65, 32, 32, 32, 32) == "tf32"
     assert tfused.k1_route(f, 96, 128, 128, 128, 128, 128) == "tf32"
-    assert tfused.k1_route(f, 16, 16, 24, 32, 32, 32) == "simt"
-    assert tfused.k1_route(f, 16, 16, 32, 32, 32, 8) == "simt"
-    assert tfused.k1_route(torch.float64, 16, 16, 32, 32, 32, 32) == "simt"
+    assert tfused.k1_route(f, 16, 16, 24, 32, 32, 32) == "tf32"
+    assert tfused.k1_route(f, 16, 16, 32, 32, 32, 8) == "tf32"
+    for dtype, shape in ((f, (32, 32, 144, 144, 144, 144)),
+                         (f, (16, 16, 32, 32, 32, 7)),
+                         (torch.float64, (16, 16, 32, 32, 32, 32))):
+        with pytest.raises(ValueError, match="no kernel takes"):
+            tfused.k1_route(dtype, *shape)
 
 
 # ---- the split and the layout ----
@@ -103,39 +111,38 @@ def _twiddles(corr):
             corr.UxIm, corr.UyRe, corr.UyIm)
 
 
-@pytest.mark.parametrize("L,Ls", [(32, 16), (32, 24), (64, 40), (128, 64)])
+@pytest.mark.parametrize("L,Ls", [(32, 16), (32, 24), (64, 40), (128, 64),
+                                  (120, 72), (98, 40)])
 def test_tf32_operands_layout(L, Ls):
     corr = get_correlator(L, Ls, "float32")
     tw = _twiddles(corr)
     ops = tfused.tf32_operands(*tw)
-    P = -(-Ls // 16) * 16
-    assert [tuple(o.shape) for o in ops] == [(L, 2 * P)] * 4 + [(L, 2 * L)] * 4
+    P, L16 = -(-Ls // 16) * 16, -(-L // 16) * 16
+    assert [tuple(o.shape) for o in ops] == ([(L16, 2 * P)] * 4
+                                             + [(L16, 2 * L16)] * 4)
     assert all(o.is_contiguous() and o.dtype == torch.float32 for o in ops)
     for o, w in zip(ops, tfused.tc_operands(*tw)):
         hi, lo = decode(o)
         assert torch.equal(hi, tfused.tf32_split(w)[0])
         assert torch.equal(lo, tfused.tf32_split(w)[1])
         assert ((hi + lo - w).abs() <= 2.0 ** -21 * w.abs()).all()
-    for o, w in zip(ops[:4], tw[:4]):           # Wy^T, Wx^T zero-padded
-        assert torch.allclose(sum(decode(o))[:, :Ls], w.T, rtol=0,
+    for o, w in zip(ops, tw):                   # zero-padded
+        n, k = w.shape[1], w.shape[0]
+        assert torch.allclose(sum(decode(o))[:n, :k], w.T, rtol=0,
                               atol=1e-7)
-        assert not o[:, 2 * Ls:].any()
+        assert not o[:, 2 * k:].any() and not o[n:].any()
 
 
 @pytest.mark.parametrize("L,Ls,dtype_name,route", [
     (32, 16, "float32", "tf32"), (64, 40, "float32", "tf32"),
     (32, 16, "bfloat16", "tc"), (96, 72, "float32", "tf32"),
-    (120, 72, "float32", "simt")])
+    (120, 72, "float32", "tf32"), (120, 32, "bfloat16", "tc")])
 def test_k1_layouts_made_once(L, Ls, dtype_name, route):
     """A correlator makes its twiddles' layouts for K1's route once (the
-    v9p config launches K1 813 times per request) and keeps them; the
-    SIMT route has none."""
+    v9p config launches K1 813 times per request) and keeps them."""
     corr = get_correlator(L, Ls, dtype_name)
     first = corr.k1_layouts
     assert corr.k1_layouts is first
-    if route == "simt":
-        assert first is None
-        return
     make = tfused.tf32_operands if route == "tf32" else tfused.tc_operands
     for o, w in zip(first, make(*_twiddles(corr))):
         assert torch.equal(o, w) and not o.requires_grad
@@ -151,10 +158,13 @@ def test_tf32_smem_fits(L):
 
 
 def test_tf32_smem_fits_every_box_and_l():
-    """Every box up to 128 at every L <= 128 that is a multiple of 16
-    fits a Hopper block: above 64 the slab holds one 64 x 64 tile, so
-    the size is that of a box of 64."""
-    for L in range(16, 129, 16):
+    """Every box up to 128 at every even L <= 128 fits a Hopper block (J
+    and I padded to 16: L = 128 is the largest): above 64 the slab holds
+    one 64 x 64 tile, so the size is that of a box of 64."""
+    for box in (16, 72, 128):
+        assert (tfused.tf32_smem_bytes(box, box, 120, 120)
+                == tfused.tf32_smem_bytes(box, box, 128, 128))
+    for L in range(2, 129, 2):
         for box in range(1, 129):
             assert (tfused.tf32_smem_bytes(box, box, L, L)
                     <= tfused.SMEM_OPTIN_BYTES)
@@ -286,14 +296,18 @@ def cmm3(p, q, lo=True, perm=(True, True)):
     return mm3(pr, qr) - mm3(pi, qi), mm3(pr, qi) + mm3(pi, qr)
 
 
-def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True):
+def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True,
+                 mutate=None):
     """What ``fused_correlate_tf32.cu`` computes, stage by stage, from the
-    operands its wrapper hands it; ``lo`` and ``permute`` False plant
-    the errors of dropping the lo parts and of twiddles read outside the
-    slot order."""
+    operands its wrapper hands it, J, I, X' and Y' padded to 16; ``lo``
+    and ``permute`` False plant the errors of dropping the lo parts and
+    of twiddles read outside the slot order, ``mutate`` one of
+    ``pad_h``'s or ``nan_pad``'s errors (``test_torch_fused_tc.py``)."""
     tw = [decode(o) for o in tfused.tf32_operands(*twiddles)]
     WyT, WxT, UxT, UyT = ((tw[n], tw[n + 1]) for n in range(0, 8, 2))
     P = WyT[0][0].shape[1]
+    J, I = Hre.shape[-2:]
+    Xp, Yp = twiddles[4].shape[1], twiddles[6].shape[1]
     edges = [(0, P)] if P <= 64 else [(0, 64), (64, P)]   # A's tiles
     X, Y = Are.shape[-2:]
     b, G = Are.shape[0], 1 if Hre.ndim == 4 else Hre.shape[0]
@@ -318,8 +332,9 @@ def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True):
     # 2. Per x tile, F[c, j, i] = sum_x B^T[c, j, x] Wx^T[i, x] over the
     #    tile's x; G += H conj(F).
     kw = dict(lo=lo, perm=(True, permute))
-    Hr = Hre.reshape((G, 1) + Hre.shape[-4:])
-    Hi = Him.reshape(Hr.shape)
+    J16, I16 = WyT[0][0].shape[0], WxT[0][0].shape[0]
+    Hr, Hi = (pad_h(h, J16, I16, mutate).reshape(
+        (G, 1) + h.shape[-4:-2] + (J16, I16)) for h in (Hre, Him))
     Gre = Gim = 0
     for e in edges:
         Fre, Fim = cmm3(split(Btr[..., e[0]:e[1]], Bti[..., e[0]:e[1]]),
@@ -329,9 +344,12 @@ def emulate_tf32(Are, Aim, Hre, Him, *twiddles, lo=True, permute=True):
         Gre = Gre + (Hr * Fre + Hi * Fim).sum(dim=3).flatten(0, 1)
         Gim = Gim + (Hi * Fre - Hr * Fim).sum(dim=3).flatten(0, 1)
     # 3. C[j, x'] = sum_i G[j, i] Ux^T[x', i].
+    Gre, Gim = (nan_pad(x, J, I, mutate) for x in (Gre, Gim))
     Cre, Cim = cmm3(split(Gre, Gim), UxT, **kw)
-    # 4. D[x', y'] = sum_j C^T[x', j] Uy^T[y', j].
-    return cmm3(split(Cre.mT, Cim.mT), UyT, **kw)
+    # 4. D[x', y'] = sum_j C^T[x', j] Uy^T[y', j], stored at x' < X',
+    #    y' < Y'.
+    Dre, Dim = cmm3(split(Cre.mT, Cim.mT), UyT, **kw)
+    return Dre[..., :Xp, :Yp], Dim[..., :Xp, :Yp]
 
 
 def _args(L, Ls, C, b, G, seed):
@@ -380,6 +398,41 @@ def test_tiled_emulation_matches_plain(L, Ls, C, G, b):
                                     (16, 2, 2)])
 def test_emulation_matches_pallas_interpret(Ls, C, G):
     _matches_pallas_interpret(32, Ls, C, G, 4)
+
+
+@pytest.mark.parametrize("L,Ls,C,G,b", [(120, 72, 1, None, 1),
+                                        (120, 32, 2, 2, 2),
+                                        (72, 40, 2, None, 2),
+                                        (98, 40, 1, None, 1),
+                                        (50, 24, 3, 2, 4)])
+def test_padded_emulation_matches_plain(L, Ls, C, G, b):
+    """L not a multiple of 16 (120, 72, 98 = 2 mod 4, 50), J, I, X', Y'
+    padded to 16 in the kernel, one receptor spectrum or two."""
+    args = _args(L, Ls, C, b, G, seed=L + Ls + C)
+    got = emulate_tf32(*args)
+    want = tfused.fused_correlate_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("L,Ls,G", [(120, 32, None), (50, 24, 2)])
+def test_padded_emulation_matches_pallas_interpret(L, Ls, G):
+    _matches_pallas_interpret(L, Ls, 2, G, 2)
+
+
+@pytest.mark.parametrize("mutate", ["h_padded_stride", "g_pad_nan"])
+def test_padding_errors_move_the_emulation(mutate):
+    """At L = 98: H read with the padded row stride moves D by O(1); G's
+    padding left as stale NaN turns D into NaN."""
+    args = _args(98, 24, 2, 1, None, seed=4)
+    want = emulate_tf32(*args)
+    got = emulate_tf32(*args, mutate=mutate)
+    for g, w in zip(got, want):
+        if mutate == "g_pad_nan":
+            assert torch.isnan(g).any() and not torch.isnan(w).any()
+        else:
+            assert _rel(g, w) > 0.1
 
 
 def test_tiled_emulation_matches_pallas_interpret():

@@ -1,17 +1,19 @@
-"""K3's FFT route (``csrc/idft_fft.cu``) on the CPU, and the two repairs
-that came with it: float32 K1's shared-memory rule and the port's own
+"""K3's FFT route (``csrc/idft_fft.cu``) on the CPU, and the port's own
 ``DockConfig``.
 
 The CUDA kernel cannot run here, so this file holds its formulation: a
-torch emulation of its stages -- pass 1's complex inverse FFT along ky
-(L = P x Q with (P, Q) = (16, 8) at L = 128, (8, 8) at 64 and (8, 12) at
-96: radix-P butterflies over k1, the twiddle e^{+2 pi i k2 n1 / L},
-radix-Q over k2, output digit y = n1 + P n2), the Hermitian fold
-h[kx] = (g[kx] + conj g[L-kx]) / 2 for kx <= L/2, and pass 2's c2r along
-kx (``fft.cuh``: packing, radix passes, even/odd interleave) -- against
-the plain version (``idft_bc_reference``, the dense contractions) and
-the JAX kernel in interpret mode; planted errors in the fold, the ky
-FFT, the packing and the radix-3 stage move the result by O(1); and
+torch emulation of its stages -- the z axis in runs of 32 columns (the
+last one half full and masked at L = 48, 80 and 112), pass 1's complex
+inverse FFT along ky (L = P x Q with (P, Q) = (16, 8) at L = 128 and
+P = 8 below: Q = 6, 8, 10, 12, 14 at L = 48, 64, 80, 96, 112; radix-P
+butterflies over k1, the twiddle e^{+2 pi i k2 n1 / L}, radix-Q over k2,
+output digit y = n1 + P n2), the Hermitian fold h[kx] = (g[kx] + conj
+g[L-kx]) / 2 for kx <= L/2, and pass 2's c2r along kx (``fft.cuh``:
+packing, radix-8 then radix-Q = L/16 passes, even/odd interleave) --
+against the plain version (``idft_bc_reference``, the dense
+contractions) and the JAX kernel in interpret mode at every L it
+serves; planted errors in the fold, the ky FFT, the packing, the
+radix-3, 5 and 7 stages and the half z run move the result by O(1); and
 ``k3_route``, ``inverse_dft`` and the wrapper's check of ``Ux``/``Uy``.
 
 Tolerance: 1e-5 relative to max |S| (float32; the FFTs and the dense
@@ -32,26 +34,46 @@ from torch_parity import V9P_CKPT, np_, t_
 
 from deeplocalproteindocking_torch import config as tconfig
 from deeplocalproteindocking_torch.correlate import dft as tdft
-from deeplocalproteindocking_torch.correlate import fused as tfused
 from deeplocalproteindocking_torch.correlate import idft as tidft
 from deeplocalproteindocking_tpu import config as jconfig
 from deeplocalproteindocking_tpu.correlate import dft as jdft
 from deeplocalproteindocking_tpu.correlate import pallas_idft as jidft
 
 TOL = 1e-5
+RUN = 32        # z columns of a run: one lane each (kCols)
 
 
 def pass1_split(L):
     """Pass 1's radices (P, Q), L = P x Q, as ``idft_fft.cu`` takes them:
-    (16, 8) at L = 128, (8, 8) at 64, (8, 12) at 96."""
+    (16, 8) at L = 128, P = 8 below (8 x 6, 8 x 8, 8 x 10, 8 x 12, 8 x 14
+    at L = 48, 64, 80, 96, 112)."""
     P = 16 if L == 128 else 8
     return P, L // P
 
 
 def emulate_idft_fft(Ere, Eim, mutate=None):
     """What ``idft_fft.cu`` computes, stage by stage, in complex64:
-    ``E (re, im) [b, L, L, Z]`` (kx, ky, z) -> ``S [b, L, L, Z]`` float32.
-    ``mutate`` plants one error (for the O(1) test)."""
+    ``E (re, im) [b, L, L, Z]`` (kx, ky, z) -> ``S [b, L, L, Z]`` float32,
+    z in runs of 32 columns: ceil(Z / 32) runs, each run's columns at or
+    past Z read as zeros and never stored.  ``mutate`` plants one error
+    (for the O(1) tests): ``"half_run_dropped"`` launches Z // 32 runs,
+    ``"half_run_shifted"`` reads a half-full run 16 columns early."""
+    Z = Ere.shape[-1]
+    S = torch.zeros(Ere.shape, dtype=torch.float32)
+    runs = Z // RUN if mutate == "half_run_dropped" else -(-Z // RUN)
+    for z0 in range(0, RUN * runs, RUN):
+        cols = torch.arange(z0, z0 + RUN)
+        valid = cols < Z
+        read = cols - RUN // 2 if (mutate == "half_run_shifted"
+                                   and not valid.all()) else cols
+        tile = [torch.where(valid, e[..., read.clamp(max=Z - 1)], 0.0)
+                for e in (Ere, Eim)]
+        S[..., cols[valid]] = _emulate_run(*tile, mutate)[..., valid]
+    return S
+
+
+def _emulate_run(Ere, Eim, mutate=None):
+    """One z run of ``emulate_idft_fft``: ``[b, L, L, 32]`` -> ``S``."""
     b, L, _, Z = Ere.shape
     K = L // 2 + 1
     P, Q = pass1_split(L)
@@ -94,9 +116,15 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+def _z(L):
+    """The z extent a test emulates at L: 32 (one whole run) where
+    L % 32 == 0, else all of L (whole runs and a half-full one)."""
+    return 32 if L % RUN == 0 else L
+
+
+@pytest.mark.parametrize("L", [48, 64, 80, 96, 112, 128])
 def test_emulation_matches_plain(L):
-    Ere, Eim = _e_inputs(L, 2, Z=32, seed=L)
+    Ere, Eim = _e_inputs(L, 2, Z=_z(L), seed=L)
     ux = [t_(a) for a in tdft.inverse_dft(L)]
     want = tidft.idft_bc_reference(t_(Ere), t_(Eim), *ux, *ux)
     got = emulate_idft_fft(t_(Ere), t_(Eim))
@@ -107,7 +135,7 @@ def test_emulation_matches_plain(L):
     assert _rel(got, lib) <= TOL
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+@pytest.mark.parametrize("L", [48, 64, 80, 96, 112, 128])
 def test_emulation_matches_pallas_interpret(L):
     """The same G into JAX ``pallas_inverse`` (interpret mode) and into
     pass A then the emulation."""
@@ -139,10 +167,27 @@ def test_planted_errors_move_the_result(mutate):
     (128, "fft"),       # the screening path
     (64, "fft"),        # the card-vs-CPU phase
     (96, "fft"),        # grid 96: the rep-score and train presets
-    (32, "dense"), (16, "dense"), (112, "dense"), (48, "dense"),
-    (80, "dense")])
+    (48, "fft"), (80, "fft"), (112, "fft"),   # a half-full last z run
+    (32, "dense"), (16, "dense")])
 def test_k3_route(L, want):
     assert tidft.k3_route(L) == want
+
+
+@pytest.mark.parametrize("L,mutate", [
+    (80, "radix5_sign"),            # pass 1's radix 10, the c2r's radix 5
+    (112, "radix7_sign"),           # pass 1's radix 14, the c2r's radix 7
+    (80, "radix10_digit_order"),
+    (112, "radix14_digit_order"),
+    (48, "half_run_dropped"),       # ceil(L / 32) runs are needed
+    (80, "half_run_shifted")])
+def test_radix5_7_and_half_run_errors_move_the_result(L, mutate):
+    """A radix-5 or radix-7 inverse DFT with the conjugate root, a 2 x 5
+    or 2 x 7 split's outputs in the wrong digit order, the half-full last
+    z run not launched or read 16 columns early: each moves S by O(1)."""
+    Ere, Eim = _e_inputs(L, 1, Z=L, seed=L + 3)
+    want = emulate_idft_fft(t_(Ere), t_(Eim))
+    got = emulate_idft_fft(t_(Ere), t_(Eim), mutate=mutate)
+    assert _rel(got, want) > 0.1
 
 
 @pytest.mark.parametrize("mutate", ["radix3_sign", "radix6_digit_order"])
@@ -185,30 +230,6 @@ def test_require_idft():
         tidft.require_idft(*u, u[0].bfloat16().float(), u[1])
     with pytest.raises(ValueError, match="at L=128"):
         tidft.require_idft(torch.zeros(64, 128), u[1], *u)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_simt_smem_fits_every_box(dtype):
-    """Every ligand box 16..128 at L = 128 fits one SIMT block, in both
-    dtypes; the old layout, which staged the A slab [X, Y] too, did not
-    from Ls = 96 in float32."""
-    limit = tfused.SMEM_OPTIN_BYTES
-    for box in range(16, 129, 8):
-        assert tfused.simt_smem_bytes(box, 128, 128, 128, dtype) <= limit
-    assert tfused.simt_smem_bytes(96, 128, 128, 128, torch.float32) == 161_792
-    assert tfused.simt_smem_bytes(128, 128, 128, 128,
-                                  torch.float32) == 163_840
-    old = tfused.simt_smem_bytes(96, 128, 128, 128, torch.float32) + 8 * 96**2
-    assert old > limit
-
-
-def test_simt_refuses_an_oversized_block_before_launch():
-    """A shape whose block would not fit raises a readable ValueError
-    before the library is touched (meta tensors: no card needed)."""
-    a = torch.empty(1, device="meta")
-    dims = (1, 1, 1, 1024, 16, 16, 1024, 1024, 1024)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfused._launch_simt((a,) * 12, dims, a, a)
 
 
 # ---- the port's own DockConfig, held in step with the JAX package's ----

@@ -8,13 +8,14 @@ one.  The file imports no JAX, so it also runs on a machine without it:
 Tolerances: max |kernel - plain| <= 1e-4 max |plain| in float32 (sums in
 another order; 3xTF32 on the tensor cores), 2e-2 in bf16 (the same
 rounding points, where one bf16 ulp is 2^-8 relative).  K1 runs every
-box up to 128 on the tensor cores when L is a multiple of 16 (bf16 on
+box up to 128 at every even L up to 128 on the tensor cores (bf16 on
 its tc kernel, float32 on its tf32 kernel; boxes above 64 in tiles of
-A) and other L on its SIMT kernel (``fused.k1_route``); all three are
-held here, with one receptor spectrum or G of them, as are K2's and
-K3's FFT kernels (L = 64, 96, 128) and dense kernels (other L, and
-launched directly at 96, the L they served before the FFT routes took
-it; ``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
+A; L not a multiple of 16 padded to one in the kernel;
+``fused.k1_route``); both are held here, with one receptor spectrum or
+G of them, as are K2's FFT kernel (L = 64, 96, 128) and K3's (L = 48,
+64, 80, 96, 112, 128) and their dense kernels (other L, and launched
+directly at 96, the L they served before the FFT routes took it;
+``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
 only.  One train step is held against the same step on the CPU.
 """
 import numpy as np
@@ -86,13 +87,16 @@ def _rel(got, want):
     (128, 96, 3, 2, "float32", 1e-4),
     (128, 128, 3, 1, "float32", 1e-4),
     (96, 80, 16, 2, "float32", 1e-4),     # C = 16, the last tile 16 wide
-    (120, 72, 3, 2, "float32", 1e-4),     # L not a multiple of 16: SIMT
-    (120, 32, 2, 3, "bfloat16", 2e-2)])
+    (120, 72, 3, 2, "float32", 1e-4),     # L not a multiple of 16: padded
+    (120, 32, 2, 3, "bfloat16", 2e-2),
+    (98, 40, 2, 2, "float32", 1e-4),      # L = 2 mod 4: D rows 8-byte
+    (98, 40, 2, 2, "bfloat16", 2e-2),     # aligned
+    (72, 71, 2, 2, "bfloat16", 2e-2),     # odd box, padded L
+    (50, 24, 3, 3, "float32", 1e-4)])
 def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
     route = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L)
-    assert route == ("simt" if L % 16 else
-                     "tc" if dtype_name == "bfloat16" else "tf32")
+    assert route == ("tc" if dtype_name == "bfloat16" else "tf32")
     n0, tc0, tf0 = fused.launches, fused.launches_tc, fused.launches_tf32
     got = fused.fused_correlate(*args)
     torch.cuda.synchronize()
@@ -190,8 +194,8 @@ def test_k1_tf32_refuses_misaligned_h(cuda_device):
     (64, 72, 2, 4, "bfloat16", 2e-2),     # tc, box above 64 (two x tiles)
     (128, 96, 3, 8, "bfloat16", 2e-2),
     (128, 96, 3, 8, "float32", 1e-4),
-    (120, 72, 2, 4, "float32", 1e-4),     # SIMT (L not a multiple of 16)
-    (120, 40, 2, 4, "bfloat16", 2e-2)])   # SIMT in bf16
+    (120, 72, 2, 4, "float32", 1e-4),     # tf32, L padded to 128
+    (120, 40, 2, 4, "bfloat16", 2e-2)])   # tc, L padded to 128
 def test_k1_groups_match_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     """Every K1 route with G = 4 receptor spectra (rows [g b/4, (g+1)
     b/4) against H[g]) against the plain version."""
@@ -296,11 +300,14 @@ def _k3_args(dev, L, b, seed=0):
 @pytest.mark.parametrize("L,b,route", [
     (64, 1, "fft"), (64, 2, "fft"), (64, 8, "fft"), (128, 1, "fft"),
     (128, 2, "fft"), (128, 3, "fft"), (128, 8, "fft"), (96, 1, "fft"),
-    (96, 3, "fft"), (96, 8, "fft"), (80, 2, "dense"), (112, 1, "dense")])
+    (96, 3, "fft"), (96, 8, "fft"), (48, 2, "fft"), (48, 3, "fft"),
+    (80, 2, "fft"), (80, 5, "fft"), (112, 1, "fft"), (112, 3, "fft"),
+    (32, 2, "dense"), (16, 3, "dense")])
 def test_k3_matches_plain(cuda_device, L, b, route):
     """Both K3 kernels against the plain version: the FFT kernel at
-    L = 64, 96 and 128 (odd b: a pass-2 block's second rotation
-    missing), the dense kernel at L = 80 and 112."""
+    L = 48, 64, 80, 96, 112 and 128 (odd b: a pass-2 block's second
+    rotation missing; a half-full last z run at 48, 80 and 112), the
+    dense kernel at L = 16 and 32."""
     args = _k3_args(cuda_device, L, b)
     assert idft.k3_route(L) == route
     n0, f0 = idft.launches, idft.launches_fft

@@ -71,12 +71,55 @@ def idft16(v):
     return [e[n] + t[n] for n in range(8)] + [e[n] - t[n] for n in range(8)]
 
 
+def idft_pairs(v, mutate=None):
+    """``idft<5>`` / ``idft<7>``: the direct inverse DFT of odd N over the
+    input pairs s_n = a_n + a_{N-n}, d_n = a_n - a_{N-n}: y_k = a_0 +
+    sum_n s_n cos(2 pi n k/N) +- i sum_n d_n sin(2 pi n k/N) for k and
+    N - k; ``"radix5_sign"`` / ``"radix7_sign"`` plants the conjugate
+    root (the sine terms' sign flipped)."""
+    N = len(v)
+    h = N // 2
+    sign = -1 if mutate == f"radix{N}_sign" else 1
+    s = [v[n] + v[N - n] for n in range(1, h + 1)]
+    d = [v[n] - v[N - n] for n in range(1, h + 1)]
+    out = [v[0] + sum(s)] + [None] * (N - 1)
+    for k in range(1, h + 1):
+        a = v[0] + sum(math.cos(2 * math.pi * n * k / N) * s[n - 1]
+                       for n in range(1, h + 1))
+        b = sign * sum(math.sin(2 * math.pi * n * k / N) * d[n - 1]
+                       for n in range(1, h + 1))
+        out[k], out[N - k] = a + 1j * b, a - 1j * b
+    return out
+
+
+def idft_radix2(v, mutate=None):
+    """``idft<10>`` / ``idft<14>``: ``idft_pairs`` of the even and odd
+    inputs, then the radix-2 step with e^{+2 pi i n / N}, outputs n and
+    n + N/2 from digit n; ``"radix10_digit_order"`` /
+    ``"radix14_digit_order"`` plants outputs 2n and 2n + 1 instead."""
+    H = len(v) // 2
+    e, o = idft_pairs(v[0::2], mutate), idft_pairs(v[1::2], mutate)
+    t = [complex(math.cos(math.pi * n / H), math.sin(math.pi * n / H)) * o[n]
+         for n in range(H)]
+    if mutate == f"radix{2 * H}_digit_order":
+        return [x for n in range(H) for x in (e[n] + t[n], e[n] - t[n])]
+    return [e[n] + t[n] for n in range(H)] + [e[n] - t[n] for n in range(H)]
+
+
 def idft(v, mutate=None):
-    """The kernels' ``idft<N>`` for N = len(v) in {4, 6, 8, 12, 16};
-    ``mutate`` reaches the radix-3 stages only."""
-    if len(v) in (6, 12):
-        return (idft6 if len(v) == 6 else idft12)(v, mutate)
-    return {4: lambda v: idft4(*v), 8: idft8, 16: idft16}[len(v)](v)
+    """The kernels' ``idft<N>`` for N = len(v) in {3, 4, 5, 6, 7, 8, 10,
+    12, 14, 16}; ``mutate`` reaches the radix-3, 5 and 7 stages and the
+    2 x 5 and 2 x 7 splits only."""
+    n = len(v)
+    if n in (6, 12):
+        return (idft6 if n == 6 else idft12)(v, mutate)
+    if n == 3:
+        return idft3(*v, mutate)
+    if n in (5, 7):
+        return idft_pairs(v, mutate)
+    if n in (10, 14):
+        return idft_radix2(v, mutate)
+    return {4: lambda v: idft4(*v), 8: idft8, 16: idft16}[n](v)
 
 
 def twiddles(L):
@@ -88,10 +131,9 @@ def twiddles(L):
 def c2r_columns(X, mutate=None):
     """``c2r_columns`` and its 1/L: the half spectrum ``X [b, M+1, N]``
     (complex64, along dim 1) -> ``s [b, 2M, N]`` float32, the irfft of
-    each column, for L = 64, 96 or 128 (Q = 4, 6 or 8).  ``mutate``
+    each column, for L = 16 Q (Q = 3 .. 8: L = 48 .. 128).  ``mutate``
     plants one error: ``"no_conj"``, ``"minus_i"``, ``"mirror_index"``
-    (packing), ``"digit_order"``, or one of :func:`idft`'s radix-3
-    errors."""
+    (packing), ``"digit_order"``, or one of :func:`idft`'s errors."""
     b, K, N = X.shape
     M = K - 1
     L, Q = 2 * M, M // P

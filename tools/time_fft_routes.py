@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2's and K3's kernels timed on one card at L = 64, 96 and 128, for the
-package under a given root.
+"""K2's and K3's kernels timed on one card at L = 48, 64, 80, 96, 112 and
+128, for the package under a given root.
 
     python3 tools/time_fft_routes.py [ROOT]      # from the repo root
 
@@ -10,15 +10,17 @@ unpacked older commit (``git archive``) to compare two versions, and run
 them in turns (older, newer, newer, older) in one call on one card.
 Inputs are random and made on the card from a seed, at the main path's
 chunk of b = 128 rotations: K2's ``D [b, L/2+1, L, L]`` with a bias that
-masks about 40% of the cells, K3's ``E [b, L, L, L]``.  At each L each
+masks about 40% of the cells (K2 only at L % 32 == 0, the grids its
+fused top-K tail takes), K3's ``E [b, L, L, L]``.  At each L each
 kernel is launched as its wrapper routes it (``k2_route``, ``k3_route``;
 the route is reported), held against its plain version (max |kernel -
-plain| / max |plain|) and timed; at L = 96 the dense kernels are also
-timed directly, and at every L ``torch.fft.ifft2``, the one PyTorch call
-that computes K3's function.  Times are CUDA events over 5 launches
-after one warm-up.  The ptxas report of the build (registers, spills,
-shared memory of every K2 and K3 kernel) comes with them.  Prints one
-JSON line with the card's name and power limit.
+plain| / max |plain|) and timed; at L = 96 the dense K2 and at every L
+the dense K3 are also timed directly, and at every L
+``torch.fft.ifft2``, the one PyTorch call that computes K3's function.
+Times are CUDA events over 5 launches after one warm-up.  The ptxas
+report of the build (registers, spills, shared memory of every K2 and
+K3 kernel) comes with them.  Prints one JSON line with the card's name
+and power limit.
 """
 import json
 import os
@@ -99,22 +101,26 @@ def main():
     _build.library()
     rows = {}
     with torch.inference_mode():
-        for L in (64, 96, 128):
+        for L in (48, 64, 80, 96, 112, 128):
             g = torch.Generator(device=dev).manual_seed(L)
             corr = get_correlator(L, 16, "float32", dev)
-            D = [torch.randn((b, L // 2 + 1, L, L), generator=g, device=dev)
-                 for _ in range(2)]
-            bias = torch.where(torch.rand((1, L, L, L), generator=g,
-                                          device=dev) < 0.6, 0.0,
-                               float("-inf"))
-            k2 = (D[0], D[1], corr.MzRe, corr.MzIm, bias)
-            row = {"k2_route": invz_topk.k2_route(L),
-                   "k2_rel_err": rel(invz_topk.invz_blockmax(*k2),
-                                     invz_topk.invz_blockmax_reference(*k2)),
-                   "k2_ms": ms(lambda: invz_topk.invz_blockmax(*k2))}
-            if L == 96:
-                row["k2_dense_ms"] = ms(lambda: invz_topk._launch_dense(*k2))
-            del D, bias, k2
+            row = {}
+            if L % 32 == 0:
+                D = [torch.randn((b, L // 2 + 1, L, L), generator=g,
+                                 device=dev) for _ in range(2)]
+                bias = torch.where(torch.rand((1, L, L, L), generator=g,
+                                              device=dev) < 0.6, 0.0,
+                                   float("-inf"))
+                k2 = (D[0], D[1], corr.MzRe, corr.MzIm, bias)
+                row.update(
+                    k2_route=invz_topk.k2_route(L),
+                    k2_rel_err=rel(invz_topk.invz_blockmax(*k2),
+                                   invz_topk.invz_blockmax_reference(*k2)),
+                    k2_ms=ms(lambda: invz_topk.invz_blockmax(*k2)))
+                if L == 96:
+                    row["k2_dense_ms"] = ms(
+                        lambda: invz_topk._launch_dense(*k2))
+                del D, bias, k2
             E = [torch.randn((b, L, L, L), generator=g, device=dev)
                  for _ in range(2)]
             k3 = (*E, corr.UxRe32, corr.UxIm32, corr.UxRe32, corr.UxIm32)
@@ -123,8 +129,7 @@ def main():
                        k3_rel_err=rel(idft.idft_bc(*k3), want),
                        k3_ms=ms(lambda: idft.idft_bc(*k3)))
             del want
-            if L == 96:
-                row["k3_dense_ms"] = ms(lambda: idft._launch_dense(*k3))
+            row["k3_dense_ms"] = ms(lambda: idft._launch_dense(*k3))
             row["ifft2_ms"] = ms(lambda: torch.fft.ifft2(
                 torch.complex(E[0], E[1]), dim=(1, 2)).real)
             rows[str(L)] = row

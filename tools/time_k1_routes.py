@@ -21,6 +21,13 @@ C = 3 on both tensor-core routes, each first held against the plain
 version at b = 2 (max |kernel - plain| / max |plain|), then timed twice;
 a box the package routes elsewhere (a tree from before those boxes ran
 on the tensor cores) is reported with its route and not timed.
+Both modes then time grids that are not a multiple of 16 (b = 128):
+L = 120 (the grid-120 request's bf16 box 32 and a float32 box 72) and
+L = 98 (2 mod 4: D's rows 8-byte aligned only; box 40 in both dtypes),
+each launched through ``fused_correlate`` as the package routes it (the
+tensor cores padded to 128 / 112 on a tree that pads, the SIMT kernel
+on an older one), held against the plain version at b = 2 and timed
+twice.
 Times are CUDA events over 3 launches after one warm-up (20 at the v9p
 shape).  Prints one JSON line with the card's name.
 """
@@ -124,6 +131,25 @@ def main():
                     del args, fn
                     torch.cuda.empty_cache()
             out["tiles"] = tiles
+        padded = {}
+        for L, box, name in ((120, 32, "bfloat16"), (120, 72, "float32"),
+                             (98, 40, "bfloat16"), (98, 40, "float32")):
+            corr, args = inputs(2, L, box, 3, name, seed=L + box)
+            err = rel(fused.fused_correlate(*args),
+                      fused.fused_correlate_reference(*args))
+            corr, args = inputs(128, L, box, 3, name)
+            tc0, tf0 = fused.launches_tc, fused.launches_tf32
+            fused.fused_correlate(*args, layouts=corr.k1_layouts)
+            route = ("tc" if fused.launches_tc > tc0 else "tf32"
+                     if fused.launches_tf32 > tf0 else "simt")
+            padded[f"L{L}_{name}_box{box}"] = dict(
+                route=route, rel_err=err, ms=[ms(
+                    lambda: fused.fused_correlate(
+                        *args, layouts=corr.k1_layouts), 3)
+                    for _ in range(2)])
+            del args
+            torch.cuda.empty_cache()
+        out["padded"] = padded
     print(json.dumps(out), flush=True)
 
 
