@@ -18,26 +18,24 @@ phase that does not hold:
    both dtypes at 96), and both at L = 120, padded to 128 in the kernel
    (bf16 at the bench box, float32 at box 72); K2 with a real
    translation mask, drill-down top-K; K3 on the summed spectrum of the
-   ``dft`` engine's forward half, on its FFT kernel, and on random
-   spectra at L = 48, 64, 80, 96 and 112 (FFT) and L = 16 and 32
-   (dense)), plus the time of each kernel and its plain version at the
+   ``dft`` engine's forward half, and on random spectra at L = 16, 32,
+   48, 64, 80, 96 and 112), plus the time of each kernel and its plain
+   version at the
    full batch of 128 (K1 at L = 120, the grid-120 request's shape, on
    tc and in float32 at box 72 on tf32; each tensor-core route at boxes
    72, 96 and 128, each held against plain, with its bound; in float32
    on its tf32 kernel, held against plain, at the bench box and at the
-   v9p checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 on its
-   FFT kernel at L = 128 on the bench complex's D and at L = 64 and 96,
-   and on its dense kernel at L = 32; both K2 kernels, timed in turns,
-   held against plain at b = 128 and at the rescore's b = 48 with 16
-   bias groups; both K3 kernels, timed in turns and held against plain
-   at b = 128, beside the library call ``torch.fft.ifft2`` that computes
-   K3's function; both K2 and both K3 kernels in turns again at L = 96,
-   b = 128, beside ``ifft2`` (the FFT K3 must beat it, the FFT K2 the
-   dense one); both K3 kernels in turns at L = 48, 80 and 112 beside
-   ``ifft2`` (the FFT K3 must beat it at 80 and 112); the dense kernels
-   at the L they still serve, b = 128: K2 at L = 32, K3 at L = 16 and 32
-   beside ``ifft2``),
-   with each kernel's
+   v9p checkpoint's config (grid 64, box 40, C = 16, 16 rows); K2 (its
+   FFT kernel, the only one) at L = 128 on the bench complex's D and at
+   L = 32, 64 and 96, timed and held against plain at b = 128 and at the
+   rescore's b = 48 with 16 bias groups, and at L = 32 and 96, b = 128;
+   K3 (its FFT kernel, the only one) timed and held against plain at
+   b = 128 and L = 16, 32, 48, 80, 96, 112 and 128, each beside the
+   library call ``torch.fft.ifft2`` that computes K3's function, which
+   it must beat at every L; every K2 and K3 time with its
+   launches queued behind a device sleep, so that the host's launch
+   overhead, which is of the size of the kernels at L = 16 and 32, is
+   not counted), with each kernel's
    bound at those shapes: the bytes its function must move or the
    operations of that function done as FFTs at the peak rate for how
    they can run (float32 K1 on the tensor cores as 3xTF32), whichever
@@ -49,8 +47,8 @@ phase that does not hold:
    K2 (every launch on the FFT kernel) ran in each; then two float32
    requests of 64 rotations, each also on the CPU (top-K values within
    rtol 1e-3, the same top-1) and each first K2 launch held against
-   plain: one at grid 96 (the rep-score and train presets' grid) runs
-   K2's FFT kernel, one at grid 32 its dense kernel; one at grid 120
+   plain: one at grid 96 (the rep-score and train presets' grid) and
+   one at grid 32, every K2 launch of both on its FFT kernel; one at grid 120
    (not a multiple of 16) runs K1's tc kernel padded to 128 (bf16, 256
    rotations), and one more at grid 120 in float32 (64 rotations, also
    on the CPU) its tf32 kernel; one float32 request at grid 128 with a
@@ -76,8 +74,8 @@ phase that does not hold:
    engine), proving that K3 ran in every stage, every launch on its FFT
    kernel; then four float32 ``dft_pallas`` docks of 64 rotations, each
    also on the CPU and each first K3 launch held against plain: grids
-   96, 80 and 112 on K3's FFT kernel, grid 32 on its dense kernel; and
-   one ``rescore``
+   96, 80, 112 and 32, every K3 launch on its FFT kernel; and one
+   ``rescore``
    on the main-path ``dft_fused`` engine, whose K2 must see 16 bias
    groups;
 6. card against CPU for that path: dock -> rescore -> refine at
@@ -227,10 +225,14 @@ N_ROT_BOX96 = 64            # the float32 box-96 request, also run on the CPU
 N_ROT_SMALL_GRID = 64
 SMALL_GRID_CHUNK = 32
 # K3 on random spectra (b = 8, phase 2): its FFT kernel at every L it
-# takes, its dense kernel at the L it still serves; key k3_<route>_L<L>.
-K3_RANDOM_CHECKS = {"k3_fft_L48": 48, "k3_fft_L64": 64, "k3_fft_L80": 80,
-                    "k3_fft_L96": 96, "k3_fft_L112": 112,
-                    "k3_dense_L16": 16, "k3_dense_L32": 32}
+# takes; key k3_<route>_L<L>.
+K3_RANDOM_CHECKS = {"k3_fft_L16": 16, "k3_fft_L32": 32, "k3_fft_L48": 48,
+                    "k3_fft_L64": 64, "k3_fft_L80": 80, "k3_fft_L96": 96,
+                    "k3_fft_L112": 112}
+# Device cycles of the sleep queued ahead of a timed run of small kernels
+# (about 10 ms at the H100's 1.98 GHz): long enough for the host to queue
+# every launch, so that the events time the device alone.
+QUEUE_CYCLES = 20_000_000
 # The full-depth requests' complex: a 250-residue polymer ligand, whose
 # own box at grid 128 (auto_ligand_grid) is 72.
 BIG_COMPLEX = dict(seed=0, n_res_rec=300, n_res_lig=250, backbone=True)
@@ -283,13 +285,18 @@ def check(cond, msg):
         fail(msg)
 
 
-def cuda_time_ms(fn, reps=5):
-    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+def cuda_time_ms(fn, reps=5, queued=False):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up.
+    ``queued``: the runs wait behind a device sleep of ``QUEUE_CYCLES``
+    while the host queues them, so that kernels shorter than their
+    launch's host overhead are timed back to back."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -326,11 +333,12 @@ def fft_flops(n):
 def k2_fft_flops(L):
     """Operations of ``invz_blockmax_fft.cu`` per (rotation, x, y) column:
     the packing (12 per k), the radix-8 pass with its twiddles, the
-    radix-Q pass (radix 6: two radix-3 DFTs of 16 and a radix-2 step of
-    24), the 1/L scale, the bias add and the max."""
+    radix-Q pass (radix 2: one butterfly of 4; radix 6: two radix-3
+    DFTs of 16 and a radix-2 step of 24), the 1/L scale, the bias add
+    and the max."""
     M = L // 2
     Q = M // 8
-    radix = {4: 16, 6: 56, 8: 56}
+    radix = {2: 4, 4: 16, 6: 56, 8: 56}
     return 12 * M + Q * radix[8] + 6 * Q * 7 + 8 * radix[Q] + 3 * L
 
 
@@ -362,7 +370,7 @@ def k2_check(args):
     f0 = invz_topk.launches_fft
     got = invz_topk.invz_blockmax(*args)
     torch.cuda.synchronize()
-    route = "fft" if invz_topk.launches_fft > f0 else "dense"
+    route = "fft" if invz_topk.launches_fft > f0 else "none"
     return (rel_err(got, invz_topk.invz_blockmax_reference(*args)), route,
             got)
 
@@ -375,7 +383,7 @@ def k3_check(args):
     f0 = idft.launches_fft
     got = idft.idft_bc(*args)
     torch.cuda.synchronize()
-    route = "fft" if idft.launches_fft > f0 else "dense"
+    route = "fft" if idft.launches_fft > f0 else "none"
     return rel_err(got, idft.idft_bc_reference(*args)), route
 
 
@@ -1376,7 +1384,7 @@ def cli_commands(dev):
                             rel_err=k1_err[1]),
         "dock_v9p_k2": dict(route=k2_route, max_abs_err=k2_err[0],
                             rel_err=k2_err[1]),
-        "screen_k3": dict(route="fft" if idft.launches_fft > f0 else "dense",
+        "screen_k3": dict(route="fft" if idft.launches_fft > f0 else "none",
                           max_abs_err=k3_err[0], rel_err=k3_err[1])}
     check(all(e["rel_err"] <= TOL_F32
               for e in record["kernels_vs_plain"].values())
@@ -2660,8 +2668,8 @@ def main():
             (D[0], D[1], corr32.MzRe, corr32.MzIm, bias))
         check(route == "fft", "K2 at L=128 did not launch its FFT kernel")
         k2_routes = {}
-        for key, Lk in (("k2_fft_L64", 64), ("k2_fft_L96", 96),
-                        ("k2_dense_L32", 32)):
+        for key, Lk in (("k2_fft_L32", 32), ("k2_fft_L64", 64),
+                        ("k2_fft_L96", 96)):
             errs[key], k2_routes[key] = k2_random_check(Lk)
         top_k = serve_cfg.top_k
         dv, dflat = invz_topk.drill_topk(D[0], D[1], corr32.MzRe,
@@ -2699,7 +2707,7 @@ def main():
          k2_fft_rel_err=errs["k2_fft"][1],
          k2_fft_L64_rel_err=errs["k2_fft_L64"][1],
          k2_fft_L96_rel_err=errs["k2_fft_L96"][1],
-         k2_dense_L32_rel_err=errs["k2_dense_L32"][1], k2_routes=k2_routes,
+         k2_fft_L32_rel_err=errs["k2_fft_L32"][1], k2_routes=k2_routes,
          drill_topk_rel_err=drill_err[1],
          drill_index_rel_err=drill_idx_err[1],
          k3_max_abs_err=errs["k3"][0], k3_rel_err=errs["k3"][1],
@@ -2715,10 +2723,10 @@ def main():
         want_routes[key] = "tf32" if f32 else "tc"
     check(len(routes) == 16 and routes == want_routes,
           f"K1 routes {routes}, expected {want_routes}")
-    for key in ("k2_fft", "k2_fft_L64", "k2_fft_L96", "k2_dense_L32"):
+    for key in ("k2_fft", "k2_fft_L32", "k2_fft_L64", "k2_fft_L96"):
         check(errs[key][1] <= TOL_F32, f"K2 {key} {errs}")
-    check(k2_routes == {"k2_fft_L64": "fft", "k2_fft_L96": "fft",
-                        "k2_dense_L32": "dense"}, f"K2 routes {k2_routes}")
+    check(k2_routes == {"k2_fft_L32": "fft", "k2_fft_L64": "fft",
+                        "k2_fft_L96": "fft"}, f"K2 routes {k2_routes}")
     for key in ("k3", *K3_RANDOM_CHECKS):
         check(errs[key][1] <= TOL_F32, f"K3 {key} {errs}")
     check(k3_routes == {k: k.split("_")[1] for k in K3_RANDOM_CHECKS},
@@ -2726,31 +2734,52 @@ def main():
     check(drill_err[1] <= 1e-5 and drill_idx_err[1] <= 1e-5,
           f"drill_topk vs exact_block_topk: {drill_err} {drill_idx_err}")
 
-    def both_routes(launch, plain, args):
-        """A kernel's two routes (``launch``: route -> function) on
-        ``args``, timed in turns (dense, FFT, FFT, dense) on the same
-        inputs, then each output held against ``plain``.  Returns (turns,
-        plain ms, {route: (max abs err, rel err)}, plain's output)."""
-        turns = {"dense": [], "fft": []}
-        for route in ("dense", "fft", "fft", "dense"):
-            turns[route].append(cuda_time_ms(lambda: launch[route](*args)))
-        plain_ms = cuda_time_ms(lambda: plain(*args))
+    def timed(launch, plain, args):
+        """A kernel's wrapper ``launch`` and its plain version on
+        ``args``, each timed with its launches queued (``cuda_time_ms``),
+        then the output held against plain.  Returns (ms, plain ms, (max
+        abs err, rel err), plain's output)."""
+        ms = cuda_time_ms(lambda: launch(*args), queued=True)
+        plain_ms = cuda_time_ms(lambda: plain(*args), queued=True)
         want = plain(*args)
-        route_errs = {r: rel_err(launch[r](*args), want) for r in launch}
-        return turns, plain_ms, route_errs, want
+        return ms, plain_ms, rel_err(launch(*args), want), want
 
-    def k2_both_routes(args):
-        """Both K2 kernels on ``args`` (bias ``[G, X, Y, Z]``), as
-        ``both_routes``; returns (turns, plain ms, errors, bound)."""
-        turns, plain_ms, route_errs, _ = both_routes(
-            {"dense": invz_topk._launch_dense, "fft": invz_topk._launch_fft},
-            invz_topk.invz_blockmax_reference, args)
-        # Both routes compute one function; its least work is the FFT's.
+    def k2_timed(args):
+        """K2 on ``args`` (bias ``[G, X, Y, Z]``) as ``timed``, with its
+        bound (D read, the bias read, bmax written; the FFT's work).
+        Returns a record."""
+        ms, plain_ms, err, _ = timed(invz_topk.invz_blockmax,
+                                     invz_topk.invz_blockmax_reference, args)
         Dre, bk = args[0], args[4]
         bb, Lk = Dre.shape[0], args[2].shape[1]
-        return turns, plain_ms, route_errs, bound(
-            (2 * Dre.numel() + bk.numel() + bb * Lk ** 3 // 32) * 4,
-            k2_fft_flops(Lk) * bb * Lk * Lk, "float32")
+        return dict(route=invz_topk.k2_route(Lk), shape=list(Dre.shape),
+                    groups=bk.shape[0], ms=ms, plain_ms=plain_ms,
+                    max_abs_err=err[0], rel_err=err[1], bound=bound(
+                        (2 * Dre.numel() + bk.numel() + bb * Lk ** 3 // 32)
+                        * 4, k2_fft_flops(Lk) * bb * Lk * Lk, "float32"))
+
+    def k3_timed(args):
+        """K3 on ``args`` as ``timed``, beside ``torch.fft.ifft2``, the
+        one PyTorch call that computes its function (never used by the
+        port, only its yardstick), with its bound: E read, S written and
+        the twiddles; one FFT along kx and one along ky per line.
+        Returns a record."""
+        ms, plain_ms, err, want = timed(idft.idft_bc,
+                                        idft.idft_bc_reference, args)
+
+        def library():
+            return torch.fft.ifft2(torch.complex(args[0], args[1]),
+                                   dim=(1, 2)).real
+
+        nvol, Lk = args[0].numel(), args[0].shape[1]
+        return dict(route=idft.k3_route(Lk), shape=list(args[0].shape),
+                    ms=ms, plain_ms=plain_ms, max_abs_err=err[0],
+                    rel_err=err[1],
+                    library_ms=cuda_time_ms(library, queued=True),
+                    library_rel_err=rel_err(library(), want)[1],
+                    bound=bound((3 * nvol + 4 * Lk * Lk) * 4,
+                                2 * (nvol // Lk) * fft_flops(Lk),
+                                "float32"))
 
     # Times at the main path's full chunk: b=128 rotations, bf16.
     with torch.inference_mode():
@@ -2786,140 +2815,38 @@ def main():
                                               layouts=corr16.k1_layouts)))
         k1_g4_ms = sum(k1_turns["G4"]) / 2
         del args16_g4
-        k2_turns, k2_plain_ms, k2_errs, bounds["k2"] = k2_both_routes(
-            (D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias[None]))
-        k2_fft_ms = sum(k2_turns["fft"]) / 2
-        k2_dense_ms = sum(k2_turns["dense"]) / 2
+        k2_at = {128: k2_timed(
+            (D16[0], D16[1], corr16.MzRe, corr16.MzIm, bias[None]))}
         # The 16-head rescore's K2 launch: 48 rows, 16 bias groups.
         g16 = torch.Generator(device=dev).manual_seed(16)
         bias16 = torch.where(torch.rand((16, L, L, L), generator=g16,
                                         device=dev) < 0.6, 0.0, float("-inf"))
-        k2g_turns, k2g_plain_ms, k2g_errs, k2g_bound = k2_both_routes(
+        k2_rescore = k2_timed(
             (D16[0][:48], D16[1][:48], corr16.MzRe, corr16.MzIm, bias16))
         del D16, args16, bias16
-        # Both K3 kernels on the dft_pallas path's chunk.
-        k3_args = k3_inputs(128)
-        k3_turns, k3_plain_ms, k3_errs, k3_want = both_routes(
-            {"dense": idft._launch_dense, "fft": idft._launch_fft},
-            idft.idft_bc_reference, k3_args)
-        k3_fft_ms = sum(k3_turns["fft"]) / 2
-        k3_dense_ms = sum(k3_turns["dense"]) / 2
-
-        # The one PyTorch call that computes K3's function; never used by
-        # the port, only its yardstick.
-        def k3_library():
-            return torch.fft.ifft2(torch.complex(k3_args[0], k3_args[1]),
-                                   dim=(1, 2)).real
-
-        k3_library_ms = cuda_time_ms(k3_library)
-        k3_library_err = rel_err(k3_library(), k3_want)
-        # K3's function as FFTs: one along kx and one along ky per line;
-        # both routes share this bound.
-        nvol = k3_args[0].numel()
-        bounds["k3"] = bound((3 * nvol + 4 * L * L) * 4,
-                             2 * (nvol // L) * fft_flops(L), "float32")
-        del k3_args, k3_want
-
-        # Both K2 and both K3 kernels at L = 96 (grid 96: the rep-score
-        # and train presets; the FFT routes since the radix-3 stage), b =
-        # 128, timed in turns as at L = 128, beside K3's library call.
-        L96, g96 = 96, torch.Generator(device=dev).manual_seed(96)
-        corr96 = get_correlator(L96, 16, "float32", dev)
-        d96 = [torch.randn((128, L96 // 2 + 1, L96, L96), generator=g96,
-                           device=dev) for _ in range(2)]
-        bias96 = torch.where(torch.rand((1, L96, L96, L96), generator=g96,
-                                        device=dev) < 0.6, 0.0, float("-inf"))
-        at96 = {"k2": dict(zip(("turns", "plain_ms", "errs", "bound"),
-                               k2_both_routes((d96[0], d96[1], corr96.MzRe,
-                                               corr96.MzIm, bias96))),
-                           route=invz_topk.k2_route(L96))}
-        del d96, bias96
-        e96 = [torch.randn((128, L96, L96, L96), generator=g96, device=dev)
-               for _ in range(2)]
-        k3a = (*e96, corr96.UxRe32, corr96.UxIm32, corr96.UxRe32,
-               corr96.UxIm32)
-        turns96, plain96, errs96, k3_want96 = both_routes(
-            {"dense": idft._launch_dense, "fft": idft._launch_fft},
-            idft.idft_bc_reference, k3a)
-
-        def k3_library96():
-            return torch.fft.ifft2(torch.complex(e96[0], e96[1]),
-                                   dim=(1, 2)).real
-
-        at96["k3"] = dict(
-            turns=turns96, plain_ms=plain96, errs=errs96,
-            route=idft.k3_route(L96), library_ms=cuda_time_ms(k3_library96),
-            library_rel_err=rel_err(k3_library96(), k3_want96)[1],
-            bound=bound((3 * e96[0].numel() + 4 * L96 * L96) * 4,
-                        2 * (e96[0].numel() // L96) * fft_flops(L96),
-                        "float32"))
-        del e96, k3a, k3_want96
-        for rec in at96.values():
-            rec["ms"] = {r: sum(v) / 2 for r, v in rec["turns"].items()}
-
-        # The dense K2 at the L it still serves, b = 128: L = 32 (the
-        # other L % 32 == 0 up to 128); its bound counts its c2r as half a
-        # complex FFT per column, plus the bias add and the max.
-        g32 = torch.Generator(device=dev).manual_seed(32)
-        c32 = get_correlator(32, 16, "float32", dev)
-        d32 = [torch.randn((128, 17, 32, 32), generator=g32, device=dev)
-               for _ in range(2)]
-        b32 = torch.where(torch.rand((1, 32, 32, 32), generator=g32,
-                                     device=dev) < 0.6, 0.0, float("-inf"))
-        k2a = (d32[0], d32[1], c32.MzRe, c32.MzIm, b32)
-        err = rel_err(invz_topk.invz_blockmax(*k2a),
-                      invz_topk.invz_blockmax_reference(*k2a))
-        dense_at = {"k2_L32": dict(
-            route=invz_topk.k2_route(32), shape=list(d32[0].shape),
-            ms=cuda_time_ms(lambda: invz_topk.invz_blockmax(*k2a)),
-            plain_ms=cuda_time_ms(
-                lambda: invz_topk.invz_blockmax_reference(*k2a)),
-            max_abs_err=err[0], rel_err=err[1],
-            bound=bound((2 * d32[0].numel() + b32.numel()
-                         + 128 * 32 ** 3 // 32) * 4,
-                        128 * 32 * 32 * (fft_flops(32) / 2 + 3 * 32),
-                        "float32"))}
-        del d32, b32, k2a
-        # K3 at b = 128: its dense kernel at the L it still serves (16,
-        # 32), and its FFT kernel at 48, 80 and 112 (the last z run half
-        # full) timed in turns against the dense kernel launched directly,
-        # as at L = 96; each beside ifft2 and its bound.
-        k3_at = {}
-        for Lk in (16, 32, 48, 80, 112):
+        # K3 on the dft_pallas path's chunk.
+        k3_at = {128: k3_timed(k3_inputs(128))}
+        # K2 at L = 32 and 96 and K3 at L = 16 (one pass), 32, 48, 80, 96
+        # and 112 (the last z run half full at 48, 80, 112), b = 128, on
+        # random inputs: every other L that each kernel takes.
+        for Lk in (32, 96, 16, 48, 80, 112):
+            gk = torch.Generator(device=dev).manual_seed(Lk)
             ck = get_correlator(Lk, 16, "float32", dev)
-            ek = [torch.randn((128, Lk, Lk, Lk), generator=g32, device=dev)
+            if Lk % 32 == 0:
+                dk = [torch.randn((128, Lk // 2 + 1, Lk, Lk), generator=gk,
+                                  device=dev) for _ in range(2)]
+                bk = torch.where(torch.rand((1, Lk, Lk, Lk), generator=gk,
+                                            device=dev) < 0.6, 0.0,
+                                 float("-inf"))
+                k2_at[Lk] = k2_timed((*dk, ck.MzRe, ck.MzIm, bk))
+                del dk, bk
+            ek = [torch.randn((128, Lk, Lk, Lk), generator=gk, device=dev)
                   for _ in range(2)]
-            k3a = (*ek, ck.UxRe32, ck.UxIm32, ck.UxRe32, ck.UxIm32)
-
-            def k3_library_at():
-                return torch.fft.ifft2(torch.complex(ek[0], ek[1]),
-                                       dim=(1, 2)).real
-
-            rec = dict(route=idft.k3_route(Lk), shape=list(ek[0].shape),
-                       bound=bound((3 * ek[0].numel() + 4 * Lk * Lk) * 4,
-                                   2 * (ek[0].numel() // Lk)
-                                   * fft_flops(Lk), "float32"))
-            if rec["route"] == "fft":
-                turns_k, plain_k, errs_k, want = both_routes(
-                    {"dense": idft._launch_dense, "fft": idft._launch_fft},
-                    idft.idft_bc_reference, k3a)
-                rec.update(turns=turns_k,
-                           ms={r: sum(v) / 2 for r, v in turns_k.items()},
-                           plain_ms=plain_k,
-                           max_abs_err={r: e[0] for r, e in errs_k.items()},
-                           rel_err={r: e[1] for r, e in errs_k.items()})
-            else:
-                want = idft.idft_bc_reference(*k3a)
-                err = rel_err(idft.idft_bc(*k3a), want)
-                rec.update(ms=cuda_time_ms(lambda: idft.idft_bc(*k3a)),
-                           plain_ms=cuda_time_ms(
-                               lambda: idft.idft_bc_reference(*k3a)),
-                           max_abs_err=err[0], rel_err=err[1])
-            rec.update(library_ms=cuda_time_ms(k3_library_at),
-                       library_rel_err=rel_err(k3_library_at(), want)[1])
-            k3_at[Lk] = rec
-            del ek, k3a, want
+            k3_at[Lk] = k3_timed(
+                (*ek, ck.UxRe32, ck.UxIm32, ck.UxRe32, ck.UxIm32))
+            del ek
             torch.cuda.empty_cache()
+        bounds["k2"], bounds["k3"] = k2_at[128]["bound"], k3_at[128]["bound"]
 
         def k1_routes(corr, args, reps=5, route="tf32"):
             """K1's tensor-core ``route`` (with ``corr``'s kept twiddle
@@ -3018,14 +2945,9 @@ def main():
          k1_plain_ms=k1_plain_ms,
          k1_groups=dict(G=4, turns=k1_turns, ms=k1_g4_ms, route=k1g_route,
                         max_abs_err=k1g_err[0], rel_err=k1g_err[1]),
-         k2_fft_ms=k2_fft_ms, k2_dense_ms=k2_dense_ms, k2_turns=k2_turns,
-         k2_plain_ms=k2_plain_ms, k2_dtype="float32",
-         k2_rel_err={r: e[1] for r, e in k2_errs.items()},
-         k2_rescore=dict(batch=48, groups=16, turns=k2g_turns,
-                         plain_ms=k2g_plain_ms, bound=k2g_bound,
-                         rel_err={r: e[1] for r, e in k2g_errs.items()}),
-         k1_above_box64=k1_big, k1_L120=k1_l120, at_L96=at96,
-         k2_dense_routes=dense_at, k3_at={str(k): v for k, v in k3_at.items()},
+         k2_dtype="float32", k2_at={str(k): v for k, v in k2_at.items()},
+         k2_rescore=k2_rescore, k1_above_box64=k1_big, k1_L120=k1_l120,
+         k3_at={str(k): v for k, v in k3_at.items()},
          k1_float32=dict(turns=k1_f32_turns, ms=k1_f32_ms,
                          plain_ms=k1_f32_plain_ms,
                          rel_err={r: e[1] for r, e in k1_f32_errs.items()},
@@ -3034,19 +2956,16 @@ def main():
          k1_float32_v9p_config=dict(
              {k: v for k, v in k1_v9p.items() if k != "errs"},
              rel_err={r: e[1] for r, e in k1_v9p["errs"].items()}),
-         k3_fft_ms=k3_fft_ms, k3_dense_ms=k3_dense_ms, k3_turns=k3_turns,
-         k3_rel_err={r: e[1] for r, e in k3_errs.items()},
-         k3_plain_ms=k3_plain_ms, k3_library_ms=k3_library_ms,
-         k3_library_rel_err=k3_library_err[1], k3_dtype="float32",
+         k3_dtype="float32",
          k3_library="torch.fft.ifft2(torch.complex(Ere, Eim), "
                     "dim=(1, 2)).real",
          bounds=bounds, peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
                                "flops_per_s": PEAK_FLOPS},
          timer="cuda events, mean of 5 after 1 warm-up (3 for K1 above "
-               "box 64 and at L = 120, 20 for K1 at the v9p config)",
+               "box 64 and at L = 120, 20 for K1 at the v9p config; K2, "
+               "K3, their plain versions and ifft2 queued behind a device "
+               "sleep)",
          card=card)
-    check(k3_library_err[1] <= TOL_F32,
-          f"torch.fft.ifft2 is not K3's function: {k3_library_err}")
     check(k1g_route == "tc" and k1g_err[1] <= TOL_BF16,
           f"K1 with 4 receptor groups at b=128: {k1g_route} {k1g_err}")
     for shape, route_errs in (("b=128", k1_f32_errs),
@@ -3057,36 +2976,20 @@ def main():
         tol = TOL_BF16 if key.startswith("tc") else TOL_F32
         for route, e in rec["rel_err"].items():
             check(e <= tol, f"K1 {route} at b=128, {key}: {e}")
-    for key, rec in at96.items():
-        check(rec["route"] == "fft"
-              and all(e[1] <= TOL_F32 for e in rec["errs"].values())
-              and rec.get("library_rel_err", 0.0) <= TOL_F32,
-              f"{key} at L=96, b=128: {rec}")
-    check(at96["k2"]["ms"]["fft"] < at96["k2"]["ms"]["dense"],
-          f"the FFT K2 at L=96 is not faster than the dense one: {at96}")
-    check(at96["k3"]["ms"]["fft"] < at96["k3"]["library_ms"],
-          f"the FFT K3 at L=96 is not faster than ifft2: {at96}")
-    for key, rec in dense_at.items():
-        check(rec["route"] == "dense" and rec["rel_err"] <= TOL_F32,
-              f"dense {key}, b=128: {rec}")
+    for Lk, rec in k2_at.items():
+        check(rec["route"] == "fft" and rec["rel_err"] <= TOL_F32,
+              f"K2 at L={Lk}, b=128: {rec}")
+    check(k2_rescore["rel_err"] <= TOL_F32,
+          f"K2 at b=48, G=16: {k2_rescore}")
     for Lk, rec in k3_at.items():
-        errs_k = (rec["rel_err"].values() if rec["route"] == "fft"
-                  else [rec["rel_err"]])
-        check(rec["route"] == ("fft" if Lk in idft.FFT_GRIDS else "dense")
-              and all(e <= TOL_F32 for e in errs_k)
+        check(rec["route"] == "fft" and rec["rel_err"] <= TOL_F32
               and rec["library_rel_err"] <= TOL_F32,
               f"K3 at L={Lk}, b=128: {rec}")
-    for Lk in (80, 112):
-        check(k3_at[Lk]["ms"]["fft"] < k3_at[Lk]["library_ms"],
-              f"the FFT K3 at L={Lk} is not faster than ifft2: {k3_at[Lk]}")
+        check(rec["ms"] < rec["library_ms"],
+              f"K3 at L={Lk} is not faster than ifft2: {rec}")
     for route, rec in k1_l120.items():
         check(rec["rel_err"] <= (TOL_BF16 if route == "tc" else TOL_F32),
               f"K1 {route} at L=120, b=128: {rec}")
-    for shape, route_errs in (("b=128", k2_errs), ("b=48, G=16", k2g_errs)):
-        for route, e in route_errs.items():
-            check(e[1] <= TOL_F32, f"K2 {route} at {shape}: {e}")
-    for route, e in k3_errs.items():
-        check(e[1] <= TOL_F32, f"K3 {route} at b=128: {e}")
 
     # ---- phase 3: the slice serves three dock requests ----
     emit("serve_config", rotations_per_request=N_ROT_SERVE,
@@ -3210,24 +3113,21 @@ def main():
         return rec
 
     # Float32 requests at grid 96 (the rep-score and train presets' grid
-    # and dtype), where K2 runs its FFT kernel, and at grid 32, where it
-    # runs its dense one; each also on the CPU.
+    # and dtype) and at grid 32 (the smallest grid the fused top-K tail
+    # takes), every K2 launch on its FFT kernel; each also on the CPU.
     small_cfg = serve_cfg.replace(num_rotations=N_ROT_SMALL_GRID,
                                   rotation_chunk=SMALL_GRID_CHUNK,
                                   compute_dtype="float32",
                                   dft_dtype="float32")
-    fft_path = grid_request("dock_request_grid96",
-                            small_cfg.replace(grid_size=96))
-    check(fft_path["k2_launches"] > 0
-          and fft_path["k2_fft_launches"] == fft_path["k2_launches"]
-          and fft_path["k2_first_launch"]["route"] == "fft",
-          f"grid-96 request: a K2 launch missed the FFT kernel {fft_path}")
-    dense_path = grid_request("dock_request_grid32",
-                              small_cfg.replace(grid_size=32))
-    check(dense_path["k2_launches"] > 0
-          and dense_path["k2_fft_launches"] == 0
-          and dense_path["k2_first_launch"]["route"] == "dense",
-          f"grid-32 request: K2 did not run its dense kernel {dense_path}")
+    k2_grid_requests = {}
+    for Lk in (96, 32):
+        rec = grid_request(f"dock_request_grid{Lk}",
+                           small_cfg.replace(grid_size=Lk))
+        check(rec["k2_launches"] > 0
+              and rec["k2_fft_launches"] == rec["k2_launches"]
+              and rec["k2_first_launch"]["route"] == "fft",
+              f"grid-{Lk} request: a K2 launch missed the FFT kernel {rec}")
+        k2_grid_requests[Lk] = rec
 
     # One request at grid 120, not a multiple of 16, where K1 pads L to
     # 128 on the tensor cores (and the top-K runs without K2:
@@ -3551,11 +3451,11 @@ def main():
           f"a grid-128 K3 launch missed the FFT kernel: {screen_launches} "
           f"launches, {screen_fft_launches} FFT")
 
-    # Float32 dft_pallas docks at grids 96, 80 and 112, where K3 runs its
-    # FFT kernel (a half-full last z run at 80 and 112), and at grid 32,
-    # where it runs its dense one; each also on the CPU.
+    # Float32 dft_pallas docks at grids 96, 80, 112 and 32 (a half-full
+    # last z run at 80 and 112), every K3 launch on its FFT kernel; each
+    # also on the CPU.
     k3_fft_docks = {}
-    for Lk in (96, 80, 112):
+    for Lk in (96, 80, 112, 32):
         rec = grid_request(f"screen_dock_grid{Lk}", small_cfg.replace(
             fft_impl="dft_pallas", grid_size=Lk))
         check(rec["k3_launches"] > 0
@@ -3564,13 +3464,6 @@ def main():
               f"grid-{Lk} dft_pallas dock: a K3 launch missed the FFT "
               f"kernel {rec}")
         k3_fft_docks[Lk] = rec
-    k3_dense_path = grid_request("screen_dock_grid32", small_cfg.replace(
-        fft_impl="dft_pallas", grid_size=32))
-    check(k3_dense_path["k3_launches"] > 0
-          and k3_dense_path["k3_fft_launches"] == 0
-          and k3_dense_path["k3_first_launch"]["route"] == "dense",
-          f"grid-32 dft_pallas dock: K3 did not run its dense kernel "
-          f"{k3_dense_path}")
 
     # One rescore on the main-path dft_fused engine: K2 takes the 16 head
     # masks as bias groups.
@@ -3847,53 +3740,29 @@ def main():
              c: p12_err(f"{c}_k2") for c in p12["docks"]},
          "max_abs_err_cli_full_depth_v9p_first_launch":
              clir["kernels_vs_plain"]["dock_v9p_k2"]["max_abs_err"],
-         "launches_grid96_request": fft_path["k2_fft_launches"],
-         "max_abs_err_grid96_first_launch":
-             fft_path["k2_first_launch"]["max_abs_err"],
+         **{f"launches_grid{Lk}_request": rec["k2_fft_launches"]
+            for Lk, rec in k2_grid_requests.items()},
+         **{f"max_abs_err_grid{Lk}_first_launch":
+            rec["k2_first_launch"]["max_abs_err"]
+            for Lk, rec in k2_grid_requests.items()},
          "max_abs_err": errs["k2_fft"][0],
-         "max_abs_err_L64": errs["k2_fft_L64"][0],
-         "max_abs_err_L96": errs["k2_fft_L96"][0],
-         "max_abs_err_b128": k2_errs["fft"][0],
+         **{f"max_abs_err_L{Lk}": errs[f"k2_fft_L{Lk}"][0]
+            for Lk in (32, 64, 96)},
+         "max_abs_err_b128": k2_at[128]["max_abs_err"],
          "max_abs_err_band100": band_errs("k2"),
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k2_fft_ms, "plain_ms": k2_plain_ms,
-         "at_L96": {"ms": at96["k2"]["ms"]["fft"],
-                    "ms_dense": at96["k2"]["ms"]["dense"],
-                    "turns": at96["k2"]["turns"],
-                    "plain_ms": at96["k2"]["plain_ms"],
-                    "max_abs_err": at96["k2"]["errs"]["fft"][0],
-                    "bound_ms": at96["k2"]["bound"]["bound_ms"]},
+         "ms": k2_at[128]["ms"], "plain_ms": k2_at[128]["plain_ms"],
+         **{f"at_L{Lk}": {k: (v["bound_ms"] if k == "bound" else v)
+                          for k, v in k2_at[Lk].items()
+                          if k in ("ms", "plain_ms", "max_abs_err",
+                                   "bound")}
+            for Lk in (32, 96)},
+         "rescore_b48_G16": {k: (v["bound_ms"] if k == "bound" else v)
+                             for k, v in k2_rescore.items()
+                             if k in ("ms", "plain_ms", "max_abs_err",
+                                      "bound")},
          "bound_ms": bounds["k2"]["bound_ms"],
          "bound_by": bounds["k2"]["bound_by"], "library_ms": None},
-        {"name": "invz_blockmax", "route": "cuda",
-         "source": src + "invz_blockmax.cu",
-         "replaces": tpu + "pallas_invz_topk.py:54",
-         "launches": dense_path["k2_launches"],
-         "launches_path": "one float32 dock request at grid 32 (K2's "
-                          "dense route)",
-         "launches_band100": band_count("k2") - band_count("k2_fft"),
-         "launches_train": train_launches["k2"] - train_launches["k2_fft"],
-         "launches_phase11": p11_count("k2", topk_approx=p11_approx["k2"]),
-         "max_abs_err": errs["k2_dense_L32"][0],
-         "max_abs_err_first_launch":
-             dense_path["k2_first_launch"]["max_abs_err"],
-         "max_abs_err_b128_L32": dense_at["k2_L32"]["max_abs_err"],
-         "max_abs_err_b128_L96": at96["k2"]["errs"]["dense"][0],
-         "max_abs_err_b128_L128": k2_errs["dense"][0],
-         "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "shape": dense_at["k2_L32"]["shape"], "L": 32,
-         "ms": dense_at["k2_L32"]["ms"],
-         "plain_ms": dense_at["k2_L32"]["plain_ms"],
-         "at_L96": {"ms": at96["k2"]["ms"]["dense"],
-                    "ms_fft": at96["k2"]["ms"]["fft"],
-                    "plain_ms": at96["k2"]["plain_ms"],
-                    "bound_ms": at96["k2"]["bound"]["bound_ms"]},
-         "at_L128": {"ms": k2_dense_ms, "ms_fft": k2_fft_ms,
-                     "plain_ms": k2_plain_ms,
-                     "bound_ms": bounds["k2"]["bound_ms"]},
-         "bound_ms": dense_at["k2_L32"]["bound"]["bound_ms"],
-         "bound_by": dense_at["k2_L32"]["bound"]["bound_by"],
-         "library_ms": None},
         {"name": "idft_fft", "route": "cuda",
          "source": src + "idft_fft.cu",
          "replaces": tpu + "pallas_idft.py:34",
@@ -3911,69 +3780,18 @@ def main():
              for Lk, rec in k3_fft_docks.items()},
          "max_abs_err": errs["k3"][0],
          "max_abs_err_b8": {k.split("_")[-1]: errs[k][0]
-                            for k in K3_RANDOM_CHECKS if "_fft_" in k},
-         "max_abs_err_b128": k3_errs["fft"][0],
+                            for k in K3_RANDOM_CHECKS},
+         "max_abs_err_b128": k3_at[128]["max_abs_err"],
          "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "ms": k3_fft_ms, "plain_ms": k3_plain_ms,
-         "at_L96": {"ms": at96["k3"]["ms"]["fft"],
-                    "ms_dense": at96["k3"]["ms"]["dense"],
-                    "turns": at96["k3"]["turns"],
-                    "plain_ms": at96["k3"]["plain_ms"],
-                    "library_ms": at96["k3"]["library_ms"],
-                    "max_abs_err": at96["k3"]["errs"]["fft"][0],
-                    "bound_ms": at96["k3"]["bound"]["bound_ms"]},
-         **{f"at_L{Lk}": {"ms": k3_at[Lk]["ms"]["fft"],
-                          "ms_dense": k3_at[Lk]["ms"]["dense"],
-                          "turns": k3_at[Lk]["turns"],
-                          "plain_ms": k3_at[Lk]["plain_ms"],
-                          "library_ms": k3_at[Lk]["library_ms"],
-                          "max_abs_err": k3_at[Lk]["max_abs_err"]["fft"],
-                          "bound_ms": k3_at[Lk]["bound"]["bound_ms"]}
-            for Lk in (48, 80, 112)},
+         "ms": k3_at[128]["ms"], "plain_ms": k3_at[128]["plain_ms"],
+         **{f"at_L{Lk}": {k: (v["bound_ms"] if k == "bound" else v)
+                          for k, v in k3_at[Lk].items()
+                          if k in ("ms", "plain_ms", "library_ms",
+                                   "max_abs_err", "bound")}
+            for Lk in (16, 32, 48, 80, 96, 112)},
          "bound_ms": bounds["k3"]["bound_ms"],
          "bound_by": bounds["k3"]["bound_by"],
-         "library_ms": k3_library_ms},
-        {"name": "idft_bc", "route": "cuda",
-         "source": src + "idft_bc.cu",
-         "replaces": tpu + "pallas_idft.py:34",
-         "launches": k3_dense_path["k3_launches"],
-         "launches_path": "one float32 dft_pallas dock at grid 32 (K3's "
-                          "dense route)",
-         "launches_band100": band_count("k3") - band_count("k3_fft"),
-         "launches_phase11": p11_count("k3"),
-         "max_abs_err": errs["k3_dense_L32"][0],
-         "max_abs_err_L16_b8": errs["k3_dense_L16"][0],
-         "max_abs_err_first_launch":
-             k3_dense_path["k3_first_launch"]["max_abs_err"],
-         "max_abs_err_b128_L32": k3_at[32]["max_abs_err"],
-         "max_abs_err_b128_L96": at96["k3"]["errs"]["dense"][0],
-         "max_abs_err_b128_L128": k3_errs["dense"][0],
-         "tolerance": f"float32 {TOL_F32} x max|plain|",
-         "shape": k3_at[32]["shape"], "L": 32,
-         "ms": k3_at[32]["ms"],
-         "plain_ms": k3_at[32]["plain_ms"],
-         "at_L16": {k: (v["bound_ms"] if k == "bound" else v)
-                    for k, v in k3_at[16].items()
-                    if k in ("ms", "plain_ms", "library_ms", "bound",
-                             "max_abs_err")},
-         **{f"at_L{Lk}": {"ms": k3_at[Lk]["ms"]["dense"],
-                          "ms_fft": k3_at[Lk]["ms"]["fft"],
-                          "plain_ms": k3_at[Lk]["plain_ms"],
-                          "library_ms": k3_at[Lk]["library_ms"],
-                          "bound_ms": k3_at[Lk]["bound"]["bound_ms"]}
-            for Lk in (48, 80, 112)},
-         "at_L96": {"ms": at96["k3"]["ms"]["dense"],
-                    "ms_fft": at96["k3"]["ms"]["fft"],
-                    "plain_ms": at96["k3"]["plain_ms"],
-                    "library_ms": at96["k3"]["library_ms"],
-                    "bound_ms": at96["k3"]["bound"]["bound_ms"]},
-         "at_L128": {"ms": k3_dense_ms, "ms_fft": k3_fft_ms,
-                     "plain_ms": k3_plain_ms,
-                     "library_ms": k3_library_ms,
-                     "bound_ms": bounds["k3"]["bound_ms"]},
-         "bound_ms": k3_at[32]["bound"]["bound_ms"],
-         "bound_by": k3_at[32]["bound"]["bound_by"],
-         "library_ms": k3_at[32]["library_ms"]}]}), flush=True)
+         "library_ms": k3_at[128]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -548,15 +548,22 @@ def _routes(cfg, device_type: str) -> dict:
               f"{fused.k1_route(dt, 16, 16, L, L, L, L)} for every box")
     else:
         k1 = fused.k1_route(dt, ls, ls, L, L, L, L)
+    if engine != "dft_fused":
+        k2 = "not launched"
+    elif L in invz_topk.FFT_GRIDS:
+        k2 = invz_topk.k2_route(L)
+    else:
+        k2 = "not launched (the fused top-K tail needs L % 32 == 0)"
+    k3 = (idft.k3_route(L) if L in idft.FFT_GRIDS
+          else "none (dft_pallas takes L % 16 == 0 up to 128)")
+    if engine != "dft_pallas":
+        k3 += " (launched by dft_pallas only)"
     return dict(grid=L, lig_grid=ls, dtype=cfg.dft_dtype,
                 sweep_mode=cfg.sweep_mode, engine=engine, fft_block=None,
                 fused_topk=fused_topk_engaged(
                     None, engine, cfg.topk_impl, L, torch.device(device_type)),
                 k1=k1 if engine == "dft_fused" else "not launched",
-                k2=(invz_topk.k2_route(L) if engine == "dft_fused"
-                    else "not launched"),
-                k3=idft.k3_route(L) if engine == "dft_pallas"
-                else f"{idft.k3_route(L)} (launched by dft_pallas only)")
+                k2=k2, k3=k3)
 
 
 def _say(tag: str, msg: str):

@@ -11,24 +11,17 @@ Port of ``deeplocalproteindocking_tpu/correlate/pallas_idft.py``
 all complex products as four real float32 contractions, with float32
 twiddles whatever the correlator's operand dtype, as the TPU kernel
 takes them.  :func:`idft_bc` runs the plain version
-:func:`idft_bc_reference` for CPU tensors and launches one of two
-hand-written CUDA kernels for CUDA tensors, chosen by :func:`k3_route`
-from the grid size L alone:
-
-- ``"fft"`` (``csrc/idft_fft.cu``), L = 48, 64, 80, 96, 112 or 128 --
-  the screening path, grid 96's presets and every other grid of 48 and
-  up: ``Ux`` and ``Uy`` are the inverse DFT matrix
-  (:func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft`), so
-  the kernel computes passes B and C as a complex FFT along ky and a c2r
-  along kx and never reads them; the wrapper checks once per tensor that
-  they are that matrix.  At 48, 80 and 112 the last 32-wide z run is
-  half full and masked.
-- ``"dense"`` (``csrc/idft_bc.cu``), the other L that the engine takes
-  (a multiple of 16 up to 128: 16 and 32): the two contractions as
-  float32 FMA loops.
-
-A CUDA tensor never falls back: the routed kernel launches or the call
-raises.
+:func:`idft_bc_reference` for CPU tensors and launches the hand-written
+CUDA kernel ``csrc/idft_fft.cu`` for CUDA tensors at L in ``FFT_GRIDS``
+(16, 32, 48, 64, 80, 96, 112, 128: every grid the engine takes, a
+multiple of 16 up to 128).  ``Ux`` and ``Uy`` are the inverse DFT matrix
+(:func:`~deeplocalproteindocking_torch.correlate.dft.inverse_dft`), so
+the kernel computes passes B and C as a complex FFT along ky and a c2r
+along kx (at L = 16 one pass per rotation, both inverses in shared
+memory) and never reads them; the wrapper checks once per tensor that
+they are that matrix.  At 48, 80 and 112 the last 32-wide z run is half
+full and masked.  A CUDA tensor never falls back: the kernel launches
+or the call raises.
 """
 from __future__ import annotations
 
@@ -40,11 +33,11 @@ from deeplocalproteindocking_torch.correlate._contract import cmm, mm
 
 TX = 8          # x rows per block (the TPU kernel's TX)
 KYB = 16        # ky block (the TPU kernel's KYB)
-_MAX_L = 128
-FFT_GRIDS = (48, 64, 80, 96, 112, 128)
+FFT_GRIDS = (16, 32, 48, 64, 80, 96, 112, 128)
 
-# Kernel launches since the last reset (the main path's proof of use):
-# every K3 launch, and those of the FFT kernel alone.
+# Kernel launches since the last reset (the main path's proof of use).
+# K3 has one kernel, so both count every launch; ``launches_fft`` is the
+# name that chip_smoke.py's records and measure_scaling read.
 launches = 0
 launches_fft = 0
 
@@ -75,9 +68,13 @@ def idft_bc_reference(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
 
 
 def k3_route(L: int) -> str:
-    """``"fft"`` or ``"dense"``: the kernel K3 launches for CUDA tensors
-    at grid size ``L``."""
-    return "fft" if L in FFT_GRIDS else "dense"
+    """``"fft"``: the kernel K3 launches for CUDA tensors at grid size
+    ``L``.  Raises ``ValueError`` for L outside ``FFT_GRIDS``, which the
+    engine refuses too."""
+    if L not in FFT_GRIDS:
+        raise ValueError(f"idft_bc: no kernel for L={L}; the FFT kernel "
+                         f"takes L in {FFT_GRIDS}")
+    return "fft"
 
 
 def require_idft(UxRe, UxIm, UyRe, UyIm) -> None:
@@ -98,31 +95,14 @@ def require_idft(UxRe, UxIm, UyRe, UyIm) -> None:
                             want[part])
 
 
-def _launch_dense(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
-    """``csrc/idft_bc.cu`` on checked tensors."""
-    global launches
-    B, L = Ere.shape[0], Ere.shape[1]
-    S = torch.empty((B, L, L, L), dtype=torch.float32, device=Ere.device)
-    with torch.cuda.device(Ere.device):
-        err = _build.library().dlpd_idft_bc(
-            Ere.data_ptr(), Eim.data_ptr(), UxRe.data_ptr(), UxIm.data_ptr(),
-            UyRe.data_ptr(), UyIm.data_ptr(), S.data_ptr(), B, L,
-            _build.stream(Ere))
-    _build.check(err, "idft_bc")
-    launches += 1
-    return S
-
-
 def _launch_fft(Ere, Eim, UxRe, UxIm, UyRe, UyIm):
     """``csrc/idft_fft.cu`` on checked tensors; ``Ux``/``Uy`` must be
     the inverse DFT matrix (they are not read).  The kernel's scratch,
     the folded half spectrum ``h (re, im) [B, L/2+1, L, L]``, is
-    allocated here."""
+    allocated here (L = 16 runs in one pass and leaves it unused)."""
     global launches, launches_fft
     B, L = Ere.shape[0], Ere.shape[1]
-    if L not in FFT_GRIDS:
-        raise ValueError(f"idft_bc: the FFT kernel takes L in {FFT_GRIDS}, "
-                         f"got L={L}")
+    k3_route(L)
     if Ere.data_ptr() % 16 or Eim.data_ptr() % 16:
         raise ValueError("idft_bc: the FFT kernel needs E 16-byte aligned")
     require_idft(UxRe, UxIm, UyRe, UyIm)
@@ -151,15 +131,12 @@ def idft_bc(Ere: torch.Tensor, Eim: torch.Tensor, UxRe: torch.Tensor,
         return idft_bc_reference(Ere, Eim, UxRe, UxIm, UyRe, UyIm)
     if Ere.device.type != "cuda":
         raise ValueError(f"idft_bc: no kernel for device {Ere.device}")
-    if L > _MAX_L:
-        raise ValueError(f"idft_bc: kernel takes L <= {_MAX_L}, got {L}")
     vol, tw = (B, L, L, L), (L, L)
     _build.check_tensors(
         "idft_bc", Ere.device, torch.float32,
         (("Ere", Ere, vol), ("Eim", Eim, vol), ("UxRe", UxRe, tw),
          ("UxIm", UxIm, tw), ("UyRe", UyRe, tw), ("UyIm", UyIm, tw)))
-    launch = _launch_fft if k3_route(L) == "fft" else _launch_dense
-    return launch(Ere, Eim, UxRe, UxIm, UyRe, UyIm)
+    return _launch_fft(Ere, Eim, UxRe, UxIm, UyRe, UyIm)
 
 
 def _inverse(passes_bc, gre, gim, UxRe, UxIm, UyRe, UyIm, MzRe, MzIm):

@@ -14,21 +14,15 @@ blocks is beaten by at least K block maxima.  Flat indices follow the
 full volume's ``x*L^2 + y*L + z`` convention.
 
 :func:`invz_blockmax` runs the plain version
-:func:`invz_blockmax_reference` for CPU tensors and launches one of two
-hand-written CUDA kernels for CUDA tensors, chosen by :func:`k2_route`
-from the grid size L = Z alone:
-
-- ``"fft"`` (``csrc/invz_blockmax_fft.cu``), L = 64, 96 or 128 -- the
-  main path and grid 96's presets: ``Mz`` is the c2r inverse along kz
-  (:func:`~deeplocalproteindocking_torch.correlate.dft.hermitian_inverse_z`),
-  so the kernel computes it as a real FFT and never reads ``Mz``; the
-  wrapper checks once per tensor that ``Mz`` is that matrix.
-- ``"dense"`` (``csrc/invz_blockmax.cu``), every other L (the fused
-  top-K tail, which needs L % 32 == 0, reaches it at L = 32): the
-  contraction as float32 FMA loops.
-
-A CUDA tensor never falls back: the routed kernel launches or the call
-raises.
+:func:`invz_blockmax_reference` for CPU tensors and launches the
+hand-written CUDA kernel ``csrc/invz_blockmax_fft.cu`` for CUDA tensors
+at L = Z in ``FFT_GRIDS`` (32, 64, 96, 128: every L % 32 == 0 that K1
+takes, so every L the fused top-K tail reaches).  ``Mz`` is the c2r
+inverse along kz
+(:func:`~deeplocalproteindocking_torch.correlate.dft.hermitian_inverse_z`),
+so the kernel computes it as a real FFT and never reads ``Mz``; the
+wrapper checks once per tensor that ``Mz`` is that matrix.  A CUDA
+tensor never falls back: the kernel launches or the call raises.
 """
 from __future__ import annotations
 
@@ -42,10 +36,11 @@ from deeplocalproteindocking_torch.correlate.dft import hermitian_inverse_z
 from deeplocalproteindocking_torch.sweep.topk import exact_block_topk
 
 YB = 32         # block width along y
-FFT_GRIDS = (64, 96, 128)
+FFT_GRIDS = (32, 64, 96, 128)
 
-# Kernel launches since the last reset (the main path's proof of use):
-# every K2 launch, and those of the FFT kernel alone.
+# Kernel launches since the last reset (the main path's proof of use).
+# K2 has one kernel, so both count every launch; ``launches_fft`` is the
+# name that chip_smoke.py's records and measure_scaling read.
 launches = 0
 launches_fft = 0
 
@@ -78,9 +73,14 @@ def invz_blockmax_reference(Dre, Dim, MzRe, MzIm, bias):
 
 
 def k2_route(L: int) -> str:
-    """``"fft"`` or ``"dense"``: the kernel K2 launches for CUDA tensors
-    at grid size ``L`` (``Mz [L//2+1, L]``)."""
-    return "fft" if L in FFT_GRIDS else "dense"
+    """``"fft"``: the kernel K2 launches for CUDA tensors at grid size
+    ``L`` (``Mz [L//2+1, L]``).  Raises ``ValueError`` for L outside
+    ``FFT_GRIDS``: no kernel takes those, and no path reaches them (K1
+    refuses L > 128, the fused tail needs L % 32 == 0)."""
+    if L not in FFT_GRIDS:
+        raise ValueError(f"invz_blockmax: no kernel for L={L}; the FFT "
+                         f"kernel takes L in {FFT_GRIDS}")
+    return "fft"
 
 
 def require_c2r(MzRe: torch.Tensor, MzIm: torch.Tensor) -> None:
@@ -95,35 +95,16 @@ def require_c2r(MzRe: torch.Tensor, MzIm: torch.Tensor) -> None:
                             part, want)
 
 
-def _launch_dense(Dre, Dim, MzRe, MzIm, bias):
-    """``csrc/invz_blockmax.cu`` on checked tensors, ``bias [G, X, Y,
-    Z]``."""
-    global launches
-    b, K, X, Y = Dre.shape
-    Z, G = MzRe.shape[1], bias.shape[0]
-    if Z > 1024:
-        raise ValueError(f"invz_blockmax: kernel takes Z <= 1024, got {Z}")
-    out = torch.empty((b, X, Y // YB, Z), dtype=torch.float32,
-                      device=Dre.device)
-    with torch.cuda.device(Dre.device):
-        err = _build.library().dlpd_invz_blockmax(
-            Dre.data_ptr(), Dim.data_ptr(), MzRe.data_ptr(),
-            MzIm.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, K, X, Y, Z, G, _build.stream(Dre))
-    _build.check(err, "invz_blockmax")
-    launches += 1
-    return out
-
-
 def _launch_fft(Dre, Dim, MzRe, MzIm, bias):
     """``csrc/invz_blockmax_fft.cu`` on checked tensors, ``bias [G, X, Y,
     L]``; ``Mz`` must be the c2r matrix (it is not read)."""
     global launches, launches_fft
     b, K, X, Y = Dre.shape
     L, G = MzRe.shape[1], bias.shape[0]
-    if L not in FFT_GRIDS or K != L // 2 + 1:
-        raise ValueError(f"invz_blockmax: the FFT kernel takes L in "
-                         f"{FFT_GRIDS} with K = L/2 + 1, got L={L}, K={K}")
+    k2_route(L)
+    if K != L // 2 + 1:
+        raise ValueError(f"invz_blockmax: the FFT kernel takes K = L/2 + 1, "
+                         f"got L={L}, K={K}")
     if Dre.data_ptr() % 16 or Dim.data_ptr() % 16:
         raise ValueError("invz_blockmax: the FFT kernel needs D 16-byte "
                          "aligned")
@@ -166,8 +147,7 @@ def invz_blockmax(Dre: torch.Tensor, Dim: torch.Tensor,
         (("Dre", Dre, (b, K, X, Y)), ("Dim", Dim, (b, K, X, Y)),
          ("MzRe", MzRe, (K, Z)), ("MzIm", MzIm, (K, Z)),
          ("bias", bias, (G, X, Y, Z))))
-    launch = _launch_fft if k2_route(Z) == "fft" else _launch_dense
-    return launch(Dre, Dim, MzRe, MzIm, bias)
+    return _launch_fft(Dre, Dim, MzRe, MzIm, bias)
 
 
 def drill_topk(Dre: torch.Tensor, Dim: torch.Tensor,

@@ -1,8 +1,8 @@
 // Shared pieces of the FFT kernels (invz_blockmax_fft.cu, idft_fft.cu):
-// complex float32 helpers, inverse DFTs of 3, 4, 5, 6, 7, 8, 10, 12, 14 and
-// 16 points in registers, cp.async copies, and the c2r inverse of length
-// L = 16 x Q (Q = 3..8: L = 48, 64, 80, 96, 112, 128) down the rows of a
-// shared-memory tile of 32 columns.
+// complex float32 helpers, inverse DFTs of 2, 3, 4, 5, 6, 7, 8, 10, 12, 14
+// and 16 points in registers, cp.async copies, and the c2r inverse of
+// length L = 16 x Q (Q = 2..8: L = 32, 48, 64, 80, 96, 112, 128) down the
+// rows of a shared-memory tile of 32 columns.
 #pragma once
 
 #include "common.cuh"
@@ -50,6 +50,14 @@ __device__ __forceinline__ void idft4(cf& a0, cf& a1, cf& a2, cf& a3) {
 
 template <int N>
 __device__ __forceinline__ void idft(cf* v);
+
+// One butterfly: the c2r's radix-Q pass at L = 32.
+template <>
+__device__ __forceinline__ void idft<2>(cf* v) {
+  const cf a0 = v[0];
+  v[0] = a0 + v[1];
+  v[1] = a0 - v[1];
+}
 
 template <>
 __device__ __forceinline__ void idft<3>(cf* v) {
@@ -264,7 +272,7 @@ __device__ __forceinline__ void fill_twiddles(float2* tw) {
   }
 }
 
-// The c2r inverse of length L (16 x Q, Q = 3..8) down the columns of a shared
+// The c2r inverse of length L (16 x Q, Q = 2..8) down the columns of a shared
 // tile: rows re/im [L/2 + 1][kCols] hold the half spectrum X[k] of kCols
 // sequences, one per lane.  Called by all 8 warps of the block, after a
 // barrier that made the rows and `tw` (fill_twiddles<L>) visible.
@@ -278,10 +286,10 @@ __device__ __forceinline__ void fill_twiddles(float2* tw) {
 //     radix-8 inverse DFT in registers, then the twiddle
 //     e^{+2 pi i k2 n1 / M}; the results go back to shared memory in
 //     place (row n1 Q + k2).  Warp n1 then takes the Q entries of row
-//     block n1, a radix-Q (3 .. 8) inverse DFT in registers.  Warps
-//     k2 >= Q sit out step 2's first half (5 at Q = 3, 3 at Q = 5, 1 at
-//     Q = 7), and the twiddle index 2 k2 n1 <= 14 (Q - 1) stays below
-//     L = 16 Q.
+//     block n1, a radix-Q (2 .. 8) inverse DFT in registers.  Warps
+//     k2 >= Q sit out step 2's first half (6 at Q = 2, 5 at Q = 3, 3 at
+//     Q = 5, 1 at Q = 7), and the twiddle index 2 k2 n1 <= 14 (Q - 1)
+//     stays below L = 16 Q.
 //
 // On return warp n1 holds u[n2] = z[n1 + 8 n2] for its lane's column; the
 // rows are overwritten, and a barrier must precede their next writes.
@@ -290,7 +298,7 @@ __device__ __forceinline__ void c2r_columns(float* re, float* im,
                                             const float2* tw,
                                             cf (&u)[L / 16]) {
   constexpr int M = L / 2, P = 8, Q = M / P;
-  static_assert(P * Q == M && Q >= 3 && Q <= 8, "L must be 16 x (3 .. 8)");
+  static_assert(P * Q == M && Q >= 2 && Q <= 8, "L must be 16 x (2 .. 8)");
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
   cf v[P];

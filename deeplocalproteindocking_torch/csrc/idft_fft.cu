@@ -1,9 +1,11 @@
 // K3, FFT route: passes B and C of the inverse DFT as a complex FFT along
-// ky and a c2r along kx, for L = 48, 64, 80, 96, 112 and 128.
+// ky and a c2r along kx, for L = 16, 32, 48, 64, 80, 96, 112 and 128
+// (every L that the dft_pallas engine takes: a multiple of 16 up to 128).
 //
 // Replaces the TPU kernel `_idft_bc_kernel` / `pallas_inverse` in
 // deeplocalproteindocking_tpu/correlate/pallas_idft.py, computing the same
-// function as csrc/idft_bc.cu on the same inputs and output:
+// function as the plain version (idft.idft_bc_reference) on the same
+// inputs and output:
 //
 //   S[b, x, y, z] = Re sum_kx sum_ky Ux[kx, x] Uy[ky, y] E[b, kx, ky, z]
 //
@@ -22,8 +24,11 @@
 // (b = 128, L = 128) the function reads E (2.147 GB) and writes S
 // (1.074 GB): 3.22 GB / 3.35 TB/s = 0.962 ms; done as FFTs it is 18.8
 // GFLOP, 0.28 ms at the float32 peak.  This design also writes h and reads
-// it back (1.091 GB each way): 5.40 GB, 1.61 ms.  (idft_bc.cu computes the
-// same function as two dense contractions, 412 GFLOP on the CUDA cores.)
+// it back (1.091 GB each way): 5.40 GB, 1.61 ms.  (The function as two
+// dense contractions would be 412 GFLOP on the CUDA cores.)  At L = 32 the
+// same count is 50 MB (15 us; with h's round trip 86 MB, 26 us), at L = 16
+// 6.3 MB (1.9 us): there a launch's latency, a few microseconds, bounds it
+// more than the bytes do, so L = 16 runs in one launch (below).
 //
 // Design.  Both passes keep lane = z (32-wide runs of the contiguous axis),
 // so every global and shared access is one 128 B row per warp and the FFTs
@@ -31,8 +36,8 @@
 //  Pass 1: one block of 8 warps per (z run, kx pair {kx, L - kx},
 //   rotation): 4 x 65 x b blocks at L = 128.  Both kx planes' [ky][32]
 //   rows (re, im; 64 KB at L = 128) arrive by cp.async.  L = P x Q with
-//   (P, Q) = (16, 8) at L = 128 and P = 8 below (Q = 6, 8, 10, 12, 14 at
-//   L = 48, 64, 80, 96, 112): a task
+//   (P, Q) = (16, 8) at L = 128 and P = 8 below (Q = 4, 6, 8, 10, 12, 14
+//   at L = 32, 48, 64, 80, 96, 112): a task
 //   (plane, k2) takes rows Q k1 + k2 over k1, a radix-P inverse DFT in
 //   registers, the twiddle e^{+2 pi i k2 n1 / L}, and writes back in place
 //   (row Q n1 + k2: the task's own rows, so tasks need no barrier between
@@ -47,9 +52,11 @@
 //   block each, where 16 x 5 would give warps 0-1 two radix-16 tasks
 //   against the others' one, then two radix-5 blocks each), and L = 112
 //   is 8 x 14 (28 tasks, 4 or 3 a warp, one radix-14 row block each);
-//   L = 48 is 8 x 6 (12 tasks, 2 or 1 a warp).  The pass-1 block needs
-//   512 L bytes of dynamic shared memory: at L = 96 and 112 (48 KB and
-//   56 KB) that, with the twiddles, passes the 48 KB default.
+//   L = 48 is 8 x 6 (12 tasks, 2 or 1 a warp).  L = 32 is 8 x 4: 8
+//   radix-8 tasks and 8 radix-4 row blocks, one of each a warp, where
+//   4 x 8 would give each warp two radix-4 tasks and then leave warps
+//   4-7 idle beside four radix-8 row blocks.  The pass-1 block needs 512 L bytes of dynamic shared memory: at L = 96 and 112
+//   (48 KB and 56 KB) that, with the twiddles, passes the 48 KB default.
 //  Pass 2: one block per (z run, y, pair of rotations), as K2's FFT route:
 //   both rotations' h rows [L/2 + 1][32] (33 KB) by cp.async at once; the
 //   c2r leaves z[n] = L (S[2n] + i S[2n+1]) in warp n % 8, stored straight
@@ -62,6 +69,15 @@
 //   it keeps every FFT, shared-memory layout and index of the whole runs,
 //   and idles only 1/6 (L = 48, 80) or 1/8 (L = 112) of the lanes, where
 //   half-warp tiles would halve every access's width at every L.
+// L = 16: one pass, one block per rotation.  A rotation's whole E is 32 KB
+//   and its h would be 9 KB, so the two passes (which took 11 us at
+//   b = 128, two launches and h's round trip) become one block of
+//   16 x 16 threads that copies the rotation's E into shared memory by
+//   cp.async, takes the complex inverse DFT along ky in place (thread
+//   (kx, z): one idft<16> down its column), then along kx (thread (y, z)),
+//   and stores the real part: no scratch, no fold, no z run to mask.  Each
+//   kx plane of the tile is padded from 256 to 272 floats, so the two
+//   planes a warp reads at once fall on different banks.
 // Scaling: 1/(2L) in pass 1 (the ky inverse and the fold's half), 1/L in
 // pass 2.  Twiddles e^{+2 pi i j / L} are computed once per block into
 // shared memory and read as warp-wide broadcasts.  Float32 throughout, as
@@ -106,10 +122,10 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ Hre, float* __restrict__ Him) {
   constexpr int K = L / 2 + 1;
   constexpr int P = L == 128 ? 16 : 8;    // first radix
-  constexpr int Q = L / P;                // second radix: 6 .. 14
+  constexpr int Q = L / P;                // second radix: 4 .. 14
   constexpr int kPlane = 2 * L * kCols;   // floats per plane: re, im rows
-  static_assert(P * Q == L && Q % 2 == 0 && Q >= 6 && Q <= 14,
-                "L must be 48, 64, 80, 96, 112 or 128");
+  static_assert(P * Q == L && Q % 2 == 0 && Q >= 4 && Q <= 14,
+                "L must be 32, 48, 64, 80, 96, 112 or 128");
 
   extern __shared__ __align__(16) float smem[];   // 2 x kPlane
   __shared__ float2 s_tw[L];                       // e^{+2 pi i j / L}
@@ -245,6 +261,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// L = 16 in one pass: block b takes rotation b (see the note at the head).
+__global__ void __launch_bounds__(kThreads)
+    idft16_kernel(const float* __restrict__ Ere,
+                  const float* __restrict__ Eim, float* __restrict__ S) {
+  constexpr int L = 16, kVol = L * L * L;
+  constexpr int kPad = L * L + 16;   // floats per kx plane of the tile
+  constexpr int kChunks = kVol / 4;  // 16-byte chunks of one part
+  static_assert(L * L == kThreads, "one thread per (kx or y, z)");
+  __shared__ __align__(16) float s_re[L * kPad];
+  __shared__ __align__(16) float s_im[L * kPad];
+
+  const size_t base = static_cast<size_t>(blockIdx.x) * kVol;
+  for (int o = threadIdx.x; o < 2 * kChunks; o += kThreads) {
+    const int half = o / kChunks, c = o % kChunks;
+    const int kx = c / (L * L / 4), rem = 4 * c % (L * L);
+    cp_async16((half ? s_im : s_re) + kx * kPad + rem,
+               (half ? Eim : Ere) + base + 4 * c);
+  }
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncthreads();
+
+  const int a = threadIdx.x / L, z = threadIdx.x % L;
+  cf v[L];
+  // Along ky, in place: thread (kx = a, z).
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    v[k] = {s_re[a * kPad + k * L + z], s_im[a * kPad + k * L + z]};
+  }
+  idft<L>(v);
+#pragma unroll
+  for (int y = 0; y < L; ++y) {
+    s_re[a * kPad + y * L + z] = v[y].re;
+    s_im[a * kPad + y * L + z] = v[y].im;
+  }
+  __syncthreads();
+  // Along kx: thread (y = a, z); the real part, with both inverses' 1/L.
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    v[k] = {s_re[k * kPad + a * L + z], s_im[k * kPad + a * L + z]};
+  }
+  idft<L>(v);
+  constexpr float kScale = 1.0f / (L * L);
+  float* out = S + base + a * L + z;
+#pragma unroll
+  for (int x = 0; x < L; ++x) out[x * L * L] = v[x].re * kScale;
+}
+
 // Opts the kernel in to `bytes` of dynamic shared memory where that and
 // its `static_bytes` pass the 48 KB that need no opt-in.
 template <typename Kernel>
@@ -281,9 +345,10 @@ int launch(const float* Ere, const float* Eim, float* Hre, float* Him,
 }  // namespace dlpd
 
 // E re/im [B, L, L, L] (kx, ky, z), S [B, L, L, L] (x, y, z), and the
-// scratch h re/im [B, L/2+1, L, L] (kx, y, z); all float32, contiguous,
-// E and h 16-byte aligned; L = 48, 64, 80, 96, 112 or 128.  Returns a
-// cudaError_t: 0 on successful launches.
+// scratch h re/im [B, L/2+1, L, L] (kx, y, z; not used at L = 16); all
+// float32, contiguous, E and h 16-byte aligned; L = 16, 32, 48, 64, 80,
+// 96, 112 or 128.
+// Returns a cudaError_t: 0 on successful launches.
 extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
                              void* Him, void* S, int B, int L, void* stream) {
   if (B < 1 || B > 65535 ||
@@ -299,6 +364,10 @@ extern "C" int dlpd_idft_fft(const void* Ere, const void* Eim, void* Hre,
   auto* s = static_cast<float*>(S);
   auto st = static_cast<cudaStream_t>(stream);
   switch (L) {
+    case 16:
+      dlpd::idft16_kernel<<<B, dlpd::kThreads, 0, st>>>(er, ei, s);
+      return static_cast<int>(cudaGetLastError());
+    case 32: return dlpd::launch<32>(er, ei, hr, hi, s, B, st);
     case 48: return dlpd::launch<48>(er, ei, hr, hi, s, B, st);
     case 64: return dlpd::launch<64>(er, ei, hr, hi, s, B, st);
     case 80: return dlpd::launch<80>(er, ei, hr, hi, s, B, st);

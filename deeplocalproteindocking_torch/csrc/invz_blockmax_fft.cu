@@ -1,9 +1,10 @@
 // K2, FFT route: the kz->z c2r inverse as a real FFT + translation mask +
-// block max, for L = 64, 96 and 128.
+// block max, for L = 32, 64, 96 and 128 (every L % 32 == 0 that K1 takes,
+// so every L that the fused top-K tail reaches).
 //
 // Replaces the TPU kernel `_invz_bmax_kernel` / `_invz_blockmax_call` in
 // deeplocalproteindocking_tpu/correlate/pallas_invz_topk.py, computing the
-// same function as csrc/invz_blockmax.cu:
+// same function as the plain version (invz_topk.invz_blockmax_reference):
 //
 //   S[b, x, y, :]  = irfft(D[b, :, x, y])     (length L, with its 1/L)
 //   bmax[b, x, yb, z] = max over the 32 y of run yb of S[.., y, z] + bias
@@ -17,9 +18,10 @@
 // What bounds it on the H100: bytes.  At the main path's chunk (b = 128,
 // L = 128) it reads D, 2 x 128 x 65 x 128^2 x 4 B = 1.090 GB, the bias
 // (8.4 MB at G = 1) and writes bmax (33.5 MB): 1.13 GB / 3.35 TB/s =
-// 0.34 ms.  The FFT does about 5 GFLOP, far below that line; the dense
-// contraction of invz_blockmax.cu does 69.8 GFLOP on the float32 CUDA
-// cores, above it.
+// 0.34 ms.  The FFT does about 5 GFLOP, far below that line (the dense
+// contraction as FMA loops would do 69.8 GFLOP on the float32 CUDA cores,
+// above it).  At L = 32 (b = 128) the same count is 18.5 MB, 5.5 us: one
+// launch of 2,048 blocks, whose latency is of the same order.
 //
 // Design.  One block of 8 warps per (32-wide y run, x, pair of rotations).
 // Each rotation's D rows [K, 32] (re, im) are copied with cp.async into
@@ -28,7 +30,7 @@
 //  1-2. The c2r along kz (fft.cuh, c2r_columns): the half spectrum packed
 //     into a complex sequence of length M = L/2, a radix-8 pass with
 //     twiddles, one in-place exchange through shared memory, a radix-Q
-//     (8, 6 or 4) pass; warp n1 ends with z[n1 + 8 n2] = L (S[2n] + i
+//     (8, 6, 4 or 2) pass; warp n1 ends with z[n1 + 8 n2] = L (S[2n] + i
 //     S[2n+1]).  X[0] and X[M] count by their real parts only, as irfft
 //     and the dense Mz (whose sine row is 0 there) take them.
 //  3. S[y, z] goes to shared memory over the D buffer (rows padded to
@@ -36,9 +38,9 @@
 //     group, adds the bias (read coalesced along z, kept in registers
 //     across both rotations when they share a group) and takes the max;
 //     the groups' maxima combine through shared memory.  The groups are
-//     256 / L of 32 L / 256 y each: 4 x 8 at L = 64, 2 x 16 at 128, and
-//     2 x 16 on 192 threads at L = 96 (which does not divide 256; the
-//     other 64 threads sit this step out).
+//     256 / L of 32 L / 256 y each: 8 x 4 at L = 32, 4 x 8 at L = 64,
+//     2 x 16 at 128, and 2 x 16 on 192 threads at L = 96 (which does not
+//     divide 256; the other 64 threads sit this step out).
 // Twiddles e^{+2 pi i j / L} are computed once per block into shared
 // memory (one sincospif per thread) and read as warp-wide broadcasts.
 // Float32 throughout, as the TPU kernel casts.
@@ -68,7 +70,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int YPG = kYB / NG;        // y per group
   constexpr bool kAllThreads = NG * L == kThreads;   // L divides 256
   constexpr int kVec = kYB / 4;        // float4 per D row
-  static_assert(Q == 4 || Q == 6 || Q == 8, "L must be 64, 96 or 128");
+  static_assert(Q == 2 || Q == 4 || Q == 6 || Q == 8,
+                "L must be 32, 64, 96 or 128");
   static_assert(kYB * kLd <= kBuf, "S must fit in the D buffer");
   static_assert(P * kYB == kThreads && NG * YPG == kYB && NG * L <= kThreads,
                 "block shape");
@@ -199,5 +202,6 @@ extern "C" int dlpd_invz_blockmax_fft(const void* Dre, const void* Dim,
   if (L == 128) return dlpd::launch<128>(dre, dim, bs, out, b, X, Y, G, s);
   if (L == 96) return dlpd::launch<96>(dre, dim, bs, out, b, X, Y, G, s);
   if (L == 64) return dlpd::launch<64>(dre, dim, bs, out, b, X, Y, G, s);
+  if (L == 32) return dlpd::launch<32>(dre, dim, bs, out, b, X, Y, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,16 +5,21 @@ The CUDA kernel cannot run here, so this file holds its formulation: a
 torch emulation of its stages -- the z axis in runs of 32 columns (the
 last one half full and masked at L = 48, 80 and 112), pass 1's complex
 inverse FFT along ky (L = P x Q with (P, Q) = (16, 8) at L = 128 and
-P = 8 below: Q = 6, 8, 10, 12, 14 at L = 48, 64, 80, 96, 112; radix-P
+P = 8 below: Q = 4, 6, 8, 10, 12, 14 at L = 32, 48, 64, 80, 96, 112;
+radix-P
 butterflies over k1, the twiddle e^{+2 pi i k2 n1 / L}, radix-Q over k2,
 output digit y = n1 + P n2), the Hermitian fold h[kx] = (g[kx] + conj
 g[L-kx]) / 2 for kx <= L/2, and pass 2's c2r along kx (``fft.cuh``:
-packing, radix-8 then radix-Q = L/16 passes, even/odd interleave) --
-against the plain version (``idft_bc_reference``, the dense
+packing, radix-8 then radix-Q = L/16 passes, even/odd interleave), and
+at L = 16 the single pass (the rotation's E in shared planes padded to
+272 floats, idft<16> along ky in place, then along kx, the real part)
+-- against the plain version (``idft_bc_reference``, the dense
 contractions) and the JAX kernel in interpret mode at every L it
 serves; planted errors in the fold, the ky FFT, the packing, the
-radix-3, 5 and 7 stages and the half z run move the result by O(1); and
-``k3_route``, ``inverse_dft`` and the wrapper's check of ``Ux``/``Uy``.
+radix-2, 3, 5 and 7 stages, the half z run and L = 16's single pass
+move the result by O(1);
+and ``k3_route``, ``inverse_dft`` and the wrapper's check of
+``Ux``/``Uy``.
 
 Tolerance: 1e-5 relative to max |S| (float32; the FFTs and the dense
 contractions round in another order, O(1e-7) relative).  The kernel
@@ -45,8 +50,8 @@ RUN = 32        # z columns of a run: one lane each (kCols)
 
 def pass1_split(L):
     """Pass 1's radices (P, Q), L = P x Q, as ``idft_fft.cu`` takes them:
-    (16, 8) at L = 128, P = 8 below (8 x 6, 8 x 8, 8 x 10, 8 x 12, 8 x 14
-    at L = 48, 64, 80, 96, 112)."""
+    (16, 8) at L = 128, P = 8 below (8 x 4, 8 x 6, 8 x 8, 8 x 10, 8 x 12,
+    8 x 14 at L = 32, 48, 64, 80, 96, 112)."""
     P = 16 if L == 128 else 8
     return P, L // P
 
@@ -57,7 +62,12 @@ def emulate_idft_fft(Ere, Eim, mutate=None):
     z in runs of 32 columns: ceil(Z / 32) runs, each run's columns at or
     past Z read as zeros and never stored.  ``mutate`` plants one error
     (for the O(1) tests): ``"half_run_dropped"`` launches Z // 32 runs,
-    ``"half_run_shifted"`` reads a half-full run 16 columns early."""
+    ``"half_run_shifted"`` reads a half-full run 16 columns early,
+    ``"half_run_unguarded"`` stores a half-full run's columns past Z too
+    (after its others), where the kernel's flat index puts them: into
+    the next row of S.  At L = 16 it is ``emulate_idft16``."""
+    if Ere.shape[1] == 16:
+        return emulate_idft16(Ere, Eim, mutate)
     Z = Ere.shape[-1]
     S = torch.zeros(Ere.shape, dtype=torch.float32)
     runs = Z // RUN if mutate == "half_run_dropped" else -(-Z // RUN)
@@ -68,8 +78,45 @@ def emulate_idft_fft(Ere, Eim, mutate=None):
                                    and not valid.all()) else cols
         tile = [torch.where(valid, e[..., read.clamp(max=Z - 1)], 0.0)
                 for e in (Ere, Eim)]
-        S[..., cols[valid]] = _emulate_run(*tile, mutate)[..., valid]
+        run = _emulate_run(*tile, mutate)
+        S[..., cols[valid]] = run[..., valid]
+        if mutate == "half_run_unguarded" and not valid.all():
+            b, X, Y, _ = S.shape
+            rows = torch.arange(X * Y).reshape(X, Y, 1) * Z
+            at = rows + cols[~valid]                   # [X, Y, past Z]
+            inside = at < X * Y * Z
+            S.view(b, -1)[:, at[inside]] = run[..., ~valid][:, inside]
     return S
+
+
+def emulate_idft16(Ere, Eim, mutate=None):
+    """What ``idft16_kernel`` computes, in complex64: each rotation's E
+    ``[16 kx][16 ky][16 z]`` copied into shared planes of 272 floats a
+    kx, the inverse DFT along ky in place (thread (kx, z)), then along kx
+    (thread (y, z)), the real part with 1/256.  ``mutate``:
+    ``"l16_plane_stride"`` indexes the planes by 256 floats where the
+    copies wrote 272, ``"l16_ky_sign"`` takes the forward DFT along ky,
+    or ``idft``'s ``"radix16_digit_order"``."""
+    b, L = Ere.shape[:2]
+    pad = L * L + 16
+    stride = L * L if mutate == "l16_plane_stride" else pad
+    tile = torch.zeros(b, L * pad, dtype=torch.complex64)
+    E = torch.complex(Ere, Eim).reshape(b, L, L * L)
+    for kx in range(L):
+        tile[:, kx * pad:kx * pad + L * L] = E[:, kx]
+    n = torch.arange(L)
+    # at[a, k, z]: plane a, row k, column z.
+    at = (n[:, None, None] * stride + n[None, :, None] * L + n[None, None, :])
+    v = tile[:, at]                                    # [b, kx, ky, z]
+    cols = [v[:, :, k] for k in range(L)]
+    if mutate == "l16_ky_sign":
+        g = [c.conj() for c in idft([c.conj() for c in cols])]
+    else:
+        g = idft(cols, mutate)                         # g[y]: [b, kx, z]
+    tile[:, at] = torch.stack(g, dim=2)                # [b, kx, y, z]
+    v = tile[:, at]
+    s = idft([v[:, k] for k in range(L)], mutate)      # s[x]: [b, y, z]
+    return torch.stack(s, dim=1).real / (L * L)
 
 
 def _emulate_run(Ere, Eim, mutate=None):
@@ -122,7 +169,7 @@ def _z(L):
     return 32 if L % RUN == 0 else L
 
 
-@pytest.mark.parametrize("L", [48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("L", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_emulation_matches_plain(L):
     Ere, Eim = _e_inputs(L, 2, Z=_z(L), seed=L)
     ux = [t_(a) for a in tdft.inverse_dft(L)]
@@ -135,7 +182,7 @@ def test_emulation_matches_plain(L):
     assert _rel(got, lib) <= TOL
 
 
-@pytest.mark.parametrize("L", [48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("L", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_emulation_matches_pallas_interpret(L):
     """The same G into JAX ``pallas_inverse`` (interpret mode) and into
     pass A then the emulation."""
@@ -168,9 +215,15 @@ def test_planted_errors_move_the_result(mutate):
     (64, "fft"),        # the card-vs-CPU phase
     (96, "fft"),        # grid 96: the rep-score and train presets
     (48, "fft"), (80, "fft"), (112, "fft"),   # a half-full last z run
-    (32, "dense"), (16, "dense")])
+    (32, "fft"),        # grid 32: the smoke's small dft_pallas dock
+    (16, "fft"),        # one half-full z run, the only one
+    (160, None), (24, None)])      # no kernel: dft_pallas refuses them
 def test_k3_route(L, want):
-    assert tidft.k3_route(L) == want
+    if want is None:
+        with pytest.raises(ValueError, match=f"no kernel for L={L}"):
+            tidft.k3_route(L)
+    else:
+        assert tidft.k3_route(L) == want
 
 
 @pytest.mark.parametrize("L,mutate", [
@@ -179,12 +232,32 @@ def test_k3_route(L, want):
     (80, "radix10_digit_order"),
     (112, "radix14_digit_order"),
     (48, "half_run_dropped"),       # ceil(L / 32) runs are needed
-    (80, "half_run_shifted")])
+    (80, "half_run_shifted"),
+    (48, "half_run_unguarded")])
 def test_radix5_7_and_half_run_errors_move_the_result(L, mutate):
     """A radix-5 or radix-7 inverse DFT with the conjugate root, a 2 x 5
     or 2 x 7 split's outputs in the wrong digit order, the half-full last
-    z run not launched or read 16 columns early: each moves S by O(1)."""
+    z run not launched, read 16 columns early or stored past L: each
+    moves S by O(1)."""
     Ere, Eim = _e_inputs(L, 1, Z=L, seed=L + 3)
+    want = emulate_idft_fft(t_(Ere), t_(Eim))
+    got = emulate_idft_fft(t_(Ere), t_(Eim), mutate=mutate)
+    assert _rel(got, want) > 0.1
+
+
+@pytest.mark.parametrize("L,mutate", [
+    (32, "radix2_sign"),            # the c2r's radix 2 (M = 8 x 2)
+    (32, "radix2_digit_order"),
+    (16, "l16_plane_stride"),       # the single pass's padded planes
+    (16, "l16_ky_sign"),
+    (16, "radix16_digit_order")])
+def test_radix2_and_grid16_errors_move_the_result(L, mutate):
+    """At L = 32 the radix-2 butterfly with its difference's sign flipped
+    or its outputs swapped; at L = 16 the single pass reading its tile
+    with the unpadded plane stride, taking the forward DFT along ky, or
+    its idft<16>'s outputs in the wrong digit order: each moves S by
+    O(1)."""
+    Ere, Eim = _e_inputs(L, 1, Z=_z(L), seed=L + 9)
     want = emulate_idft_fft(t_(Ere), t_(Eim))
     got = emulate_idft_fft(t_(Ere), t_(Eim), mutate=mutate)
     assert _rel(got, want) > 0.1
@@ -201,7 +274,7 @@ def test_radix3_errors_move_the_result(mutate):
     assert _rel(got, want) > 0.1
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+@pytest.mark.parametrize("L", [16, 32, 64, 96, 128])
 def test_inverse_dft_is_the_correlators_matrix(L):
     UxRe, UxIm = tdft.inverse_dft(L)
     corr = tdft.get_correlator(L, 16)

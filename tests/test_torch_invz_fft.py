@@ -5,13 +5,13 @@ The CUDA kernel cannot run here, so this file holds its formulation: a
 torch emulation of its stages -- the Hermitian packing of the half
 spectrum into a complex sequence of length M = L/2, the M = 8 x Q split
 (radix-8 butterflies over k1, the twiddle e^{+2 pi i k2 n1 / M}, radix-Q
-over k2 -- Q = 4, 6 or 8 at L = 64, 96 or 128, radix 6 as two radix-3
-DFTs and a radix-2 step -- output digit n = n1 + 8 n2), the even/odd
-interleave with 1/L, the bias and the 32-wide block max -- against the
-plain version (``invz_blockmax_reference``, the dense Mz contraction)
-and the JAX kernel in interpret mode; a sign or index error in the
-packing or in the radix-3 stage moves the result by O(1); and
-``k2_route``'s rule.
+over k2 -- Q = 2, 4, 6 or 8 at L = 32, 64, 96 or 128, radix 6 as two
+radix-3 DFTs and a radix-2 step -- output digit n = n1 + 8 n2), the
+even/odd interleave with 1/L, the bias and the 32-wide block max --
+against the plain version (``invz_blockmax_reference``, the dense Mz
+contraction) and the JAX kernel in interpret mode; a sign or index error
+in the packing or in the radix-2 and radix-3 stages moves the result by
+O(1); and ``k2_route``'s rule (L = 32, 64, 96, 128; other L raise).
 
 Tolerance: 1e-5 relative to max |finite block max| (float32; the FFT
 and the dense contraction round in another order, O(1e-6) at L = 128).
@@ -79,7 +79,7 @@ def _assert_close(got, want):
     assert err <= TOL, err
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+@pytest.mark.parametrize("L", [32, 64, 96, 128])
 @pytest.mark.parametrize("G", [1, 2])
 def test_emulation_matches_plain(L, G):
     Dre, Dim, MzRe, MzIm, bias = _inputs(L, 4, G, seed=L + G)
@@ -90,7 +90,7 @@ def test_emulation_matches_plain(L, G):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+@pytest.mark.parametrize("L", [32, 64, 96, 128])
 @pytest.mark.parametrize("G", [1, 2])
 def test_emulation_matches_pallas_interpret(L, G):
     Dre, Dim, MzRe, MzIm, bias = _inputs(L, 2, G, seed=10 + L + G)
@@ -125,6 +125,18 @@ def test_radix3_errors_move_the_result(mutate):
     assert ((got - want).abs().max() / want.abs().max()).item() > 0.1
 
 
+@pytest.mark.parametrize("mutate", ["radix2_sign", "radix2_digit_order"])
+def test_radix2_errors_move_the_result(mutate):
+    """At L = 32 the radix-Q pass is ``idft<2>``, one butterfly: its
+    difference with the wrong sign, or its two outputs swapped, moves the
+    block maxima by O(1) of their scale."""
+    Dre, Dim, _, _, _ = _inputs(32, 2, 1, seed=8)
+    bias = torch.zeros(1, 8, 64, 32)
+    want = emulate_fft(t_(Dre), t_(Dim), bias)
+    got = emulate_fft(t_(Dre), t_(Dim), bias, mutate=mutate)
+    assert ((got - want).abs().max() / want.abs().max()).item() > 0.1
+
+
 def test_kz_edge_imaginary_parts_are_ignored():
     """irfft, the dense Mz (sine row 0 at kz = 0) and the kernel take
     X[0] and X[L/2] by their real parts."""
@@ -144,12 +156,25 @@ def test_kz_edge_imaginary_parts_are_ignored():
     (128, "fft"),       # the main path
     (64, "fft"),        # the card-vs-CPU phases
     (96, "fft"),        # grid 96: the rep-score and train presets
-    (32, "dense"), (160, "dense"), (256, "dense")])
+    (32, "fft"),        # grid 32: the smallest L % 32 == 0
+    (160, None), (256, None)])     # no kernel: K1 refuses L > 128
 def test_k2_route(L, want):
-    assert tinvz.k2_route(L) == want
+    if want is None:
+        with pytest.raises(ValueError, match=f"no kernel for L={L}"):
+            tinvz.k2_route(L)
+    else:
+        assert tinvz.k2_route(L) == want
 
 
-@pytest.mark.parametrize("L", [64, 96, 128])
+def test_launch_outside_the_fft_grids_raises():
+    """The wrapper refuses an L that no kernel takes before it reaches
+    the library (so no card is needed to see it)."""
+    Dre, Dim, MzRe, MzIm, bias = _inputs(48, 2, 1, X=4, Y=32)
+    with pytest.raises(ValueError, match="no kernel for L=48"):
+        tinvz._launch_fft(*(t_(a) for a in (Dre, Dim, MzRe, MzIm, bias)))
+
+
+@pytest.mark.parametrize("L", [32, 64, 96, 128])
 def test_hermitian_inverse_z_is_the_correlators_mz(L):
     MzRe, MzIm = hermitian_inverse_z(L)
     corr = get_correlator(L, 16)

@@ -12,11 +12,11 @@ box up to 128 at every even L up to 128 on the tensor cores (bf16 on
 its tc kernel, float32 on its tf32 kernel; boxes above 64 in tiles of
 A; L not a multiple of 16 padded to one in the kernel;
 ``fused.k1_route``); both are held here, with one receptor spectrum or
-G of them, as are K2's FFT kernel (L = 64, 96, 128) and K3's (L = 48,
-64, 80, 96, 112, 128) and their dense kernels (other L, and launched
-directly at 96, the L they served before the FFT routes took it;
-``invz_topk.k2_route``, ``idft.k3_route``).  K2 and K3 are float32
-only.  One train step is held against the same step on the CPU.
+G of them, as are K2's FFT kernel (L = 32, 64, 96, 128) and K3's
+(L = 16, 32, 48, 64, 80, 96, 112, 128), the only kernel of each
+(``invz_topk.k2_route``, ``idft.k3_route``; other L raise).  K2 and K3
+are float32 only.  One train step is held against the same step on the
+CPU.
 """
 import numpy as np
 import pytest
@@ -236,24 +236,24 @@ def _k2_inputs(dev, L, b, groups, source, seed=3):
     return D, corr, bias
 
 
-@pytest.mark.parametrize("L,b,groups,source,route", [
-    (64, 4, 1, "k1", "fft"), (64, 4, 2, "k1", "fft"),
-    (64, 4, 4, "k1", "fft"), (128, 4, 1, "random", "fft"), (128, 3, 1, "random", "fft"),
-    (128, 6, 3, "random", "fft"), (128, 5, 5, "random", "fft"),
-    (64, 4, 2, "random", "fft"), (64, 7, 1, "random", "fft"),
-    (96, 4, 2, "k1", "fft"), (96, 5, 5, "random", "fft"),
-    (96, 3, 1, "random", "fft"), (32, 4, 2, "random", "dense")])
-def test_k2_matches_plain(cuda_device, L, b, groups, source, route):
-    """Both K2 kernels against the plain version: the FFT kernel at
-    L = 64, 96 and 128 (odd b: a block's second rotation missing; G = b:
-    every rotation its own group), the dense kernel at L = 32."""
+@pytest.mark.parametrize("L,b,groups,source", [
+    (64, 4, 1, "k1"), (64, 4, 2, "k1"), (64, 4, 4, "k1"),
+    (128, 4, 1, "random"), (128, 3, 1, "random"), (128, 6, 3, "random"),
+    (128, 5, 5, "random"), (64, 4, 2, "random"), (64, 7, 1, "random"),
+    (96, 4, 2, "k1"), (96, 5, 5, "random"), (96, 3, 1, "random"),
+    (32, 4, 2, "random"), (32, 3, 1, "random"), (32, 5, 5, "random"),
+    (32, 4, 1, "k1")])
+def test_k2_matches_plain(cuda_device, L, b, groups, source):
+    """K2's FFT kernel against the plain version at L = 32, 64, 96 and
+    128 (odd b: a block's second rotation missing; G = b: every rotation
+    its own group)."""
     (Dre, Dim), corr, bias = _k2_inputs(cuda_device, L, b, groups, source)
-    assert invz_topk.k2_route(L) == route
+    assert invz_topk.k2_route(L) == "fft"
     n0, f0 = invz_topk.launches, invz_topk.launches_fft
     got = invz_topk.invz_blockmax(Dre, Dim, corr.MzRe, corr.MzIm, bias)
     torch.cuda.synchronize()
     assert invz_topk.launches == n0 + 1
-    assert invz_topk.launches_fft == f0 + int(route == "fft")
+    assert invz_topk.launches_fft == f0 + 1
     want = invz_topk.invz_blockmax_reference(Dre, Dim, corr.MzRe,
                                              corr.MzIm, bias)
     assert got.shape == want.shape == (b, Dre.shape[2], L // 32, L)
@@ -261,21 +261,6 @@ def test_k2_matches_plain(cuda_device, L, b, groups, source, route):
     assert torch.equal(fin, torch.isfinite(got))
     assert not torch.isnan(got).any()
     assert got[0, 3, 0, 5].item() == float("-inf")
-    assert _rel(got[fin], want[fin]) <= 1e-4
-
-
-def test_k2_dense_kernel_at_96(cuda_device):
-    """The dense K2 kernel, launched directly, at the L it served before
-    the FFT route took it (odd b, two bias groups)."""
-    (Dre, Dim), corr, bias = _k2_inputs(cuda_device, 96, 6, 2, "random")
-    n0, f0 = invz_topk.launches, invz_topk.launches_fft
-    got = invz_topk._launch_dense(Dre, Dim, corr.MzRe, corr.MzIm, bias)
-    torch.cuda.synchronize()
-    assert (invz_topk.launches, invz_topk.launches_fft) == (n0 + 1, f0)
-    want = invz_topk.invz_blockmax_reference(Dre, Dim, corr.MzRe,
-                                             corr.MzIm, bias)
-    fin = torch.isfinite(want)
-    assert torch.equal(fin, torch.isfinite(got))
     assert _rel(got[fin], want[fin]) <= 1e-4
 
 
@@ -288,6 +273,12 @@ def test_k2_fft_refuses_what_it_does_not_take(cuda_device):
     shifted = flat[1:].view(Dre.shape)            # 4-byte aligned only
     with pytest.raises(ValueError, match="16-byte"):
         invz_topk.invz_blockmax(shifted, Dim, corr.MzRe, corr.MzIm, bias)
+    # An L that no kernel takes (Y = 32 keeps the y runs whole).
+    c48 = get_correlator(48, 16, "float32", cuda_device)
+    d48 = torch.zeros((2, 25, 4, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="no kernel for L=48"):
+        invz_topk.invz_blockmax(d48, d48, c48.MzRe, c48.MzIm,
+                                torch.zeros((4, 32, 48), device=cuda_device))
 
 
 def _k3_args(dev, L, b, seed=0):
@@ -297,38 +288,26 @@ def _k3_args(dev, L, b, seed=0):
     return (*e, corr.UxRe32, corr.UxIm32, corr.UxRe32, corr.UxIm32)
 
 
-@pytest.mark.parametrize("L,b,route", [
-    (64, 1, "fft"), (64, 2, "fft"), (64, 8, "fft"), (128, 1, "fft"),
-    (128, 2, "fft"), (128, 3, "fft"), (128, 8, "fft"), (96, 1, "fft"),
-    (96, 3, "fft"), (96, 8, "fft"), (48, 2, "fft"), (48, 3, "fft"),
-    (80, 2, "fft"), (80, 5, "fft"), (112, 1, "fft"), (112, 3, "fft"),
-    (32, 2, "dense"), (16, 3, "dense")])
-def test_k3_matches_plain(cuda_device, L, b, route):
-    """Both K3 kernels against the plain version: the FFT kernel at
-    L = 48, 64, 80, 96, 112 and 128 (odd b: a pass-2 block's second
-    rotation missing; a half-full last z run at 48, 80 and 112), the
-    dense kernel at L = 16 and 32."""
+@pytest.mark.parametrize("L,b", [
+    (64, 1), (64, 2), (64, 8), (128, 1), (128, 2), (128, 3), (128, 8),
+    (96, 1), (96, 3), (96, 8), (48, 2), (48, 3), (80, 2), (80, 5),
+    (112, 1), (112, 3), (32, 1), (32, 2), (32, 3), (16, 1), (16, 3),
+    (16, 8)])
+def test_k3_matches_plain(cuda_device, L, b):
+    """K3's FFT kernel against the plain version at L = 16, 32, 48, 64,
+    80, 96, 112 and 128 (odd b: a pass-2 block's second rotation
+    missing; a half-full last z run at 48, 80 and 112, and at 16 the
+    only run)."""
     args = _k3_args(cuda_device, L, b)
-    assert idft.k3_route(L) == route
+    assert idft.k3_route(L) == "fft"
     n0, f0 = idft.launches, idft.launches_fft
     got = idft.idft_bc(*args)
     torch.cuda.synchronize()
     assert idft.launches == n0 + 1
-    assert idft.launches_fft == f0 + int(route == "fft")
+    assert idft.launches_fft == f0 + 1
     want = idft.idft_bc_reference(*args)
     assert got.shape == (b, L, L, L) and got.dtype == torch.float32
     assert _rel(got, want) <= 1e-4
-
-
-def test_k3_dense_kernel_at_96(cuda_device):
-    """The dense K3 kernel, launched directly, at the L it served before
-    the FFT route took it."""
-    args = _k3_args(cuda_device, 96, 2)
-    n0, f0 = idft.launches, idft.launches_fft
-    got = idft._launch_dense(*args)
-    torch.cuda.synchronize()
-    assert (idft.launches, idft.launches_fft) == (n0 + 1, f0)
-    assert _rel(got, idft.idft_bc_reference(*args)) <= 1e-4
 
 
 def test_k3_fft_refuses_what_it_does_not_take(cuda_device):
@@ -351,7 +330,7 @@ def test_k3_refuses_what_it_does_not_take(cuda_device):
         idft.idft_bc(args[0].transpose(2, 3), *args[1:])
     with pytest.raises(ValueError, match="divisible by 8 and 16"):
         idft.idft_bc(*_k3_args(cuda_device, 24, 1))
-    with pytest.raises(ValueError, match="L <= 128"):
+    with pytest.raises(ValueError, match="no kernel for L=144"):
         idft.idft_bc(*_k3_args(cuda_device, 144, 1))
 
 

@@ -14,6 +14,17 @@ P = 8           # the c2r's first radix (c2r_columns)
 SIN60 = math.sqrt(3) / 2
 
 
+def idft2(a0, a1, mutate=None):
+    """``idft<2>``: one butterfly, outputs a0 + a1 and a0 - a1;
+    ``"radix2_sign"`` plants a1 - a0 as the second, ``"radix2_digit_order"``
+    the two outputs swapped."""
+    if mutate == "radix2_sign":
+        return [a0 + a1, a1 - a0]
+    if mutate == "radix2_digit_order":
+        return [a0 - a1, a0 + a1]
+    return [a0 + a1, a0 - a1]
+
+
 def idft3(a0, a1, a2, mutate=None):
     """``idft3``: inverse DFT of 3, natural order, with the cube root of
     unity e^{+2 pi i/3} = -1/2 + i sqrt(3)/2; ``"radix3_sign"`` plants
@@ -62,12 +73,15 @@ def idft12(v, mutate=None):
     return [e[n] + t[n] for n in range(6)] + [e[n] - t[n] for n in range(6)]
 
 
-def idft16(v):
+def idft16(v, mutate=None):
     """``idft<16>``: ``idft<8>`` of the even and odd inputs, then the
-    radix-2 step with e^{+2 pi i n / 16}."""
+    radix-2 step with e^{+2 pi i n / 16}; ``"radix16_digit_order"``
+    plants outputs 2n and 2n + 1 instead of n and n + 8."""
     e, o = idft8(v[0::2]), idft8(v[1::2])
     t = [complex(math.cos(math.pi * n / 8), math.sin(math.pi * n / 8)) * o[n]
          for n in range(8)]
+    if mutate == "radix16_digit_order":
+        return [x for n in range(8) for x in (e[n] + t[n], e[n] - t[n])]
     return [e[n] + t[n] for n in range(8)] + [e[n] - t[n] for n in range(8)]
 
 
@@ -107,10 +121,12 @@ def idft_radix2(v, mutate=None):
 
 
 def idft(v, mutate=None):
-    """The kernels' ``idft<N>`` for N = len(v) in {3, 4, 5, 6, 7, 8, 10,
-    12, 14, 16}; ``mutate`` reaches the radix-3, 5 and 7 stages and the
-    2 x 5 and 2 x 7 splits only."""
+    """The kernels' ``idft<N>`` for N = len(v) in {2, 3, 4, 5, 6, 7, 8, 10,
+    12, 14, 16}; ``mutate`` reaches the radix-2, 3, 5 and 7 stages, the
+    2 x 5 and 2 x 7 splits and the radix-16 digit order only."""
     n = len(v)
+    if n == 2:
+        return idft2(*v, mutate)
     if n in (6, 12):
         return (idft6 if n == 6 else idft12)(v, mutate)
     if n == 3:
@@ -119,7 +135,9 @@ def idft(v, mutate=None):
         return idft_pairs(v, mutate)
     if n in (10, 14):
         return idft_radix2(v, mutate)
-    return {4: lambda v: idft4(*v), 8: idft8, 16: idft16}[n](v)
+    if n == 16:
+        return idft16(v, mutate)
+    return {4: lambda v: idft4(*v), 8: idft8}[n](v)
 
 
 def twiddles(L):
@@ -131,7 +149,7 @@ def twiddles(L):
 def c2r_columns(X, mutate=None):
     """``c2r_columns`` and its 1/L: the half spectrum ``X [b, M+1, N]``
     (complex64, along dim 1) -> ``s [b, 2M, N]`` float32, the irfft of
-    each column, for L = 16 Q (Q = 3 .. 8: L = 48 .. 128).  ``mutate``
+    each column, for L = 16 Q (Q = 2 .. 8: L = 32 .. 128).  ``mutate``
     plants one error: ``"no_conj"``, ``"minus_i"``, ``"mirror_index"``
     (packing), ``"digit_order"``, or one of :func:`idft`'s errors."""
     b, K, N = X.shape

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2's and K3's kernels timed on one card at L = 48, 64, 80, 96, 112 and
-128, for the package under a given root.
+"""K2's and K3's kernels timed on one card at L = 16, 32, 48, 64, 80, 96,
+112 and 128, for the package under a given root.
 
     python3 tools/time_fft_routes.py [ROOT]      # from the repo root
 
@@ -13,11 +13,14 @@ chunk of b = 128 rotations: K2's ``D [b, L/2+1, L, L]`` with a bias that
 masks about 40% of the cells (K2 only at L % 32 == 0, the grids its
 fused top-K tail takes), K3's ``E [b, L, L, L]``.  At each L each
 kernel is launched as its wrapper routes it (``k2_route``, ``k3_route``;
-the route is reported), held against its plain version (max |kernel -
-plain| / max |plain|) and timed; at L = 96 the dense K2 and at every L
-the dense K3 are also timed directly, and at every L
-``torch.fft.ifft2``, the one PyTorch call that computes K3's function.
-Times are CUDA events over 5 launches after one warm-up.  The ptxas
+the route is reported: an older package may route an L to a kernel
+that a newer one retired), held against its plain version (max |kernel
+- plain| / max |plain|) and timed, and beside it ``torch.fft.ifft2``,
+the one PyTorch call that computes K3's function.
+Times are CUDA events over 20 launches after one warm-up, queued behind
+a device sleep while the host launches them, so that the host's launch
+overhead (tens of microseconds a call, the size of K2 at L = 32 and K3
+at L = 16 and 32) is not counted.  The ptxas
 report of the build (registers, spills, shared memory of every K2 and
 K3 kernel) comes with them.  Prints one JSON line with the card's name
 and power limit.
@@ -31,12 +34,17 @@ import sys
 import torch
 
 
-def ms(fn, reps=5):
-    """Mean device time of ``fn`` over ``reps`` launches after one."""
+QUEUE_CYCLES = 20_000_000      # about 10 ms at 1.98 GHz
+
+
+def ms(fn, reps=20):
+    """Mean device time of ``fn`` over ``reps`` launches after one, the
+    launches queued behind a sleep of ``QUEUE_CYCLES`` on the device."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -52,7 +60,7 @@ def rel(got, want):
             / want[fin].abs().max()).item()
 
 
-def ptxas_report(log_path, pattern="invz_blockmax|idft_"):
+def ptxas_report(log_path, pattern="invz_blockmax|idft"):
     """{kernel<L>: {registers, spill_stores, spill_loads, smem}} from the
     build's ``-Xptxas -v`` log, for the kernels whose name starts with
     ``pattern``."""
@@ -101,7 +109,7 @@ def main():
     _build.library()
     rows = {}
     with torch.inference_mode():
-        for L in (48, 64, 80, 96, 112, 128):
+        for L in (16, 32, 48, 64, 80, 96, 112, 128):
             g = torch.Generator(device=dev).manual_seed(L)
             corr = get_correlator(L, 16, "float32", dev)
             row = {}
@@ -117,9 +125,6 @@ def main():
                     k2_rel_err=rel(invz_topk.invz_blockmax(*k2),
                                    invz_topk.invz_blockmax_reference(*k2)),
                     k2_ms=ms(lambda: invz_topk.invz_blockmax(*k2)))
-                if L == 96:
-                    row["k2_dense_ms"] = ms(
-                        lambda: invz_topk._launch_dense(*k2))
                 del D, bias, k2
             E = [torch.randn((b, L, L, L), generator=g, device=dev)
                  for _ in range(2)]
@@ -129,7 +134,6 @@ def main():
                        k3_rel_err=rel(idft.idft_bc(*k3), want),
                        k3_ms=ms(lambda: idft.idft_bc(*k3)))
             del want
-            row["k3_dense_ms"] = ms(lambda: idft._launch_dense(*k3))
             row["ifft2_ms"] = ms(lambda: torch.fft.ifft2(
                 torch.complex(E[0], E[1]), dim=(1, 2)).real)
             rows[str(L)] = row
@@ -137,7 +141,8 @@ def main():
             torch.cuda.empty_cache()
     print(json.dumps({
         "root": os.path.abspath(root), "card": card, "batch": b,
-        "timer": "cuda events, mean of 5 after 1 warm-up", "L": rows,
+        "timer": "cuda events, mean of 20 after 1 warm-up, queued behind "
+                 "a device sleep", "L": rows,
         "ptxas": ptxas_report(_build.library_path() + ".log")}), flush=True)
 
 
