@@ -197,8 +197,25 @@ phase that does not hold:
    ranks / 2)``) against ``Trainer.value_and_grad`` on one rank (phase
    9's tolerances), then three steps with the params identical on every
    rank; ``cli dock --mesh-rot <ranks>`` against ``--mesh-rot 1``.
+13. the JAX package's Orbax checkpoints, restored through the port's own
+   reader (``train/checkpoint.py``; no JAX, tensorstore, orbax or
+   zstandard), TF32 off: v9p's ``best/`` held equal to
+   ``best_params.npz``; the latest ``best/`` (or step) of each of the
+   eight families docked on the checkpoint's own ``config.json`` on the
+   card and on the CPU (top-K within rtol 1e-3, the same top-1; 32
+   rotations, cut from 256 for the CPU half), the launch counts set to 0
+   before each card dock and read after it (``dft_fused`` configs must
+   launch K1 on its tf32 kernel and K2 on its FFT kernel, the ``dft``
+   engine none); v1 again under ``dft_fused`` (tf32 K1, FFT K2 at
+   L = 32) and v2 under ``dft_pallas`` (FFT K3 at L = 48), 256 rotations
+   each; v9p's ``step_00003000`` resumed as a whole training state
+   (params, Adam's moments, count 3000) and stepped once on the card and
+   on the CPU (phase 9's tolerances; Adam's updates recorded beside);
+   ``coupling_spectrum`` on v5u's ``best/``; the decode seconds of each
+   checkpoint.
 
-Each phase prints one JSON line (phase 11 one per step).  The last line is
+Each phase prints one JSON line (phase 11 one per step, phase 13 one per
+dock and its summary).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
     python3 chip_smoke.py --multi-gpu    # on several cards
@@ -2459,6 +2476,259 @@ def mesh_run(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 13: the JAX package's Orbax checkpoints, restored without JAX.
+# Every family's latest best (or latest step where it has no best/), its
+# own config.json; the CPU half of each card-vs-CPU dock sets the count
+# (the grid-64 families take ~9 s per 64 rotations on the CPU).
+CKPT_FAMILIES = ("synthetic-v1", "synthetic-v2", "synthetic-v3",
+                 "synthetic-v4", "synthetic-v5u", "synthetic-v6u",
+                 "synthetic-v7p", "synthetic-v9p")
+CKPT_ROTATIONS = 32         # cut from 256 for the CPU half
+CKPT_KERNEL_ROTATIONS = 256  # v1 under dft_fused, v2 under dft_pallas
+# The resumed step's Adam update, card vs CPU, x each leaf's largest
+# update.  Looser than GRAD_TOL: where a moment nu is near 0,
+# mu / sqrt(nu) magnifies the gradients' last-bit differences (6.6e-4
+# at v9p's step 3000 on an H100, against 1e-6 for the gradients).
+UPDATE_TOL = 1e-2
+# Kernels each engine must launch on a dock (route counters that must
+# equal them); the dft engine runs none.
+ENGINE_KERNELS = {"dft_fused": (("k1", "k1_tf32"), ("k2", "k2_fft")),
+                  "dft_pallas": (("k3", "k3_fft"),),
+                  "dft": ()}
+
+
+def checkpoints(dev):
+    """Phase 13: restore the shipped Orbax checkpoints through the port's
+    own reader, with JAX, flax, optax, orbax, tensorstore and zstandard
+    blocked from import (none may have been imported before), TF32 off.
+    v9p's ``best/`` held equal to its export ``best_params.npz``; each
+    family's latest checkpoint docked on its own config on the card and
+    on the CPU, with the launch counts set to 0 just before each card
+    dock and read just after; v1 again under ``dft_fused`` (tf32 K1,
+    FFT K2 at L = 32) and v2 under ``dft_pallas`` (FFT K3 at L = 48);
+    v9p's ``step_00003000`` resumed as a whole training state and
+    stepped once on the card and on the CPU; ``coupling_spectrum`` on
+    v5u's ``best/``.  Returns the phase's record."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from deeplocalproteindocking_torch import coupling_spectrum, weights
+    from deeplocalproteindocking_torch.config import DockConfig
+    from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
+    from deeplocalproteindocking_torch.data import synthetic_complex
+    from deeplocalproteindocking_torch.data.benchmark import synthetic_band
+    from deeplocalproteindocking_torch.pipeline import (DockingPipeline,
+                                                        min_licensed_rank)
+    from deeplocalproteindocking_torch.train import Trainer, checkpoint
+    from deeplocalproteindocking_torch.train.data_gen import (
+        make_training_batch)
+
+    pre = os.path.join(ROOT, "pretrained")
+    # The phase runs with these imports blocked: a reader that reached
+    # for any of them would raise.
+    foreign = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+               "zstandard")
+    record = dict(importable={m: importlib.util.find_spec(m) is not None
+                              for m in foreign},
+                  loaded_before=[m for m in foreign if m in sys.modules])
+    blocked = [m for m in foreign if m not in sys.modules]
+    for m in blocked:
+        sys.modules[m] = None
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # v9p's best/ against its export.
+        t0 = time.perf_counter()
+        best = checkpoint.load_params(os.path.join(V9P_DIR, "best"))
+        decode = time.perf_counter() - t0
+        npz = weights.load_npz(os.path.join(V9P_DIR, "best_params.npz"))
+        record["v9p_best_vs_npz"] = dict(
+            decode_seconds=decode, tensors=len(npz),
+            equal=(set(best) == set(npz)
+                   and all(torch.equal(best[k], npz[k]) for k in npz)))
+
+        cplx = synthetic_complex(seed=0)
+
+        def dock(name, ckpt, cfg, params):
+            """``cfg``'s dock of ``params`` on the card (counted) and on
+            the CPU; the record."""
+            pipe = DockingPipeline(cfg, params=params, device=dev)
+            fused.launches = fused.launches_tc = fused.launches_tf32 = 0
+            invz_topk.launches = invz_topk.launches_fft = 0
+            idft.launches = idft.launches_fft = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pipe.dock_complex(cplx, cluster=False)
+            torch.cuda.synchronize()
+            rec = dict(checkpoint=ckpt, engine=cfg.fft_impl,
+                       grid=cfg.grid_size, dtype=cfg.dft_dtype,
+                       rotations=cfg.num_rotations,
+                       card_seconds=time.perf_counter() - t0,
+                       launches=dict(
+                           k1=fused.launches, k1_tc=fused.launches_tc,
+                           k1_tf32=fused.launches_tf32,
+                           k2=invz_topk.launches,
+                           k2_fft=invz_topk.launches_fft,
+                           k3=idft.launches, k3_fft=idft.launches_fft))
+            t0 = time.perf_counter()
+            want = DockingPipeline(cfg, params=params,
+                                   device="cpu").dock_complex(cplx,
+                                                              cluster=False)
+            a, b = np.sort(got.scores), np.sort(want.scores)
+            rec.update(
+                cpu_seconds=time.perf_counter() - t0, poses=len(got),
+                finite=bool(np.isfinite(got.scores).all()),
+                max_rel_diff=float(np.max(np.abs(a - b) / np.abs(b))),
+                values_close=len(a) == len(b) > 0
+                and bool(np.allclose(a, b, rtol=1e-3, atol=0)),
+                top1_same=(int(got.rot_idx[0]) == int(want.rot_idx[0])
+                           and list(got.shifts[0]) == list(want.shifts[0])))
+            emit("checkpoint_dock", name=name, **rec)
+            return rec
+
+        docks, loaded = {}, {}
+        for fam in CKPT_FAMILIES:
+            ckpt = os.path.join(pre, fam)
+            if os.path.isdir(os.path.join(ckpt, "best")):
+                ckpt = os.path.join(ckpt, "best")
+            with open(os.path.join(pre, fam, "config.json")) as f:
+                cfg = DockConfig.from_json(f.read())
+            t0 = time.perf_counter()
+            params = checkpoint.load_params(ckpt)
+            decode = time.perf_counter() - t0
+            loaded[fam] = (cfg, params)
+            rel = os.path.relpath(ckpt, ROOT)
+            docks[fam] = dock(fam, rel, cfg.replace(
+                num_rotations=CKPT_ROTATIONS), params)
+            docks[fam].update(decode_seconds=decode,
+                              step=checkpoint.latest_step(ckpt))
+        for name, fam, engine in (("v1_dft_fused", "synthetic-v1",
+                                   "dft_fused"),
+                                  ("v2_dft_pallas", "synthetic-v2",
+                                   "dft_pallas")):
+            cfg, params = loaded[fam]
+            docks[name] = dock(name, f"pretrained/{fam}", cfg.replace(
+                fft_impl=engine, num_rotations=CKPT_KERNEL_ROTATIONS),
+                params)
+        record["docks"] = docks
+
+        # v9p's step 3000 as a whole training state: one step on the card
+        # and on the CPU from the restored params, moments and count; the
+        # updates read the moments and are held within UPDATE_TOL.
+        with open(os.path.join(V9P_DIR, "config.json")) as f:
+            v9p_cfg = DockConfig.from_json(f.read())
+        one = v9p_cfg.replace(batch_complexes=1, num_decoys=8)
+        t0 = time.perf_counter()
+        state = checkpoint.load_train_state(V9P_DIR, 3000)
+        decode = time.perf_counter() - t0
+        complexes = synthetic_band(200, 2, widen=True, unbound=1.2)
+        b1 = make_training_batch(torch.Generator().manual_seed(1), complexes,
+                                 one, device="cpu")
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            tr = Trainer(one, where)
+            st = state.to(where)
+            t0 = time.perf_counter()
+            loss, acc, grads = tr.value_and_grad(st.params, b1.to(where))
+            new = tr.apply_gradients(st, grads)
+            out[where.type] = (loss.item(), acc.item(),
+                               {k: v.cpu() for k, v in grads.items()},
+                               {k: (new.params[k] - st.params[k]).cpu()
+                                for k in st.params},
+                               new, time.perf_counter() - t0)
+        (gl, ga, gg, gu, gnew, gs), (wl, wa, wg, wu, wnew, ws) = (
+            out[dev.type], out["cpu"])
+        record["resume_step"] = dict(
+            checkpoint="pretrained/synthetic-v9p/step_00003000",
+            decode_seconds=decode, restored_step=state.step,
+            restored_count=state.opt_state["count"],
+            steps_after=[gnew.step, wnew.step],
+            counts_after=[gnew.opt_state["count"], wnew.opt_state["count"]],
+            loss=[gl, wl], accuracy=[ga, wa],
+            loss_rel_diff=abs(gl - wl) / abs(wl),
+            accuracy_abs_diff=abs(ga - wa),
+            grad_rel_err={k: float((gg[k] - w).abs().max() / w.abs().max())
+                          for k, w in wg.items()},
+            update_rel_err={k: float((gu[k] - w).abs().max()
+                                     / w.abs().max())
+                            for k, w in wu.items()},
+            moments_sound=all(
+                bool(torch.isfinite(m).all()) and bool(m.any())
+                for part in ("mu", "nu")
+                for m in state.opt_state[part].values())
+            and all(bool((v >= 0).all())
+                    for v in state.opt_state["nu"].values()),
+            card_seconds=gs, cpu_seconds=ws, rtol=TRAIN_RTOL,
+            grad_tol=GRAD_TOL, update_tol=UPDATE_TOL)
+
+        # The coupling spectrum of v5u's best/, the tool's default.
+        path = os.path.join(pre, "synthetic-v5u", "best")
+        t0 = time.perf_counter()
+        lines = coupling_spectrum.spectrum_lines(path)
+        A = checkpoint.load_params(path)["coupling"].numpy()
+        record["coupling_spectrum"] = dict(
+            checkpoint="pretrained/synthetic-v5u/best",
+            seconds=time.perf_counter() - t0, lines=lines,
+            licensed_rank=min_licensed_rank(A, shape_prior=True))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        for m in blocked:
+            del sys.modules[m]
+    record["blocked"] = blocked
+    record["decode_seconds"] = {
+        "synthetic-v9p/step_00003000":
+            record["resume_step"]["decode_seconds"],
+        **{os.path.relpath(d["checkpoint"], "pretrained"):
+           d["decode_seconds"] for d in docks.values()
+           if "decode_seconds" in d}}
+    return record
+
+
+def check_checkpoints(record):
+    """Phase 13's gates, applied after its line is printed."""
+    r = record
+    check(not r["loaded_before"],
+          f"checkpoints: {r['loaded_before']} were imported before phase 13")
+    check(r["v9p_best_vs_npz"]["equal"],
+          "checkpoints: v9p's best/ differs from best_params.npz")
+    for name, d in r["docks"].items():
+        check(d["finite"] and d["values_close"] and d["top1_same"],
+              f"checkpoints: {name} card vs CPU {d}")
+        n = d["launches"]
+        want = ENGINE_KERNELS[d["engine"]]
+        for total, route in want:
+            check(n[total] > 0 and n[route] == n[total],
+                  f"checkpoints: {name} on {d['engine']} launched "
+                  f"{n[total]} {total} ({n[route]} on {route}) {n}")
+        launched = {k for k in ("k1", "k2", "k3") if n[k]}
+        check(launched == {t for t, _ in want},
+              f"checkpoints: {name} on {d['engine']} launched {n}")
+    check(r["docks"]["v1_dft_fused"]["grid"] == 32
+          and r["docks"]["v2_dft_pallas"]["grid"] == 48,
+          "checkpoints: v1 / v2 not at grids 32 / 48")
+    s = r["resume_step"]
+    check(s["restored_step"] == s["restored_count"] == 3000
+          and s["steps_after"] == [3001, 3001]
+          and s["counts_after"] == [3001, 3001],
+          f"checkpoints: the resumed step {s}")
+    check(s["loss_rel_diff"] <= TRAIN_RTOL
+          and s["accuracy_abs_diff"] <= TRAIN_RTOL
+          and max(s["grad_rel_err"].values()) <= GRAD_TOL
+          and max(s["update_rel_err"].values()) <= UPDATE_TOL,
+          f"checkpoints: the resumed step, card vs CPU {s}")
+    check(s["moments_sound"],
+          f"checkpoints: v9p step 3000's Adam moments are not finite and "
+          f"nonzero with nu >= 0 {s}")
+    c = r["coupling_spectrum"]
+    check(len(c["lines"]) == 18 and c["lines"][-1].endswith(
+        f": {c['licensed_rank']}"),
+          f"checkpoints: coupling_spectrum {c}")
+
+
 def main():
     import numpy as np
     import torch
@@ -3581,6 +3851,15 @@ def main():
     p12 = multi_gpu(dev)
     emit("multi_gpu", card=card, **p12)
     check_multi_gpu(p12)
+
+    # ---- phase 13: the JAX package's Orbax checkpoints ----
+    t13 = time.perf_counter()
+    p13 = checkpoints(dev)
+    emit("checkpoints", card=card, seconds=time.perf_counter() - t13,
+         reduced=dict(rotations=f"{CKPT_ROTATIONS} per family dock "
+                                f"(cut from 256 for the CPU half)"),
+         **p13)
+    check_checkpoints(p13)
 
     def p12_count(config, name):
         """Phase 12's launches of counter ``name`` in the sharded dock of

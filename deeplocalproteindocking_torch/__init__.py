@@ -17,7 +17,9 @@ follow the JAX package so each function's counterpart is easy to find:
 * ``pipeline.py`` — ``DockingPipeline.dock``: structures in, ranked
   poses out;
 * ``train/``     — ranking-loss training: decoys, batches, the trainer,
-  FFT-mined hard negatives; ``train_flagship.py`` is its driver.
+  FFT-mined hard negatives; ``train_flagship.py`` is its driver;
+  ``train/checkpoint.py`` reads the JAX package's Orbax checkpoints
+  without JAX (``utils/zstd.py``, ``utils/ocdbt.py``, ``utils/zarr.py``).
 
 The package imports ``torch`` and numpy only; CUDA kernels are compiled
 from ``csrc/`` with ``nvcc`` on first use (``_build.py``).

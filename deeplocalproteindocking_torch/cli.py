@@ -9,10 +9,11 @@ and output files (``poses.json``, ``pose_NNN.pdb``, ``screen.json``,
 
 * ``--device {cuda,cpu}`` (default ``cuda``) is where every tensor lives;
   ``cuda`` without a visible card raises, it never falls back.
-* ``--checkpoint DIR`` loads the port's own ``DIR/step_*/state.pt`` (the
-  latest step, as the JAX restore takes) or else ``DIR/best_params.npz``
-  (``tools/export_torch_weights.py``'s export of an Orbax checkpoint).
-  Its ``config.json`` is the base config, as in the JAX CLI.
+* ``--checkpoint DIR`` loads the latest ``DIR/step_*``, as the JAX
+  restore takes it: the port's own ``state.pt`` or the JAX trainer's
+  Orbax checkpoint (read without JAX, ``train/checkpoint.py``); or else
+  ``DIR/best_params.npz``.  Its ``config.json`` is the base config, as
+  in the JAX CLI.
 * ``--mesh-rot`` and the config's ``mesh_batch`` above 1 run the
   command on a ``(rot, batch)`` mesh of ``torch.distributed`` ranks
   (``parallel/mesh.py``), one process per rank, every rank running the
@@ -139,31 +140,22 @@ def _mesh(cfg, device, command: str):
 
 
 
-def load_checkpoint_params(ckpt: str, cfg, device) -> dict:
-    """Params of checkpoint directory ``ckpt``: the latest
-    ``step_*/state.pt`` (``Trainer.save``), else ``best_params.npz``."""
-    from deeplocalproteindocking_torch import weights
-    from deeplocalproteindocking_torch.train.trainer import Trainer
-    steps = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
-    if any(os.path.exists(os.path.join(ckpt, d, "state.pt")) for d in steps):
-        return Trainer(cfg, device).restore(ckpt).params
-    npz = os.path.join(ckpt, "best_params.npz")
-    if os.path.exists(npz):
-        return weights.load_npz(npz)
-    if steps:
-        raise SystemExit(f"checkpoint {ckpt}: its steps ({steps[-1]}, ...) "
-                         f"hold no state.pt (an Orbax checkpoint of the JAX "
-                         f"package?) and there is no best_params.npz; "
-                         f"convert it with `python tools/export_torch_"
-                         f"weights.py {ckpt} {ckpt}/best_params.npz` where "
-                         f"JAX is installed")
-    raise SystemExit(f"checkpoint {ckpt}: no step_*/state.pt and no "
-                     f"best_params.npz")
+def load_checkpoint_params(ckpt: str) -> dict:
+    """Params of checkpoint directory ``ckpt``: its latest ``step_*``,
+    the port's ``state.pt`` (``Trainer.save``) or the JAX trainer's
+    Orbax checkpoint, as the JAX CLI takes it; else ``best_params.npz``.
+    A checkpoint that is missing or damaged exits naming it."""
+    from deeplocalproteindocking_torch.train import checkpoint
+    try:
+        return checkpoint.params_or_npz(
+            ckpt, os.path.join(ckpt, "best_params.npz"))
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"checkpoint {ckpt}: {e}") from e
 
 
 def _build_pipeline(cfg, checkpoint, device, mesh=None):
     from deeplocalproteindocking_torch.pipeline import DockingPipeline
-    params = (load_checkpoint_params(checkpoint, cfg, device)
+    params = (load_checkpoint_params(checkpoint)
               if checkpoint else None)
     return DockingPipeline(cfg, params=params, device=device, mesh=mesh)
 
@@ -300,7 +292,7 @@ def cmd_screen(args):
     device = _device(args)
     cfg = _build_config(args)
     mesh, device = _mesh(cfg, device, args.command)
-    params = (load_checkpoint_params(args.checkpoint, cfg, device)
+    params = (load_checkpoint_params(args.checkpoint)
               if args.checkpoint else None)
     svc = DockingService(cfg, params=params, device=device, mesh=mesh)
     rec = parse_structure(args.receptor).typed()
@@ -637,7 +629,7 @@ def cmd_doctor(args):
         from deeplocalproteindocking_torch.pipeline import (
             coupling_deviation_capture, min_licensed_rank)
         try:
-            params = load_checkpoint_params(args.checkpoint, cfg, "cpu")
+            params = load_checkpoint_params(args.checkpoint)
             A = params["coupling"].detach().cpu().numpy()
             sp = bool(cfg.shape_prior)
             lic = min_licensed_rank(A, shape_prior=sp)

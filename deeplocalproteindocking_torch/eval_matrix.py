@@ -12,7 +12,10 @@ orientation, +-8 A translations (the reference's local-docking
 evaluation).
 
 ``CKPT`` is a checkpoint directory holding ``config.json``; the learned
-rows load its weights from ``CKPT_params.npz`` beside it (the file
+rows load the weights of its latest ``step_*``, as the JAX script
+restores them: the port's ``state.pt`` or the JAX trainer's Orbax
+checkpoint, read without JAX (``train/checkpoint.py``).  A directory
+without steps falls back on ``CKPT_params.npz`` beside it (the file
 ``tools/export_torch_weights.py`` writes, e.g.
 ``pretrained/synthetic-v9p/best`` -> ``pretrained/synthetic-v9p/
 best_params.npz``).  The output JSON has the JAX script's layout and
@@ -39,13 +42,13 @@ from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
-from deeplocalproteindocking_torch import weights
 from deeplocalproteindocking_torch.config import DockConfig
 from deeplocalproteindocking_torch.data.benchmark import synthetic_band
 from deeplocalproteindocking_torch.evaluation import (grade_poses,
                                                       hit_summary,
                                                       local_dock_kwargs)
 from deeplocalproteindocking_torch.pipeline import DockingPipeline
+from deeplocalproteindocking_torch.train import checkpoint
 
 
 def heldout_complexes(n, widen=False, seed0=100, unbound=0.0,
@@ -236,6 +239,12 @@ def params_path(ckpt: str) -> str:
     return ckpt.rstrip("/") + "_params.npz"
 
 
+def checkpoint_params(ckpt: str) -> dict:
+    """The weights of checkpoint ``ckpt``: its latest step, else its
+    exported :func:`params_path`."""
+    return checkpoint.params_or_npz(ckpt, params_path(ckpt))
+
+
 def platform_name(device: torch.device) -> str:
     """The card's name, or ``"cpu"``."""
     if device.type == "cuda":
@@ -322,7 +331,7 @@ def run_matrix(ckpt: str, out_path: str, settings: Dict,
 
         # The learned model of the checkpoint.
         if params is None:
-            params = weights.load_npz(params_path(ckpt))
+            params = checkpoint_params(ckpt)
         lpipe = DockingPipeline(learned_config(ckpt, settings, mode),
                                 params=params, device=device)
         run_row(f"learned_{mode}",

@@ -1,5 +1,5 @@
 from deeplocalproteindocking_torch.grids.voxelize import (  # noqa: F401
-    separable_splat,
+    default_origin, separable_splat, splat,
 )
 from deeplocalproteindocking_torch.grids.rotate import (  # noqa: F401
     rotate_volume, rotate_volumes,

@@ -1,7 +1,9 @@
-"""Matmul-form separable Gaussian splat (atoms -> typed density grid).
+"""Gaussian splats (atoms -> typed density grid).
 
-Port of ``separable_splat`` in ``deeplocalproteindocking_tpu/grids/
-voxelize.py``.  The Gaussian factorizes per axis, so
+Port of ``deeplocalproteindocking_tpu/grids/voxelize.py``: ``splat``,
+the dense reference voxelizer (a window of ``window`` voxels per axis
+around each atom, scatter-added), and ``separable_splat``, the main
+path's matmul form.  The Gaussian factorizes per axis, so
 
     D[x, y, z, t] = sum_a Px[a, x] * Py[a, y] * Pz[a, z] * 1[type_a = t]
 
@@ -14,6 +16,63 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def default_origin(grid_size: int, resolution: float) -> torch.Tensor:
+    """Origin (corner of voxel 0) that centers the box on coordinate 0."""
+    half = 0.5 * grid_size * resolution
+    return torch.tensor([-half, -half, -half], dtype=torch.float32)
+
+
+def splat(coords: torch.Tensor,
+          types: torch.Tensor,
+          mask: Optional[torch.Tensor] = None,
+          *,
+          grid_size: int = 128,
+          resolution: float = 1.25,
+          sigma: float = 1.0,
+          window: int = 6,
+          num_types: int = 11,
+          origin: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Splat ``coords [N, 3]`` with ``types [N]`` into ``[L, L, L, T]``.
+
+    ``mask`` marks real atoms (padding rows excluded); atoms with type
+    ``< 0`` are excluded as well.  Each atom adds its Gaussian to the
+    ``window`` voxels per axis around it that lie inside the box.
+    Differentiable w.r.t. ``coords``.  Voxel ``i`` is centered at
+    ``origin + (i + 0.5) * resolution``.
+    """
+    L, W, T = grid_size, window, num_types
+    if origin is None:
+        origin = default_origin(L, resolution)
+    origin = origin.to(device=coords.device, dtype=coords.dtype)
+    if mask is None:
+        mask = torch.ones(coords.shape[:-1], dtype=coords.dtype,
+                          device=coords.device)
+    mask = mask.to(coords.dtype) * (types >= 0).to(coords.dtype)
+    tsafe = types.clamp(0, T - 1).long()
+    g = (coords - origin) / resolution - 0.5          # [N, 3]
+    base = torch.floor(g.detach()).long() - (W // 2 - 1)
+    offs = torch.arange(W, device=coords.device)
+
+    def axis_terms(axis):
+        idx = base[:, axis, None] + offs[None, :]      # [N, W]
+        d = (idx.to(g.dtype) - g[:, axis, None]) * resolution
+        w = torch.exp(-(d * d) / (2.0 * sigma * sigma))
+        w = torch.where((idx >= 0) & (idx < L), w, torch.zeros_like(w))
+        return idx.clamp(0, L - 1), w
+
+    ix, wx = axis_terms(0)
+    iy, wy = axis_terms(1)
+    iz, wz = axis_terms(2)
+    w = (wx[:, :, None, None] * wy[:, None, :, None] * wz[:, None, None, :]
+         * mask[:, None, None, None])
+    flat = (((ix[:, :, None, None] * L + iy[:, None, :, None]) * L
+             + iz[:, None, None, :]) * T + tsafe[:, None, None, None])
+    grid = torch.zeros(L * L * L * T, dtype=coords.dtype,
+                       device=coords.device)
+    grid = grid.index_add(0, flat.reshape(-1), w.reshape(-1))
+    return grid.reshape(L, L, L, T)
 
 
 def _contract(coords, tsafe, mask, L, T, resolution, sigma, origin):

@@ -86,3 +86,9 @@ def local_rotations(base: torch.Tensor, max_angle: float, n: int,
     angles = _interp(u, cdf, grid)
     local = axis_angle_to_matrix(axes, angles)
     return torch.einsum("nij,jk->nik", local, base.to(torch.float32))
+
+
+def geodesic_angle(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Rotation angle of ``R1 R2^T``: the SO(3) geodesic distance."""
+    tr = torch.einsum("...ij,...ij->...", R1, R2)
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))

@@ -7,12 +7,42 @@ rotation ``R`` acts as ``x -> x @ R.T``; ``apply_pose(x, R, t) = x @ R.T
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def rotate(coords: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Rotate ``[..., N, 3]`` coords by ``[..., 3, 3]`` rotations."""
     return torch.einsum("...ij,...nj->...ni", R, coords)
+
+
+def translate(coords: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Shift ``[..., N, 3]`` coords by ``[..., 3]``."""
+    return coords + t[..., None, :]
+
+
+def center_of_mass(coords: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean position over real atoms; ``mask`` is ``[..., N]`` bool or
+    float."""
+    if mask is None:
+        return coords.mean(dim=-2)
+    w = mask.to(coords.dtype)[..., None]
+    return (coords * w).sum(dim=-2) / torch.clamp(w.sum(dim=-2), min=1.0)
+
+
+def bounding_box(coords: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None):
+    """``(min, max)`` corners over real atoms (``+inf, -inf`` where no
+    atom is real)."""
+    if mask is None:
+        return coords.amin(dim=-2), coords.amax(dim=-2)
+    m = mask.to(torch.bool)[..., None]
+    inf = torch.tensor(torch.inf, dtype=coords.dtype, device=coords.device)
+    lo = torch.where(m, coords, inf).amin(dim=-2)
+    hi = torch.where(m, coords, -inf).amax(dim=-2)
+    return lo, hi
 
 
 def apply_pose(coords: torch.Tensor, R: torch.Tensor,

@@ -21,6 +21,8 @@ from deeplocalproteindocking_torch.correlate.fft import (
 from deeplocalproteindocking_torch.grids.rotate import rotate_volumes
 from deeplocalproteindocking_torch.sweep.topk import DockResult
 
+__all__ = ["DockResult", "dock_sweep"]
+
 
 def dock_sweep(rec_rep: torch.Tensor,
                lig_rep: torch.Tensor,

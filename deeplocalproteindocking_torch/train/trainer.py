@@ -20,8 +20,8 @@ A complex's D decoys are scored in one call, not one at a time under
 remat as in the JAX package.  ``TrainState`` is a value: a step loads
 it into the trainer's model and optimizer and returns a new one.
 Checkpoints are ``torch.save`` files in ``step_%08d/`` directories plus
-``config.json``, the JAX trainer's layout; Orbax checkpoints come across
-through ``weights.train_state_from_numpy``.
+``config.json``, the JAX trainer's layout; :meth:`Trainer.restore` also
+reads the JAX trainer's Orbax steps (``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -220,15 +220,8 @@ class Trainer:
     def restore(self, ckpt_dir: str, step: Optional[int] = None
                 ) -> TrainState:
         """The checkpoint of ``step`` (default: the latest) in
-        ``ckpt_dir``, params and moments on the trainer's device."""
-        if step is None:
-            steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
-                           if d.startswith("step_") and os.path.exists(
-                               os.path.join(ckpt_dir, d, "state.pt")))
-            if not steps:
-                raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-            step = steps[-1]
-        raw = torch.load(os.path.join(ckpt_dir, f"step_{step:08d}",
-                                      "state.pt"),
-                         map_location="cpu", weights_only=True)
-        return TrainState(**raw).to(self.device)
+        ``ckpt_dir``, params and moments on the trainer's device: the
+        step's ``state.pt``, else its Orbax checkpoint from the JAX
+        trainer (``train/checkpoint.py``; no generator state)."""
+        from deeplocalproteindocking_torch.train import checkpoint
+        return checkpoint.load_train_state(ckpt_dir, step).to(self.device)

@@ -20,7 +20,8 @@ Curriculum for global-docking wins, as the JAX script runs it:
 
 A run resumes from ``ckpt_dir``: the latest ``step_*`` checkpoint under
 the run's saved ``config.json``, the EMA weights (``ema/``), the mined
-buffer and ``best.json``.  A ``config.json`` with no checkpoint beside
+buffer and ``best.json``; the steps may be the port's ``state.pt`` or a
+run of the JAX script's Orbax checkpoints (``Trainer.restore``).  A ``config.json`` with no checkpoint beside
 it starts a run under that configuration.  As in the JAX script, whose
 checkpoints keep the run's first PRNG key, each checkpoint keeps the data
 generator's state from ``Trainer.init_state``: a resumed run draws its

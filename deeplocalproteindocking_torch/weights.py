@@ -1,21 +1,23 @@
 """Checkpoint weights: the flax parameter tree -> the port's state_dict.
 
-Checkpoints are Orbax directories written by the JAX trainer; reading
-them needs JAX.  ``tools/export_torch_weights.py`` (run where JAX is
-installed) flattens a restored tree into an ``.npz`` with ``/``-joined
-keys, e.g. ``coupling`` and ``representation/cnn/conv0/kernel``; this
-module maps such a flat dict onto ``ScoringModel``'s state_dict.
+Checkpoints are Orbax directories written by the JAX trainer;
+``train/checkpoint.py`` reads them without JAX into flat dicts with
+``/``-joined keys, e.g. ``coupling`` and
+``representation/cnn/conv0/kernel`` (the layout of the ``.npz`` files
+that ``tools/export_torch_weights.py`` writes, such as
+``pretrained/synthetic-v9p/best_params.npz``); this module maps such a
+flat dict onto ``ScoringModel``'s state_dict.
 
 Flax conv kernels are ``[kx, ky, kz, C_in, C_out]``; torch's are
 ``[C_out, C_in, kx, ky, kz]``.  A whole training state (params, optax's
 Adam moments, the update count) comes across the same way
-(``--train-state``; :func:`train_state_from_numpy`), so the port can
-resume a JAX run.
+(:func:`train_state_from_numpy`), so the port can resume a JAX run.
 """
 from __future__ import annotations
 
 import os
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,25 +53,16 @@ def load_npz(path: str | os.PathLike) -> dict:
 
 
 def train_state_from_numpy(flat_params: dict, flat_mu: dict,
-                           flat_nu: dict, count: int):
+                           flat_nu: dict, count: int,
+                           step: Optional[int] = None):
     """A JAX trainer's state as the port's ``TrainState``: flat flax
     params and optax's Adam moments (``mu``, ``nu``, the same keys), its
-    update count as the step.  Moments map like their params (conv
-    kernels transposed).  No data-generator state: JAX's PRNG streams
-    cannot be continued in torch."""
+    update count and its step (default: the count).  Moments map like
+    their params (conv kernels transposed).  No data-generator state:
+    JAX's PRNG streams cannot be continued in torch."""
     from deeplocalproteindocking_torch.train.trainer import TrainState
     opt = {"mu": params_from_numpy(flat_mu), "nu": params_from_numpy(flat_nu),
            "count": int(count)}
-    return TrainState(params_from_numpy(flat_params), opt, int(count), None)
+    return TrainState(params_from_numpy(flat_params), opt,
+                      int(count if step is None else step), None)
 
-
-def load_train_state(path: str | os.PathLike):
-    """Load a ``tools/export_torch_weights.py --train-state`` file
-    (``params/<key>``, ``mu/<key>``, ``nu/<key>``, ``count``) as a
-    ``TrainState`` on the CPU."""
-    with np.load(path) as z:
-        part = {p: {k.split("/", 1)[1]: z[k] for k in z.files
-                    if k.startswith(p + "/")}
-                for p in ("params", "mu", "nu")}
-        return train_state_from_numpy(part["params"], part["mu"],
-                                      part["nu"], int(z["count"]))

@@ -3,8 +3,8 @@ against the JAX package's CLI, in process through each ``main([...])``,
 on the CPU at small sizes.
 
 ``generate-dataset`` byte for byte; ``dock`` with the v9p checkpoint
-(the port reads ``best_params.npz``, the JAX CLI the Orbax steps of
-``best/``: the same step-500 weights) at float32, poses.json's scores
+(both CLIs restore the Orbax steps of ``best/``: the step-500 weights;
+the port without JAX) at float32, poses.json's scores
 within the float32 tolerance of ``test_torch_pipeline.py`` (rtol 1e-4,
 atol 1e-3) and the same top-1 shift and rotation; ``screen``'s ranking
 and ``evaluate``'s per-complex hit decisions against the JAX CLI's
@@ -15,6 +15,7 @@ batch again, as the JAX CLI does); the port's own error paths, and
 import argparse
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -100,7 +101,7 @@ def test_dock_v9p_matches_jax_cli(dataset, tmp_path):
     a, b = str(tmp_path / "port"), str(tmp_path / "jax")
     flags = ["--receptor", rec, "--ligand", lig, "--num-rotations", "16",
              "--top-k", "8", "--num-out", "2"]
-    tcli.main(["dock", "--out", a, "--checkpoint", V9P_DIR] + flags + CPU)
+    tcli.main(["dock", "--out", a, "--checkpoint", V9P_CKPT] + flags + CPU)
     jcli.main(["dock", "--out", b, "--checkpoint", V9P_CKPT] + flags)
     got, want = _poses(a), _poses(b)
     assert len(got) == len(want) > 0
@@ -291,8 +292,17 @@ def test_error_paths(dataset, tmp_path, monkeypatch):
     orbax = tmp_path / "orbax"
     (orbax / "step_00000500").mkdir(parents=True)
     (orbax / "step_00000500" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(SystemExit, match="export_torch_weights"):
+    with pytest.raises(SystemExit, match="no step_.* Orbax checkpoint"):
         tcli.main(dock + ["--checkpoint", str(orbax)] + CPU)
+    # A damaged Orbax step (a B-tree node's byte flipped) exits naming it.
+    broken = tmp_path / "broken"
+    shutil.copytree(V9P_CKPT, broken)
+    node = next((broken / "step_00000500" / "d").iterdir())
+    raw = bytearray(node.read_bytes())
+    raw[len(raw) // 2] ^= 0x40
+    node.write_bytes(bytes(raw))
+    with pytest.raises(SystemExit, match="CRC-32C differs"):
+        tcli.main(dock + ["--checkpoint", str(broken)] + CPU)
     # A mesh needs a process group: without torchrun it names the line.
     with pytest.raises(SystemExit,
                        match="torchrun --nproc-per-node 2 -m "

@@ -188,12 +188,14 @@ def test_port_imports_without_jax():
     training paths, the multi-device layer (``parallel/``,
     ``measure_scaling``, the CLI's mesh path, which without ranks raises
     with the torchrun line), ``measure_256``, the CLI, the native
-    parsers' bindings, mmCIF, the map writers and the profiling hooks
-    import where jax,
-    flax, optax and orbax are absent, never load the JAX package itself,
+    parsers' bindings, mmCIF, the map writers, the profiling hooks and
+    the Orbax checkpoint reader import where jax, flax, optax, orbax,
+    tensorstore and zstandard are absent, never load the JAX package
+    itself,
     and open no file under it (no module of the JAX package run on its
     own, as a file); a polymer complex builds there, and its PDB and an
-    mmCIF file parse."""
+    mmCIF file parse; v9p's ``best/`` Orbax checkpoint restores there,
+    equal to its export, and ``coupling_spectrum`` reads v5u's."""
     code = (
         "import os, sys\n"
         "tpu = os.sep + 'deeplocalproteindocking_tpu' + os.sep\n"
@@ -203,7 +205,8 @@ def test_port_imports_without_jax():
         "            and tpu in os.path.abspath(args[0])):\n"
         "        opened.append(args[0])\n"
         "sys.addaudithook(hook)\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "          'tensorstore', 'zstandard'):\n"
         "    sys.modules[m] = None\n"
         "import deeplocalproteindocking_torch.pipeline\n"
         "import deeplocalproteindocking_torch.weights\n"
@@ -258,6 +261,15 @@ def test_port_imports_without_jax():
         "            'ATOM CA 1.0 2.0 3.0\\n')\n"
         "assert len(mmcif.parse_structure(os.path.join(d, 'l.pdb'))) > 0\n"
         "assert len(mmcif.parse_structure(os.path.join(d, 'l.cif'))) == 1\n"
+        "from deeplocalproteindocking_torch.train import checkpoint\n"
+        "from deeplocalproteindocking_torch import coupling_spectrum\n"
+        "from deeplocalproteindocking_torch.weights import load_npz\n"
+        "st = checkpoint.load_train_state('pretrained/synthetic-v9p/best')\n"
+        "npz = load_npz('pretrained/synthetic-v9p/best_params.npz')\n"
+        "assert st.step == 500 and st.opt_state['count'] == 500\n"
+        "assert all((st.params[k] == npz[k]).all() for k in npz)\n"
+        "assert coupling_spectrum.spectrum_lines(\n"
+        "    'pretrained/synthetic-v5u/best')[-1].endswith(': 4')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.startswith('deeplocalproteindocking_tpu')]\n"
         "assert not bad, bad\n"

@@ -17,7 +17,6 @@ atol 2e-5 (``tests/test_parallel.py``'s own).  The CLI's ``dock``,
 ``--mesh-rot 1`` in one process: scores rtol 1e-5, params after
 training at the train step's tolerances.
 """
-import importlib.util
 import json
 import os
 import re
@@ -30,7 +29,7 @@ import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 import torch_dist_workers as W
-from torch_parity import ROOT, np_, t_
+from torch_parity import np_, t_
 
 from deeplocalproteindocking_torch import cli as tcli
 from deeplocalproteindocking_torch import weights
@@ -61,11 +60,6 @@ from deeplocalproteindocking_tpu.structure.so3 import (
 from deeplocalproteindocking_tpu.train import data_gen as jdata
 from deeplocalproteindocking_tpu.train import trainer as jtrainer
 
-_spec = importlib.util.spec_from_file_location(
-    "export_torch_weights", os.path.join(ROOT, "tools",
-                                         "export_torch_weights.py"))
-export = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(export)
 
 
 def _jmesh(rot=1, batch=1):
@@ -129,9 +123,8 @@ def worlds(tmp_path_factory, train_setup, cli_dataset):
     """Both worlds started at once; the JAX side computes while they
     run."""
     tmp4 = str(tmp_path_factory.mktemp("world4"))
-    _, state, batch = train_setup
-    np.savez(os.path.join(tmp4, "train_state.npz"),
-             **export.train_state_arrays(state))
+    jt, state, batch = train_setup
+    jt.save(tmp4, state)
     np.savez(os.path.join(tmp4, "train_batch.npz"),
              **{f: np.asarray(v) for f, v in zip(TrainBatch._fields, batch)})
     tmp2 = str(tmp_path_factory.mktemp("world2"))

@@ -16,7 +16,6 @@ gradients 1e-6; parameters after a whole step 1e-2 lr, except where
 |g| < 1e-3 max|g|: there Adam's first step is lr times the sign of a
 gradient that rounding may flip, so 2 lr.
 """
-import importlib.util
 import inspect
 import os
 
@@ -28,7 +27,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
-from torch_parity import ROOT, V9P_DIR, jax_config, np_, t_
+from torch_parity import V9P_DIR, jax_config, np_, t_
 
 from deeplocalproteindocking_torch import train_flagship, weights
 from deeplocalproteindocking_torch.config import DockConfig
@@ -36,6 +35,7 @@ from deeplocalproteindocking_torch.data import synthetic_complex
 from deeplocalproteindocking_torch.data.benchmark import synthetic_band
 from deeplocalproteindocking_torch.structure.transforms import (
     apply_pose, random_rotations)
+from deeplocalproteindocking_torch.train import checkpoint
 from deeplocalproteindocking_torch.train import decoys as tdecoys
 from deeplocalproteindocking_torch.train import losses as tlosses
 from deeplocalproteindocking_torch.train import mining as tmining
@@ -53,11 +53,6 @@ from deeplocalproteindocking_tpu.train import mining as jmining
 from deeplocalproteindocking_tpu.train import scoring_path as jscoring
 from deeplocalproteindocking_tpu.train import trainer as jtrainer
 
-_spec = importlib.util.spec_from_file_location(
-    "export_torch_weights", os.path.join(ROOT, "tools",
-                                         "export_torch_weights.py"))
-export = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(export)
 
 LR = 1e-3
 
@@ -424,13 +419,12 @@ def test_train_step_matches_jax(setup, jax_steps):
 
 
 def test_train_state_from_jax_continues(setup, jax_steps, tmp_path):
-    """The JAX state after 2 steps, carried across as the export tool
-    writes it (``--train-state``), then one more step on each side."""
-    path = tmp_path / "ts.npz"
-    np.savez(path, **export.train_state_arrays(jax_steps[2]))
-    state = weights.load_train_state(path)
+    """The JAX state after 2 steps, saved by the JAX trainer (Orbax) and
+    restored by the port's reader, then one more step on each side."""
+    setup["jt"].save(str(tmp_path), jax_steps[2])
+    state = checkpoint.load_train_state(str(tmp_path))
     assert state.step == state.opt_state["count"] == 2 and state.rng is None
-    assert int(np.load(path)["step"]) == 2
+    assert os.path.isdir(tmp_path / "step_00000002")
     for name, v in _to_port(jax_steps[2].params).items():
         assert torch.equal(state.params[name], v)
     opt = jax_steps[2].opt_state[0]                    # ScaleByAdamState

@@ -181,14 +181,14 @@ def _all_gather_grad(rank, world):
 def _train(tmp, rot, batch, steps=3):
     """``make_parallel_train_step`` on the JAX state and batch the test
     wrote: the loss and params after each step."""
-    from deeplocalproteindocking_torch import weights
     from deeplocalproteindocking_torch.parallel import make_mesh
     from deeplocalproteindocking_torch.parallel.train_parallel import (
         make_parallel_train_step)
+    from deeplocalproteindocking_torch.train import checkpoint
     from deeplocalproteindocking_torch.train.trainer import (
         TrainBatch, Trainer)
     cfg = train_cfg()
-    state = weights.load_train_state(os.path.join(tmp, "train_state.npz"))
+    state = checkpoint.load_train_state(tmp)
     with np.load(os.path.join(tmp, "train_batch.npz")) as z:
         tb = TrainBatch(*(torch.from_numpy(z[f]) for f in TrainBatch._fields))
     step = make_parallel_train_step(Trainer(cfg, device="cpu"),

@@ -1,20 +1,18 @@
-"""Export a JAX checkpoint's params to a flat ``.npz`` for the torch port.
+"""Export a JAX checkpoint's params to a flat ``.npz``.
 
-The PyTorch port (``deeplocalproteindocking_torch``) cannot read Orbax
-checkpoints, which need JAX.  This tool restores a checkpoint directory
-with the JAX trainer, flattens the flax parameter tree to ``/``-joined
-keys and writes them with ``np.savez``; the port loads the file with
-``deeplocalproteindocking_torch.weights.load_npz``.
+The PyTorch port (``deeplocalproteindocking_torch``) reads the JAX
+trainer's Orbax checkpoints itself (``train/checkpoint.py``), so this
+export is no longer needed to dock, evaluate or resume there.  It stays
+for the files it wrote, which the port still loads where a checkpoint
+directory has no steps (``deeplocalproteindocking_torch.weights.load_npz``):
+it restores a checkpoint directory with the JAX trainer, flattens the
+flax parameter tree to ``/``-joined keys and writes them with
+``np.savez``.
 
     python tools/export_torch_weights.py [ckpt_dir] [out.npz]
-    python tools/export_torch_weights.py --train-state ckpt_dir out.npz
 
 Defaults: ``pretrained/synthetic-v9p/best`` ->
-``pretrained/synthetic-v9p/best_params.npz``.  With ``--train-state`` the
-file holds the whole training state of the checkpoint: ``params/<key>``,
-optax's Adam moments ``mu/<key>`` and ``nu/<key>``, their update
-``count`` and the trainer's ``step``; the port reads it with
-``weights.load_train_state`` and can resume the run from there.
+``pretrained/synthetic-v9p/best_params.npz``.
 """
 from __future__ import annotations
 
@@ -51,41 +49,15 @@ def restored_params(ckpt_dir: str) -> dict:
     return _flat(restored_state(ckpt_dir).params)
 
 
-def train_state_arrays(state) -> dict:
-    """A JAX ``TrainState`` as flat arrays: ``params/<key>``, ``mu/<key>``,
-    ``nu/<key>`` (optax's ``ScaleByAdamState``), ``count``, ``step``."""
-    import jax
-    import optax
-    adam = [s for s in jax.tree_util.tree_leaves(
-                state.opt_state,
-                is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
-            if isinstance(s, optax.ScaleByAdamState)]
-    if len(adam) != 1:
-        raise ValueError(f"expected one Adam state, found {len(adam)}")
-    out = {}
-    for part, tree in (("params", state.params), ("mu", adam[0].mu),
-                       ("nu", adam[0].nu)):
-        out.update({f"{part}/{k}": v for k, v in _flat(tree).items()})
-    out["count"] = np.asarray(adam[0].count, dtype=np.int64)
-    out["step"] = np.asarray(state.step, dtype=np.int64)
-    return out
-
-
 def main(argv):
     ap = argparse.ArgumentParser(
         prog="python tools/export_torch_weights.py",
         description="Export a JAX checkpoint for the torch port.")
     ap.add_argument("ckpt", nargs="?", default=DEFAULT_CKPT)
     ap.add_argument("out", nargs="?", default=None)
-    ap.add_argument("--train-state", action="store_true",
-                    help="also write the optimizer state and step")
     args = ap.parse_args(argv[1:])
-    if args.train_state:
-        out = args.out or args.ckpt.rstrip("/") + "_train_state.npz"
-        flat = train_state_arrays(restored_state(args.ckpt))
-    else:
-        out = args.out or DEFAULT_OUT
-        flat = restored_params(args.ckpt)
+    out = args.out or DEFAULT_OUT
+    flat = restored_params(args.ckpt)
     np.savez(out, **flat)
     n = sum(v.size for v in flat.values())
     print(f"wrote {out}: {len(flat)} arrays, {n} values")
