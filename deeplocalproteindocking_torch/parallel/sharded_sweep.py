@@ -33,6 +33,7 @@ from deeplocalproteindocking_torch.parallel.collectives import merge_topk
 from deeplocalproteindocking_torch.sweep.docker import dock_sweep
 from deeplocalproteindocking_torch.sweep.resplat import dock_sweep_resplat
 from deeplocalproteindocking_torch.sweep.topk import DockResult
+from deeplocalproteindocking_torch.utils.profiling import span
 
 
 def dim_size(mesh, name: str) -> int:
@@ -60,11 +61,12 @@ def merge_rot_shards(mesh, res: DockResult, base: int, n_rot: int,
                      top_k: int) -> DockResult:
     """A rank's ``DockResult`` (``[K]`` or ``[b, K]``) rebased by ``base``,
     padding killed, merged over the ``rot`` dimension."""
-    rot_idx = res.rot_idx + base
-    scores = torch.where(rot_idx < n_rot, res.scores,
-                         torch.tensor(float("-inf"), device=rot_idx.device))
-    return DockResult(*merge_topk(scores, rot_idx, res.shifts,
-                                  mesh.get_group("rot"), top_k))
+    with span("parallel.merge"):
+        rot_idx = res.rot_idx + base
+        scores = torch.where(rot_idx < n_rot, res.scores, torch.tensor(
+            float("-inf"), device=rot_idx.device))
+        return DockResult(*merge_topk(scores, rot_idx, res.shifts,
+                                      mesh.get_group("rot"), top_k))
 
 
 def sharded_dock_sweep(mesh,

@@ -66,6 +66,7 @@ from deeplocalproteindocking_torch.sweep.docker import dock_sweep
 from deeplocalproteindocking_torch.sweep.refine import refine_poses
 from deeplocalproteindocking_torch.sweep.resplat import (
     auto_ligand_grid, dock_sweep_resplat)
+from deeplocalproteindocking_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -442,7 +443,8 @@ class DockingPipeline:
             prep = self._prepare(rec, lig)
         rec_c, lig_c, rep_rec, rep_lig, coupling = prep
         if engine is None:
-            engine = self._engine_parts(rep_rec, coupling)
+            with span("dock.receptor"):
+                engine = self._engine_parts(rep_rec, coupling)
         lig_dev = structure_to_device(
             lig_c, bucket=cfg.atom_bucket or None, device=self.device)
         lig_grid = cfg.lig_grid_size or auto_ligand_grid(
@@ -466,52 +468,57 @@ class DockingPipeline:
         ``sweep/docker.dock_sweep`` instead, and ``engine`` is unused.
         With a mesh the sweep is its rotation-sharded form.
         """
-        cfg = self.config
-        if rotations is None:
-            rotations = self.rotation_set()
-        rotations = torch.as_tensor(rotations, dtype=torch.float32,
-                                    device=self.device)
-        if prep is None:
-            prep = self._prepare(rec, lig)
-        _, lig_c, rep_rec, rep_lig, coupling = prep
-        score_mask = dock_score_mask(cfg, lig_c, translation_center,
-                                     max_shift, device=self.device)
-        if cfg.sweep_mode == "resplat":
-            _, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
-                rec, lig, prep, engine)
-            impl, H, rep_fn = engine
-            kw = dict(grid_size=cfg.grid_size, lig_grid=lig_grid,
-                      resolution=cfg.resolution, sigma=cfg.sigma,
-                      num_types=cfg.num_atom_types, top_k=cfg.top_k,
-                      chunk=cfg.rotation_chunk, score_mask=score_mask,
-                      fft_impl=impl, dft_dtype=cfg.dft_dtype,
-                      topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
-            if self.mesh is not None:
-                res = sharded_dock_sweep_resplat(
-                    self.mesh, H, lc, lt, lm, rotations, rep_fn, **kw)
+        with span("dock", root=True):
+            cfg = self.config
+            if rotations is None:
+                rotations = self.rotation_set()
+            rotations = torch.as_tensor(rotations, dtype=torch.float32,
+                                        device=self.device)
+            if prep is None:
+                with span("dock.prepare"):
+                    prep = self._prepare(rec, lig)
+            _, lig_c, rep_rec, rep_lig, coupling = prep
+            score_mask = dock_score_mask(cfg, lig_c, translation_center,
+                                         max_shift, device=self.device)
+            if cfg.sweep_mode == "resplat":
+                _, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+                    rec, lig, prep, engine)
+                impl, H, rep_fn = engine
+                kw = dict(grid_size=cfg.grid_size, lig_grid=lig_grid,
+                          resolution=cfg.resolution, sigma=cfg.sigma,
+                          num_types=cfg.num_atom_types, top_k=cfg.top_k,
+                          chunk=cfg.rotation_chunk, score_mask=score_mask,
+                          fft_impl=impl, dft_dtype=cfg.dft_dtype,
+                          topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
+                if self.mesh is not None:
+                    res = sharded_dock_sweep_resplat(
+                        self.mesh, H, lc, lt, lm, rotations, rep_fn, **kw)
+                else:
+                    res = dock_sweep_resplat(H, lc, lt, lm, rotations,
+                                             rep_fn, **kw)
+            elif self.mesh is not None:
+                res = sharded_dock_sweep(
+                    self.mesh, rep_rec, rep_lig, rotations, coupling,
+                    top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+                    score_mask=score_mask)
             else:
-                res = dock_sweep_resplat(H, lc, lt, lm, rotations, rep_fn,
-                                         **kw)
-        elif self.mesh is not None:
-            res = sharded_dock_sweep(
-                self.mesh, rep_rec, rep_lig, rotations, coupling,
-                top_k=cfg.top_k, chunk=cfg.rotation_chunk,
-                score_mask=score_mask)
-        else:
-            res = dock_sweep(rep_rec, rep_lig, rotations, coupling,
-                             top_k=cfg.top_k, chunk=cfg.rotation_chunk,
-                             score_mask=score_mask)
-        scores = _host(res.scores)
-        rot_idx = _host(res.rot_idx)
-        shifts = _host(res.shifts)
-        Rs = _host(rotations)[rot_idx]
-        poses = PoseSet(scores=scores, rotations=Rs,
-                        translations=shifts.astype(np.float32)
-                        * cfg.resolution,
-                        rot_idx=rot_idx, shifts=shifts)
-        if cluster:
-            poses = cluster_pose_set(lig_c.coords, poses, cfg.nms_rmsd)
-        return poses
+                res = dock_sweep(rep_rec, rep_lig, rotations, coupling,
+                                 top_k=cfg.top_k, chunk=cfg.rotation_chunk,
+                                 score_mask=score_mask)
+            with span("dock.readback"):
+                scores = _host(res.scores)
+                rot_idx = _host(res.rot_idx)
+                shifts = _host(res.shifts)
+                Rs = _host(rotations)[rot_idx]
+            poses = PoseSet(scores=scores, rotations=Rs,
+                            translations=shifts.astype(np.float32)
+                            * cfg.resolution,
+                            rot_idx=rot_idx, shifts=shifts)
+            if cluster:
+                with span("dock.cluster"):
+                    poses = cluster_pose_set(lig_c.coords, poses,
+                                             cfg.nms_rmsd)
+            return poses
 
     def dock_complex(self, cplx: Complex, **kw) -> PoseSet:
         return self.dock(cplx.receptor, cplx.ligand, **kw)
@@ -704,71 +711,72 @@ class DockingPipeline:
         under ``"topmean"`` the whole set is re-sorted on
         ``rank_scores``.
         """
-        cfg = self.config
-        n = min(top, len(poses))
-        if n == 0:
-            return poses
-        lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
-            rec, lig, prep, engine)
-        impl, H, rep_fn = engine
-        dev = self.device
-        head_rots = []
-        for i in range(n):
-            base = torch.tensor(poses.rotations[i], dtype=torch.float32,
-                                device=dev)
-            cone = local_rotations(base, np.deg2rad(cone_deg), nrot)
-            head_rots.append(torch.cat([base[None], cone[:-1]]))
-        head_rots = torch.stack(head_rots)              # [n, nrot, 3, 3]
-        guard = dock_score_mask(cfg, lig_c, device=dev)
-        masks = []
-        for i in range(n):
-            m = translation_mask(cfg.grid_size, int(shift_vox),
-                                 torch.tensor(poses.shifts[i]),
-                                 device=dev)
-            masks.append(m if guard is None else m & guard)
-        head_masks = torch.stack(masks)                 # [n, L, L, L]
-        K = max(agg_top if aggregate == "topmean" else 1, 1)
-        # The head axis multiplies every per-step activation by n, so the
-        # per-head rotation chunk shrinks by the same factor.
-        chunk = max(1, min(cfg.rotation_chunk, nrot) // max(n, 1))
-        res = dock_sweep_resplat(
-            H, lc, lt, lm, head_rots, rep_fn, grid_size=cfg.grid_size,
-            lig_grid=lig_grid, resolution=cfg.resolution, sigma=cfg.sigma,
-            num_types=cfg.num_atom_types, top_k=K, chunk=chunk,
-            score_mask=head_masks, fft_impl=impl, dft_dtype=cfg.dft_dtype,
-            topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
-        scores = _host(res.scores)                      # [n, K]
-        rot_idx = _host(res.rot_idx)
-        shifts = _host(res.shifts)                      # [n, K, 3]
-        best = scores[:, 0]
-        rank = (scores[:, :agg_top].mean(axis=1)
-                if aggregate == "topmean" else best)
-        Rs = _host(head_rots)[np.arange(n), rot_idx[:, 0]]
-        ts = shifts[:, 0].astype(np.float32) * cfg.resolution
-        order = np.argsort(-rank)
-        # Under "max" every rescored head is >= its coarse score, which
-        # was >= every tail score, so heads-then-tail stays sorted; a
-        # "topmean" head can fall below a tail pose, so that set is
-        # re-sorted jointly.
-        tail = slice(n, len(poses))
-        out = PoseSet(
-            scores=np.concatenate([best[order],
-                                   poses.scores[tail]]).astype(np.float32),
-            rotations=np.concatenate([Rs[order], poses.rotations[tail]]),
-            translations=np.concatenate([ts[order],
-                                         poses.translations[tail]]),
-            rot_idx=np.concatenate([np.full(n, -1, np.int32),
-                                    poses.rot_idx[tail]]),
-            shifts=np.concatenate([shifts[order, 0], poses.shifts[tail]]),
-            rank_scores=np.concatenate([rank[order],
-                                        poses.scores[tail]]).astype(
-                                            np.float32),
-        )
-        if aggregate == "topmean" and len(poses) > n:
-            joint = np.argsort(-out.rank_scores, kind="stable")
-            out = PoseSet(*(np.asarray(f)[joint] for f in out[:5]),
-                          rank_scores=out.rank_scores[joint])
-        return out
+        with span("rescore", root=True):
+            cfg = self.config
+            n = min(top, len(poses))
+            if n == 0:
+                return poses
+            lig_c, engine, (lc, lt, lm), lig_grid = self._stage_inputs(
+                rec, lig, prep, engine)
+            impl, H, rep_fn = engine
+            dev = self.device
+            head_rots = []
+            for i in range(n):
+                base = torch.tensor(poses.rotations[i], dtype=torch.float32,
+                                    device=dev)
+                cone = local_rotations(base, np.deg2rad(cone_deg), nrot)
+                head_rots.append(torch.cat([base[None], cone[:-1]]))
+            head_rots = torch.stack(head_rots)              # [n, nrot, 3, 3]
+            guard = dock_score_mask(cfg, lig_c, device=dev)
+            masks = []
+            for i in range(n):
+                m = translation_mask(cfg.grid_size, int(shift_vox),
+                                     torch.tensor(poses.shifts[i]),
+                                     device=dev)
+                masks.append(m if guard is None else m & guard)
+            head_masks = torch.stack(masks)                 # [n, L, L, L]
+            K = max(agg_top if aggregate == "topmean" else 1, 1)
+            # The head axis multiplies every per-step activation by n, so the
+            # per-head rotation chunk shrinks by the same factor.
+            chunk = max(1, min(cfg.rotation_chunk, nrot) // max(n, 1))
+            res = dock_sweep_resplat(
+                H, lc, lt, lm, head_rots, rep_fn, grid_size=cfg.grid_size,
+                lig_grid=lig_grid, resolution=cfg.resolution, sigma=cfg.sigma,
+                num_types=cfg.num_atom_types, top_k=K, chunk=chunk,
+                score_mask=head_masks, fft_impl=impl, dft_dtype=cfg.dft_dtype,
+                topk_impl=cfg.topk_impl, fft_block=cfg.fft_block)
+            scores = _host(res.scores)                      # [n, K]
+            rot_idx = _host(res.rot_idx)
+            shifts = _host(res.shifts)                      # [n, K, 3]
+            best = scores[:, 0]
+            rank = (scores[:, :agg_top].mean(axis=1)
+                    if aggregate == "topmean" else best)
+            Rs = _host(head_rots)[np.arange(n), rot_idx[:, 0]]
+            ts = shifts[:, 0].astype(np.float32) * cfg.resolution
+            order = np.argsort(-rank)
+            # Under "max" every rescored head is >= its coarse score, which
+            # was >= every tail score, so heads-then-tail stays sorted; a
+            # "topmean" head can fall below a tail pose, so that set is
+            # re-sorted jointly.
+            tail = slice(n, len(poses))
+            out = PoseSet(
+                scores=np.concatenate([best[order],
+                                       poses.scores[tail]]).astype(np.float32),
+                rotations=np.concatenate([Rs[order], poses.rotations[tail]]),
+                translations=np.concatenate([ts[order],
+                                             poses.translations[tail]]),
+                rot_idx=np.concatenate([np.full(n, -1, np.int32),
+                                        poses.rot_idx[tail]]),
+                shifts=np.concatenate([shifts[order, 0], poses.shifts[tail]]),
+                rank_scores=np.concatenate([rank[order],
+                                            poses.scores[tail]]).astype(
+                                                np.float32),
+            )
+            if aggregate == "topmean" and len(poses) > n:
+                joint = np.argsort(-out.rank_scores, kind="stable")
+                out = PoseSet(*(np.asarray(f)[joint] for f in out[:5]),
+                              rank_scores=out.rank_scores[joint])
+            return out
 
     # ---- continuous refinement (sweep/refine.py) ----
     def refine(self, rec: Structure, lig: Structure, poses: PoseSet,

@@ -40,6 +40,7 @@ from deeplocalproteindocking_torch.grids.voxelize import separable_splat
 from deeplocalproteindocking_torch.sweep.refine import continuous_score
 from deeplocalproteindocking_torch.sweep.topk import (
     DockResult, exact_block_topk)
+from deeplocalproteindocking_torch.utils.profiling import span
 
 ENGINES = ("dft_fused", "dft", "dft_pallas", "xla", "block")
 
@@ -235,11 +236,10 @@ def dock_sweep_resplat(H: torch.Tensor,
     fused = fused_topk_engaged(fused_topk, fft_impl, topk_impl, L, device)
     neg_inf = torch.tensor(float("-inf"), device=device)
 
-    best = torch.full((n, top_k), float("-inf"), device=device)
-    best_rot = torch.zeros((n, top_k), dtype=torch.int32, device=device)
-    best_flat = torch.zeros((n, top_k), dtype=torch.int64, device=device)
-    with torch.inference_mode():
-        for base in range(0, rotations.shape[1], chunk):
+    def one_chunk(base, best, best_rot, best_flat):
+        # The chunk's phases, each a span (utils/profiling.py): a
+        # profiler range only while a profiler records, host time always.
+        with span("sweep.rotate"):
             Rc = rotations[:, base:base + chunk]          # [n, chunk, 3, 3]
             if complexes:
                 coords_r = torch.einsum("gbij,gnj->gbni", Rc, lig_coords)
@@ -249,11 +249,14 @@ def dock_sweep_resplat(H: torch.Tensor,
                                         Rc.reshape(n * chunk, 3, 3),
                                         lig_coords)
                 types, mask = lig_types, lig_mask
+        with span("sweep.splat"):
             vols = separable_splat(coords_r, types, mask,
                                    grid_size=lig_grid,
                                    resolution=resolution, sigma=sigma,
                                    num_types=num_types)
+        with span("sweep.cnn"):
             reps = rep_fn(vols.reshape((n * chunk,) + vols.shape[-4:]))
+        with span("sweep.correlate"):
             if fused:
                 vals, flat = _fused_correlate_topk(
                     Ht, reps, L, lig_grid, dft_dtype, score_mask, top_k)
@@ -269,6 +272,7 @@ def dock_sweep_resplat(H: torch.Tensor,
                                     neg_inf)
                 vals, flat = exact_block_topk(
                     S.reshape(n * chunk, L * L * L), top_k)
+        with span("sweep.merge"):
             rot_ids = torch.arange(base, base + chunk, dtype=torch.int32,
                                    device=device)
             vals = torch.where((rot_ids < num_valid)[:, None],
@@ -278,8 +282,17 @@ def dock_sweep_resplat(H: torch.Tensor,
                 top_k).expand(n, -1)], dim=1)
             all_flat = torch.cat([best_flat, flat.reshape(n, -1)], dim=1)
             best, sel = torch.topk(all_scores, top_k, dim=1)
-            best_rot = torch.gather(all_rot, 1, sel)
-            best_flat = torch.gather(all_flat, 1, sel)
+            return (best, torch.gather(all_rot, 1, sel),
+                    torch.gather(all_flat, 1, sel))
+
+    best = torch.full((n, top_k), float("-inf"), device=device)
+    best_rot = torch.zeros((n, top_k), dtype=torch.int32, device=device)
+    best_flat = torch.zeros((n, top_k), dtype=torch.int64, device=device)
+    with torch.inference_mode(), span("sweep"):
+        for base in range(0, rotations.shape[1], chunk):
+            with span("sweep.chunk"):
+                best, best_rot, best_flat = one_chunk(base, best, best_rot,
+                                                      best_flat)
     res = DockResult(scores=best, rot_idx=best_rot,
                      shifts=flat_index_to_shift(best_flat, L))
     return res if batched else DockResult(*(f[0] for f in res))

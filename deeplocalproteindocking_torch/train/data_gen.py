@@ -24,6 +24,7 @@ from deeplocalproteindocking_torch.train.decoys import (
     DecoySet, generate_decoys, generate_global_decoys)
 from deeplocalproteindocking_torch.train.scoring_path import train_lig_grid
 from deeplocalproteindocking_torch.train.trainer import TrainBatch
+from deeplocalproteindocking_torch.utils.profiling import span
 
 
 def native_voxel_shift(cplx: Complex, resolution: float) -> np.ndarray:
@@ -84,6 +85,12 @@ def make_training_batch(generator: torch.Generator,
     label; ``decoy_shift`` is float32 because the turned mined shifts
     leave the lattice.
     """
+    with span("train.batch", root=True):
+        return _draw_batch(generator, complexes, cfg, max_atoms, mined,
+                           device)
+
+
+def _draw_batch(generator, complexes, cfg, max_atoms, mined, device):
     if max_atoms is None:
         max_atoms = max(max(len(c.receptor.typed()), len(c.ligand.typed()))
                         for c in complexes)

@@ -36,6 +36,7 @@ from deeplocalproteindocking_torch.models.scoring import ScoringModel
 from deeplocalproteindocking_torch.train.losses import (
     pairwise_ranking_accuracy, ranking_hinge_loss)
 from deeplocalproteindocking_torch.train.scoring_path import complex_scores
+from deeplocalproteindocking_torch.utils.profiling import span
 
 _BETAS, _EPS, _ALPHA = (0.9, 0.999), 1e-8, 0.1
 
@@ -170,40 +171,47 @@ class Trainer:
         ``shard`` goes to :meth:`loss_fn`."""
         names, ps = zip(*self.model.named_parameters())
         with torch.enable_grad():
-            loss, acc = self.loss_fn(params, batch, **shard)
-            grads = torch.autograd.grad(loss, ps)
+            with span("train.forward"):
+                loss, acc = self.loss_fn(params, batch, **shard)
+            # Autograd runs a CUDA backward on its own device thread, so
+            # the profiler puts its operators outside this range; the
+            # span's host time is the whole backward.
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, ps)
         return loss.detach(), acc, dict(zip(names, grads))
 
     def apply_gradients(self, state: TrainState,
                         grads: Dict[str, torch.Tensor]) -> TrainState:
         """One optimizer update of ``state`` by ``grads``."""
-        self.bind(state.params)
-        count = state.opt_state["count"]
-        named = list(self.model.named_parameters())
-        for name, p in named:
-            p.grad = grads[name].detach()
-            self.optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": state.opt_state["mu"][name].clone(),
-                "exp_avg_sq": state.opt_state["nu"][name].clone()}
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr(count)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        opt = {"mu": {}, "nu": {}, "count": count + 1}
-        params = {}
-        for name, p in named:
-            params[name] = p.detach().clone()
-            opt["mu"][name] = self.optimizer.state[p]["exp_avg"].clone()
-            opt["nu"][name] = self.optimizer.state[p]["exp_avg_sq"].clone()
-        return TrainState(params, opt, state.step + 1, state.rng)
+        with span("train.optimizer"):
+            self.bind(state.params)
+            count = state.opt_state["count"]
+            named = list(self.model.named_parameters())
+            for name, p in named:
+                p.grad = grads[name].detach()
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": state.opt_state["mu"][name].clone(),
+                    "exp_avg_sq": state.opt_state["nu"][name].clone()}
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr(count)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            opt = {"mu": {}, "nu": {}, "count": count + 1}
+            params = {}
+            for name, p in named:
+                params[name] = p.detach().clone()
+                opt["mu"][name] = self.optimizer.state[p]["exp_avg"].clone()
+                opt["nu"][name] = self.optimizer.state[p]["exp_avg_sq"].clone()
+            return TrainState(params, opt, state.step + 1, state.rng)
 
     def train_step(self, state: TrainState, batch: TrainBatch):
         """``(new state, {"loss", "ranking_accuracy"})`` for one step on
         ``batch`` (on the trainer's device)."""
-        loss, acc, grads = self.value_and_grad(state.params, batch)
-        return (self.apply_gradients(state, grads),
-                {"loss": loss, "ranking_accuracy": acc})
+        with span("train.step", root=True):
+            loss, acc, grads = self.value_and_grad(state.params, batch)
+            return (self.apply_gradients(state, grads),
+                    {"loss": loss, "ranking_accuracy": acc})
 
     # ---- checkpointing ----
     def save(self, ckpt_dir: str, state: TrainState) -> None:

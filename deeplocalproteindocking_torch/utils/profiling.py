@@ -1,17 +1,40 @@
-"""Profiling hooks: a ``torch.profiler`` trace around a region, and
-host wall-clock timing of stages.
+"""Profiling hooks: a ``torch.profiler`` trace around a region, and the
+port's own spans.
 
 Port of ``deeplocalproteindocking_tpu/utils/profiling.py``: the CLI's
 ``--profile DIR`` wraps a command's device work in :func:`maybe_trace`,
 which writes a Chrome trace (``chrome://tracing``, Perfetto) into DIR.
+
+:class:`span` marks a phase of the program (``"sweep.chunk"``,
+``"train.forward"``, ...).  While a profiler records, the span is a
+``record_function("dlpd::<name>")`` range, so the trace shows the
+port's phases over the kernels they launch; with no profiler it enters
+no range at all.  Always, it adds its host nanoseconds
+(``time.perf_counter_ns``, no device synchronization) and a count of
+one under its name to the record of the root span open on its thread.
+A root span (``span(name, root=True)``: one request or step) opens a
+:class:`SpanRecord`; :func:`request_log` returns the latest ones.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
+from dataclasses import dataclass, field
 
 import torch
+
+PREFIX = "dlpd::"
+LOG_SIZE = 4096
+
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
+_open = threading.local()
+_log: collections.deque = collections.deque(maxlen=LOG_SIZE)
+_seq = itertools.count(1)
 
 
 @contextlib.contextmanager
@@ -33,20 +56,65 @@ def maybe_trace(trace_dir: str | None):
         os.path.join(trace_dir, f"trace_{os.getpid()}_{n}.json"))
 
 
-class StageTimer:
-    """Host wall-clock seconds per named stage, each stage ending when
-    the devices of its tensors have finished their queued work."""
+@dataclass(slots=True)
+class SpanRecord:
+    """One root span: ``seq`` (its identifier, the ``args`` of its
+    profiler range), ``name``, ``profiled`` (a profiler was recording
+    when it opened), ``start_ns`` / ``end_ns`` (``perf_counter_ns``;
+    ``end_ns`` None while open), and the host nanoseconds and calls of
+    the spans inside it by name."""
+    seq: int
+    name: str
+    profiled: bool
+    start_ns: int
+    end_ns: int | None = None
+    host_ns: dict = field(default_factory=dict)
+    count: dict = field(default_factory=dict)
 
-    def __init__(self):
-        self.times: dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str, *sync_tensors):
-        t0 = time.perf_counter()
-        yield
-        for dev in {t.device for t in sync_tensors
-                    if isinstance(t, torch.Tensor)}:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        self.times[name] = self.times.get(name, 0.0) + (
-            time.perf_counter() - t0)
+class span:
+    """``with span(name):`` -- a phase of the program; ``root=True``
+    opens a record of its own (see the module's docstring).  A root
+    inside another root is itself a span of the outer one."""
+
+    __slots__ = ("name", "root", "_range", "_outer", "_rec", "_t0")
+
+    def __init__(self, name: str, root: bool = False):
+        self.name = name
+        self.root = root
+
+    def __enter__(self):
+        profiled = _profiling()
+        self._outer = getattr(_open, "record", None)
+        args = None
+        if self.root:
+            rec = SpanRecord(next(_seq), self.name, profiled, _clock())
+            _log.append(rec)
+            _open.record = self._rec = rec
+            args = str(rec.seq)
+        self._range = None
+        if profiled:
+            self._range = torch.profiler.record_function(
+                PREFIX + self.name, args)
+            self._range.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = _clock()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self.root:
+            self._rec.end_ns = t1
+            _open.record = self._outer
+        rec = self._outer
+        if rec is not None:
+            name = self.name
+            rec.host_ns[name] = rec.host_ns.get(name, 0) + t1 - self._t0
+            rec.count[name] = rec.count.get(name, 0) + 1
+        return False
+
+
+def request_log() -> list:
+    """The latest root records, oldest first (at most ``LOG_SIZE``)."""
+    return list(_log)

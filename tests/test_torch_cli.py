@@ -259,17 +259,24 @@ def test_dock_ensemble_profile_and_debug_nans(dataset, tmp_path):
 
 
 def test_stage_timer_and_untraced_region():
-    from deeplocalproteindocking_torch.utils.profiling import (StageTimer,
-                                                               maybe_trace)
-    timer = StageTimer()
+    """The port's stage timing is ``span`` (the stage timer it replaced
+    had no user): host time and counts in the open root's record, no
+    profiler range while none records; ``maybe_trace(None)`` runs its
+    region untraced."""
+    from deeplocalproteindocking_torch.utils.profiling import (
+        maybe_trace, request_log, span)
     x = torch.ones(3)
-    for _ in range(2):
-        with timer.stage("a", x, "not a tensor"):
-            x = x + 1
-    with timer.stage("b"):
-        pass
-    assert set(timer.times) == {"a", "b"}
-    assert all(t >= 0 for t in timer.times.values())
+    with span("stage", root=True):
+        for _ in range(2):
+            with span("stage.a"):
+                x = x + 1
+        with span("stage.b"):
+            pass
+    rec = request_log()[-1]
+    assert (rec.name, rec.profiled) == ("stage", False)
+    assert rec.count == {"stage.a": 2, "stage.b": 1}
+    assert all(ns >= 0 for ns in rec.host_ns.values())
+    assert rec.end_ns >= rec.start_ns + sum(rec.host_ns.values())
     with maybe_trace(None):
         x = x * 2
     assert torch.equal(x, torch.full((3,), 6.0))
