@@ -39,7 +39,12 @@ phase that does not hold:
    bound at those shapes: the bytes its function must move or the
    operations of that function done as FFTs at the peak rate for how
    they can run (float32 K1 on the tensor cores as 3xTF32), whichever
-   takes longer;
+   takes longer; and the splat kernel (``csrc/separable_splat.cu``) at
+   the sweeps' chunks (128 rotations of a 250-residue ligand at box 72,
+   16 of a 35-residue one at box 40), timed beside its plain version and
+   the ``torch.bmm`` it replaces, with its bound (its FMAs at the
+   float32 peak or its output's bytes), held against plain voxel by
+   voxel;
 3. the slice: the v9p hybrid model (exported weights, rank-3 coupling
    folded into the last conv, bf16, grid 128, top-K 64, chunk 128)
    serves three ``DockingPipeline.dock`` requests, proving through the
@@ -60,7 +65,8 @@ phase that does not hold:
    then two requests uncut at 13,000 rotations on a 250-residue polymer
    ligand whose own box (``auto_ligand_grid``) is above 64: the
    ``full-sweep`` preset's settings in float32 and the serve config in
-   bf16, every K1 launch on the tensor cores (tf32, tc);
+   bf16, every K1 launch on the tensor cores (tf32, tc), every splat on
+   its kernel (one a chunk in the sweep, none on the plain version);
 4. card against CPU: one request at grid 64, 256 rotations, once on CUDA
    tensors (kernels) and once on CPU tensors (plain versions), in
    float32 (K1 on the tf32 kernel; top-K values within rtol 1e-3 and the
@@ -2729,6 +2735,71 @@ def check_checkpoints(record):
           f"checkpoints: coupling_spectrum {c}")
 
 
+def splat_timed(dev, n_res, b, L, bucket, seed):
+    """``separable_splat``'s kernel on ``b`` rotations of a ``n_res``
+    polymer ligand (padded to ``bucket`` atoms) at grid ``L``, timed
+    beside its plain version and the bmm it replaces, with its bound (its
+    FMAs, 2 n_real L^3 a rotation, at the float32 peak, or the output's
+    bytes, whichever is longer), held against plain voxel by voxel
+    (1e-5 of the voxel, plus the smallest normal float)."""
+    import torch
+    from deeplocalproteindocking_torch.data import (structure_to_device,
+                                                    synthetic_complex)
+    from deeplocalproteindocking_torch.grids import voxelize
+    from deeplocalproteindocking_torch.structure.so3 import (
+        super_fibonacci_rotations)
+    cplx = synthetic_complex(seed=seed, n_res_rec=300, n_res_lig=n_res,
+                             backbone=True)
+    c, types, mask = (v.to(dev) for v in structure_to_device(
+        cplx.ligand.centered(), bucket=bucket))
+    coords = torch.einsum("bij,nj->bni", super_fibonacci_rotations(b, dev),
+                          c).contiguous()
+    T, res = 11, 1.25
+    kw = dict(grid_size=L, resolution=res, sigma=1.0, num_types=T)
+    reps = 5 if b >= 128 else 20
+    origin = torch.full((3,), -0.5 * L * res, device=dev)
+    tsafe = types.clamp(0, T - 1).long()
+    w = mask * (types >= 0)
+
+    def plain():
+        return voxelize._contract(coords, tsafe, w, L, T, res, 1.0, origin)
+
+    with torch.inference_mode():
+        l0 = voxelize.launches
+        got = voxelize.separable_splat(coords, types, mask, **kw)
+        torch.cuda.synchronize()
+        launched = voxelize.launches - l0
+        want = plain()
+        err = (got - want).abs()
+        within = bool((err <= 1e-5 * want.abs() + 2.0 ** -126).all())
+        bit_equal = bool(torch.equal(got, want))
+        del got, want, err
+        ms = cuda_time_ms(lambda: voxelize.separable_splat(
+            coords, types, mask, **kw), reps=reps)
+        plain_ms = cuda_time_ms(plain, reps=max(2, reps // 4))
+        # The bmm alone, on the plain version's own U and W.
+        g = (coords - origin) / res - 0.5
+        d = (g[..., None] - torch.arange(L, dtype=torch.float32,
+                                         device=dev)) * res
+        prof = torch.exp(-(d * d) / 2.0)
+        W = ((prof[..., 0, :] * w[:, None])[..., None]
+             * torch.nn.functional.one_hot(tsafe, T).float()[:, None, :])
+        U = prof[..., 1, :, None] * prof[..., 2, None, :]
+        Ut = U.reshape(b, -1, L * L).transpose(1, 2)
+        Wr = W.reshape(b, -1, L * T)
+        library_ms = cuda_time_ms(lambda: torch.bmm(Ut, Wr),
+                                  reps=max(2, reps // 4))
+        del g, d, prof, W, U, Ut, Wr
+    torch.cuda.empty_cache()
+    n_real = int((mask * (types >= 0)).sum())
+    return dict(rotations=b, L=L, atoms=int(c.shape[0]), real_atoms=n_real,
+                tile=list(voxelize.splat_tile(L, T)), launches=launched,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                within_tolerance=within, bit_equal=bit_equal,
+                bound=bound(b * L ** 3 * T * 4, 2 * n_real * L ** 3 * b,
+                            "float32"))
+
+
 def main():
     import numpy as np
     import torch
@@ -3261,6 +3332,21 @@ def main():
         check(rec["rel_err"] <= (TOL_BF16 if route == "tc" else TOL_F32),
               f"K1 {route} at L=120, b=128: {rec}")
 
+    # The splat kernel at the sweeps' chunks: the serve config's (128
+    # rotations of the 250-residue ligand, box 72) and the v9p checkpoint
+    # config's (16 rotations of a 35-residue ligand, box 40).
+    splat_at = {name: splat_timed(dev, *shape)
+                for name, shape in (("serve", (250, 128, 72, 128, 0)),
+                                    ("v9p", (35, 16, 40, 64, 4)))}
+    emit("splat_times", splat_at=splat_at,
+         library="torch.bmm(U^T, W): voxelize._contract's product alone, "
+                 "U and W made before the timing",
+         timer="cuda events, mean of 5 after 1 warm-up (the v9p shape 20)",
+         card=card)
+    for name, rec in splat_at.items():
+        check(rec["within_tolerance"],
+              f"splat kernel at the {name} chunk against plain: {rec}")
+
     # ---- phase 3: the slice serves three dock requests ----
     emit("serve_config", rotations_per_request=N_ROT_SERVE,
          cut_from=BENCH_ROTATIONS, grid=L, lig_grid=Ls, top_k=top_k,
@@ -3511,6 +3597,8 @@ def main():
     # and the serve config in bf16 (tc K1), each after a warm-up request
     # of 256 rotations; every K1 launch on the tensor cores.
     from deeplocalproteindocking_torch.correlate import dft as dft_module
+    from deeplocalproteindocking_torch.grids import voxelize
+    from deeplocalproteindocking_torch.sweep import resplat
     big = synthetic_complex(**BIG_COMPLEX)
     sweep = PRESETS["full-sweep"]
     full_depth = {}
@@ -3521,6 +3609,13 @@ def main():
         seen_k1.setdefault("boxes", set()).add(tuple(args[0].shape[-2:]))
         seen_k1.setdefault("first", args)
         return k1_launch(*args, **kw)
+
+    sweep_splat = resplat.separable_splat
+
+    def splat_spy(*args, **kw):
+        """Counts the sweep's splats."""
+        seen_k1["sweep_splats"] = seen_k1.get("sweep_splats", 0) + 1
+        return sweep_splat(*args, **kw)
 
     for name, cfg, route in (
             ("full_sweep_float32", serve_cfg.replace(
@@ -3538,9 +3633,11 @@ def main():
                         device=dev).dock_complex(big)
         seen_k1.clear()
         dft_module.fused_correlate = k1_spy
+        resplat.separable_splat = splat_spy
         try:
             fused.launches = fused.launches_tc = fused.launches_tf32 = 0
             invz_topk.launches = invz_topk.launches_fft = 0
+            voxelize.launches = voxelize.plain_calls = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             poses = p.dock_complex(big)
@@ -3550,6 +3647,7 @@ def main():
                  invz_topk.launches, invz_topk.launches_fft)
         finally:
             dft_module.fused_correlate = k1_launch
+            resplat.separable_splat = sweep_splat
         with torch.inference_mode():
             first_err, first_route, _ = k1_check(seen_k1["first"])
         rec = dict(config=name, grid=cfg.grid_size, lig_grid=box,
@@ -3562,6 +3660,9 @@ def main():
                    k1_launches=n[0], k1_tc_launches=n[1],
                    k1_tf32_launches=n[2],
                    k2_launches=n[3], k2_fft_launches=n[4],
+                   sweep_splats=seen_k1.get("sweep_splats", 0),
+                   splat_launches=voxelize.launches,
+                   splat_plain_calls=voxelize.plain_calls,
                    k1_first_launch=dict(route=first_route,
                                         max_abs_err=first_err[0],
                                         rel_err=first_err[1]))
@@ -3575,6 +3676,10 @@ def main():
               f"{name}: a K1 launch missed the {route} kernel {rec}")
         check(rec["k2_fft_launches"] == rec["k2_launches"] > 0,
               f"{name}: a K2 launch missed the FFT kernel {rec}")
+        check(rec["sweep_splats"] == rec["k1_launches"]
+              and rec["splat_launches"] >= rec["sweep_splats"]
+              and rec["splat_plain_calls"] == 0,
+              f"{name}: a splat missed its kernel {rec}")
         check(rec["k1_boxes"] == [(box, box)],
               f"{name}: K1 saw boxes {rec['k1_boxes']}, not ({box}, {box})")
         check(first_err[1] <= (TOL_F32 if route == "tf32" else TOL_BF16),

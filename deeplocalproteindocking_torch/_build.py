@@ -31,12 +31,14 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are c_void_p.
 _SIGNATURES = {
     "dlpd_fused_correlate_tc": [_P] * 14 + [_I] * 10 + [_P],
     "dlpd_fused_correlate_tf32": [_P] * 14 + [_I] * 10 + [_P],
     "dlpd_invz_blockmax_fft": [_P] * 4 + [_I] * 5 + [_P],
     "dlpd_idft_fft": [_P] * 5 + [_I] * 2 + [_P],
+    "dlpd_separable_splat": [_P] * 5 + [_I] * 10 + [_F] * 4 + [_P],
 }
 
 

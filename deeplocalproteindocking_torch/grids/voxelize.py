@@ -10,12 +10,42 @@ path's matmul form.  The Gaussian factorizes per axis, so
 is one batched matrix product ``U^T @ W`` with ``U[a, (y, z)] = Py Pz``
 and ``W[a, (x, t)] = Px onehot``: no scatter, deterministic, exact (no
 window truncation).  Volumes are channels-last ``[..., L, L, L, T]``.
+
+``separable_splat`` computes that product with its plain version
+:func:`_contract` for CPU tensors, and for CUDA tensors with the
+hand-written kernel ``csrc/separable_splat.cu``, which sums each atom
+into its own type only (no product with a zero of the one-hot, no masked
+atom) and never writes ``U``, ``W`` or the profiles to device memory; it
+returns the same values in the same strides, the float32 sum taken in
+another order.  A CUDA call whose coordinates need a gradient (only
+``refine_poses`` asks for one) takes the plain version on the card: the
+kernel has no backward.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
+import numpy as np
 import torch
+
+from deeplocalproteindocking_torch import _build
+from deeplocalproteindocking_torch.correlate.fused import SMEM_OPTIN_BYTES
+
+_MICRO = (2, 4, 8)     # the kernel's y, z, x a thread
+_KC = 64               # its atoms per profile chunk
+_MAX_THREADS = 256     # its threads per block, at most
+_MAX_SEG = 4096        # its atoms listed at once
+_MAX_TYPES = 16
+_MAX_ROWS = 65535      # rows per launch (the grid's y)
+_SMEM_STATIC = 1024    # kept for the kernel's static shared memory
+
+# The route each separable_splat call took since the last reset (a run's
+# proof of which one the main path used): kernel launches, and calls of
+# the plain version (CPU tensors, or coordinates that need a gradient).
+launches = 0
+plain_calls = 0
 
 
 def default_origin(grid_size: int, resolution: float) -> torch.Tensor:
@@ -108,10 +138,15 @@ def separable_splat(coords: torch.Tensor,
     axes of ``coords`` (a batch of different atom sets), into
     ``[..., L, L, L, T]`` float32 on a box centered on coordinate 0.
 
-    ``atom_chunk`` bounds the ``[n, L^2]`` intermediate on big grids by
-    accumulating the density over chunks of atoms.
+    ``atom_chunk`` bounds the plain version's ``[n, L^2]`` intermediate
+    on big grids by accumulating the density over chunks of atoms; the
+    kernel has no intermediate and takes every atom in one launch.
     """
+    global plain_calls
     L, T = grid_size, num_types
+    if kernel_route(coords):
+        return _splat_kernel(coords, types, mask, L, T, resolution, sigma)
+    plain_calls += 1
     lead = coords.shape[:-2]
     n = coords.shape[-2]
     coords = coords.reshape(-1, n, 3)
@@ -139,3 +174,121 @@ def separable_splat(coords: torch.Tensor,
                              resolution, sigma, origin)
             out = part if out is None else out + part
     return out.reshape(lead + (L, L, L, T))
+
+
+def kernel_route(coords) -> bool:
+    """Whether ``separable_splat`` launches the kernel for ``coords``:
+    CUDA tensors, unless autograd records and ``coords`` needs a
+    gradient (the kernel has no backward; ``refine_poses`` alone asks)."""
+    return coords.device.type == "cuda" and not (torch.is_grad_enabled()
+                                                 and coords.requires_grad)
+
+
+def splat_smem_bytes(Yb: int, Zb: int, Xb: int, T: int, seg: int) -> int:
+    """Dynamic shared memory of one kernel block (``smem_bytes`` in
+    ``csrc/separable_splat.cu``): two profile chunks ``[64, Xb + Zb +
+    Yb]`` (rows padded to 4) or, in a tile's last block, the staging ``[2,
+    Zb, Xb, T]``, whichever is larger, in float32; the last block's table
+    of a run (``Xb T`` int32); ``seg`` atom indices (2 bytes each)."""
+    prof = 2 * _KC * ((Xb + Zb + Yb + 3) // 4 * 4)
+    return 4 * max(prof, 2 * Zb * Xb * T) + 4 * Xb * T + 2 * seg
+
+
+@functools.cache
+def splat_tile(L: int, T: int) -> tuple:
+    """``(Yb, Zb, Xb)``: the kernel's tile at grid L and T types, of least
+    modelled cost among those that fit a block.
+
+    A block sums one type over the tile; a thread holds 2 y x 4 z x 8 x of
+    it, so Yb is even, Zb a multiple of 4, Xb of 8, and a block has
+    ``(Yb / 2) (Zb / 4) (Xb / 8)`` threads, at most 256.  Per atom, each
+    tile's block issues about 78 instructions a warp (64 FMAs, 8
+    products, the loads, the loop) and 20 per profile entry, Yb + Zb + Xb
+    entries; tiles that overhang L are paid for whole.  Its shared memory
+    (:func:`splat_smem_bytes`, at 4,096 listed atoms) fits the opt-in
+    limit."""
+    ry, rz, rx = _MICRO
+    best = None
+    for Xb in range(rx, -(-L // rx) * rx + 1, rx):
+        for Zb in range(rz, -(-L // rz) * rz + 1, rz):
+            for Yb in range(ry, -(-L // ry) * ry + 1, ry):
+                threads = (Yb // ry) * (Zb // rz) * (Xb // rx)
+                if threads > _MAX_THREADS:
+                    break
+                if (splat_smem_bytes(Yb, Zb, Xb, T, _MAX_SEG) + _SMEM_STATIC
+                        > SMEM_OPTIN_BYTES):
+                    break
+                tiles = (-(-L // Yb)) * (-(-L // Zb)) * (-(-L // Xb))
+                cost = tiles * (78 * -(-max(threads, _KC) // 32)
+                                + 20 * (Xb + Zb + Yb) / 32)
+                if best is None or cost < best[0]:
+                    best = (cost, Yb, Zb, Xb)
+    if best is None:
+        raise ValueError(f"separable_splat: no kernel tile fits T={T}")
+    return best[1:]
+
+
+def _rows(x: torch.Tensor, lead: tuple, n: int) -> tuple:
+    """``x [..., n]`` broadcast against the leading axes ``lead`` as ``(R
+    rows [R, n] contiguous, rows_per)``: row b of the ``prod(lead)`` rows
+    reads row ``b // rows_per``.  A per-row tensor whose broadcast axes
+    all trail (``[G, 1, n]`` against ``(G, chunk)``) keeps its R rows;
+    any other is expanded to one row per b."""
+    B = math.prod(lead)
+    shape = (1,) * (len(lead) + 1 - x.ndim) + tuple(x.shape[:-1])
+    k = len(shape)
+    while k and shape[k - 1] == 1:
+        k -= 1
+    if shape[:k] == tuple(lead[:k]):
+        R = math.prod(shape[:k])
+        return x.reshape(R, n).contiguous(), B // R
+    return x.broadcast_to(lead + (n,)).reshape(B, n).contiguous(), 1
+
+
+def _splat_kernel(coords, types, mask, L, T, resolution, sigma):
+    """``separable_splat`` on the card: one launch of
+    ``csrc/separable_splat.cu`` over every row and atom.  Raises for what
+    the kernel does not take."""
+    global launches
+    if coords.dtype != torch.float32:
+        raise TypeError(f"separable_splat: the kernel takes float32 "
+                        f"coordinates, got {coords.dtype}")
+    if not 1 <= T <= _MAX_TYPES:
+        raise ValueError(f"separable_splat: the kernel takes 1 to "
+                         f"{_MAX_TYPES} atom types, got {T}")
+    if L < 1:
+        raise ValueError(f"separable_splat: grid size {L}")
+    lead = tuple(coords.shape[:-2])
+    n = coords.shape[-2]
+    B = math.prod(lead)
+    if not 1 <= B <= _MAX_ROWS:
+        raise ValueError(f"separable_splat: the kernel takes 1 to "
+                         f"{_MAX_ROWS} atom sets a call, got {B}")
+    dev = coords.device
+    coords = coords.reshape(B, n, 3).contiguous()
+    trows, tper = _rows(types.to(torch.int32), lead, n)
+    specs = [("coords", coords, (B, n, 3))]
+    mrows, mper = None, 1
+    if mask is not None:
+        mrows, mper = _rows(mask.to(torch.float32), lead, n)
+        specs.append(("mask", mrows, (B // mper, n)))
+    _build.check_tensors("separable_splat", dev, torch.float32, specs)
+    _build.check_tensors("separable_splat", dev, torch.int32,
+                         [("types", trows, (B // tper, n))])
+    Yb, Zb, Xb = splat_tile(L, T)
+    tiles = (-(-L // Yb)) * (-(-L // Zb)) * (-(-L // Xb))
+    f32 = np.float32
+    out = torch.empty((B, L, L, L, T), dtype=torch.float32, device=dev)
+    done = torch.empty((B * tiles,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().dlpd_separable_splat(
+            coords.data_ptr(), trows.data_ptr(),
+            None if mrows is None else mrows.data_ptr(), out.data_ptr(),
+            done.data_ptr(), B, n, L, T, tper, mper, Yb, Zb, Xb,
+            min(max(n, 1), _MAX_SEG), float(f32(-0.5 * L * resolution)),
+            float(f32(1.0) / f32(resolution)), float(f32(resolution)),
+            float(f32(1.0) / f32(2.0 * sigma * sigma)), _build.stream(out))
+    _build.check(err, "separable_splat")
+    launches += 1
+    # Stored as [B, y, z, x, T]: the plain version's strides.
+    return out.permute(0, 3, 1, 2, 4).reshape(lead + (L, L, L, T))

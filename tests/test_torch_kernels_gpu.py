@@ -17,6 +17,15 @@ G of them, as are K2's FFT kernel (L = 32, 64, 96, 128) and K3's
 (``invz_topk.k2_route``, ``idft.k3_route``; other L raise).  K2 and K3
 are float32 only.  One train step is held against the same step on the
 CPU.
+
+The splat kernel (``csrc/separable_splat.cu``) is held against the plain
+version on the card voxel by voxel: |kernel - plain| <= 1e-5 |plain| +
+2^-126.  Every term is positive and rounded as the plain version rounds
+it, so only the order of the float32 sum differs (the kernel sums each
+type's atoms in ascending order, as the bmm does: at the cells' shapes
+the two are bit-equal; the plain version's atom chunks at n > 4096
+reorder it); below the smallest normal float a value keeps only
+absolute precision.
 """
 import numpy as np
 import pytest
@@ -28,8 +37,10 @@ from deeplocalproteindocking_torch.correlate import fused, idft, invz_topk
 from deeplocalproteindocking_torch.correlate._contract import mm
 from deeplocalproteindocking_torch.correlate.dft import get_correlator
 from deeplocalproteindocking_torch.correlate.fft import receptor_transform
+from deeplocalproteindocking_torch.grids import voxelize
 from deeplocalproteindocking_torch.structure.so3 import (
     super_fibonacci_rotations)
+from deeplocalproteindocking_torch.sweep.refine import refine_poses
 from deeplocalproteindocking_torch.sweep.resplat import dock_sweep_resplat
 
 pytestmark = pytest.mark.gpu
@@ -418,3 +429,118 @@ def test_train_step_matches_cpu(cuda_device):
         small = w.abs() < 1e-3 * w.abs().max()
         tol = torch.where(small, 2 * lr, 1e-2 * lr)
         assert bool(((p1[k] - p0[k]).abs() <= tol).all()), k
+
+
+# ---- the splat kernel ----
+
+def _ligand_rows(dev, n_res, b, seed=0, bucket=128):
+    """A polymer ligand of ``n_res`` residues (padded to ``bucket``
+    atoms) rotated b ways: (coords [b, n, 3], types, mask) on ``dev``."""
+    from deeplocalproteindocking_torch.data import (structure_to_device,
+                                                    synthetic_complex)
+    cplx = synthetic_complex(seed=seed, n_res_rec=300, n_res_lig=n_res,
+                             backbone=True)
+    c, t, m = structure_to_device(cplx.ligand.centered(), bucket=bucket)
+    R = super_fibonacci_rotations(b, dev)
+    return (torch.einsum("bij,nj->bni", R, c.to(dev)).contiguous(),
+            t.to(dev), m.to(dev))
+
+
+def _plain_splat(coords, types, mask, **kw):
+    """``separable_splat``'s plain version on the card (coordinates that
+    need a gradient take it)."""
+    with torch.enable_grad():
+        return voxelize.separable_splat(
+            coords.detach().requires_grad_(True), types, mask,
+            **kw).detach()
+
+
+def _splat_close(got, want):
+    err = (got - want).abs()
+    return bool((err <= 1e-5 * want.abs() + 2.0 ** -126).all())
+
+
+@pytest.mark.parametrize("case", ["cell1", "cell2", "receptor", "groups"])
+def test_splat_kernel_matches_plain(cuda_device, case):
+    """The serve config's chunk (b = 128, box 72, 2,176 atoms), the
+    checkpoint config's (b = 16, box 40), the receptor at grid 128 with
+    n > 4,096 atoms (two of the kernel's segments; the plain version's
+    atom chunks) and per-complex types of a batched sweep step."""
+    dev = cuda_device
+    kw = dict(resolution=1.25, sigma=1.0, num_types=11)
+    if case == "cell1":
+        coords, types, mask = _ligand_rows(dev, 250, 128)
+        kw.update(grid_size=72)
+    elif case == "cell2":
+        coords, types, mask = _ligand_rows(dev, 35, 16, seed=4, bucket=64)
+        kw.update(grid_size=40)
+    elif case == "receptor":
+        from deeplocalproteindocking_torch.data import (structure_to_device,
+                                                        synthetic_complex)
+        rec = synthetic_complex(seed=1, n_res_rec=700, n_res_lig=20,
+                                backbone=True).receptor
+        coords, types, mask = (v.to(dev) for v in structure_to_device(
+            rec, bucket=128))
+        assert coords.shape[0] > 4096
+        kw.update(grid_size=128, atom_chunk=4096)
+    else:
+        c, t, m = _ligand_rows(dev, 250, 8)
+        coords = c.reshape(2, 4, *c.shape[1:])
+        types = torch.stack([t, t.roll(7)])[:, None]
+        mask = torch.stack([m, m.roll(7)])[:, None]
+        kw.update(grid_size=72)
+    l0, p0 = voxelize.launches, voxelize.plain_calls
+    with torch.inference_mode():
+        got = voxelize.separable_splat(coords, types, mask, **kw)
+    torch.cuda.synchronize()
+    assert (voxelize.launches - l0, voxelize.plain_calls - p0) == (1, 0)
+    want = _plain_splat(coords, types, mask, **kw)
+    assert got.shape == want.shape and got.stride() == want.stride()
+    assert bool(torch.isfinite(got).all())
+    assert _splat_close(got, want)
+
+
+def test_splat_kernel_refuses_what_it_does_not_take(cuda_device):
+    coords, types, mask = _ligand_rows(cuda_device, 20, 2, bucket=64)
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="float32"):
+            voxelize.separable_splat(coords.double(), types, mask)
+        with pytest.raises(ValueError, match="atom types"):
+            voxelize.separable_splat(coords, types, mask, num_types=17)
+        with pytest.raises(ValueError, match="atom sets"):
+            voxelize.separable_splat(
+                coords[:1].expand(65536, -1, -1), types, mask)
+
+
+def test_refine_poses_gets_gradients_through_the_plain_path(cuda_device):
+    """refine_poses differentiates the splat in the coordinates: its steps
+    take the plain version on the card (its scores before and after, with
+    no gradient, the kernel) and give the CPU's refinement."""
+    rng = np.random.default_rng(5)
+    L, Ls, C = 32, 16, 3
+    rec = torch.as_tensor(rng.normal(size=(L, L, L, C)), dtype=torch.float32)
+    coords = torch.as_tensor(rng.normal(size=(20, 3)) * 3.0,
+                             dtype=torch.float32)
+    types = torch.as_tensor(rng.integers(0, 11, size=20), dtype=torch.int32)
+    mask = torch.ones(20)
+    w = torch.as_tensor(rng.normal(size=(11, C)), dtype=torch.float32)
+    R = super_fibonacci_rotations(4)
+    shifts = torch.as_tensor(rng.integers(-3, 4, size=(4, 3)),
+                             dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        l0, p0 = voxelize.launches, voxelize.plain_calls
+        res = refine_poses(receptor_transform(rec.to(dev)), coords.to(dev),
+                           types.to(dev), mask.to(dev), R.to(dev),
+                           shifts.to(dev), lambda v: v @ w.to(v.device),
+                           grid_size=L, lig_grid=Ls, resolution=1.25,
+                           sigma=1.0, num_types=11, steps=5)
+        out[str(dev)] = (res, voxelize.launches - l0,
+                         voxelize.plain_calls - p0)
+    (a, la, pa), (c, lc, pc) = out["cpu"], out[str(cuda_device)]
+    assert (la, pa) == (0, 7)
+    assert (lc, pc) == (2, 5)
+    np.testing.assert_allclose(c.scores.cpu().numpy(), a.scores.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(c.translations.cpu().numpy(),
+                               a.translations.numpy(), rtol=0, atol=1e-3)
