@@ -4,7 +4,8 @@ Port of ``deeplocalproteindocking_tpu/models/representation.py``.  Public
 functions keep the JAX layout, channels-last ``[..., L, L, L, C]``, and
 permute to ``NCDHW`` only around ``F.conv3d``.  Flax ``DHWIO`` kernels
 map to torch ``[O, I, kx, ky, kz]`` with no flip (both are
-cross-correlations).
+cross-correlations).  Each layer of a CNN is a span of its own
+(:func:`conv_layer`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from deeplocalproteindocking_torch.utils.profiling import span
 
 # Flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution has variance 1 / fan_in.
@@ -55,6 +58,17 @@ def conv3d_channels_last(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def conv_layer(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               i: int, elu: bool) -> torch.Tensor:
+    """``conv3d_channels_last(x, w, b)``, then ELU when ``elu``, as the
+    span ``cnn.conv<i>`` (its layout copies and activation with it).  An
+    operator range, so that a range around the CNN keeps its kernels on
+    the device."""
+    with span(f"cnn.conv{i}", annotate=False):
+        y = conv3d_channels_last(x, w, b)
+        return F.elu(y) if elu else y
+
+
 class Representation(nn.Module):
     """Stack of "SAME" 3-D convolutions with ELU between them."""
 
@@ -87,9 +101,8 @@ class Representation(nn.Module):
         x = vol.reshape((-1,) + vol.shape[-4:]).to(self.dtype)
         for i, conv in enumerate(self.convs):
             b = None if conv.bias is None else conv.bias.to(self.dtype)
-            x = conv3d_channels_last(x, conv.weight.to(self.dtype), b)
-            if i + 1 < len(self.convs):
-                x = F.elu(x)
+            x = conv_layer(x, conv.weight.to(self.dtype), b, i,
+                           i + 1 < len(self.convs))
         x = x.to(torch.float32)
         return x.reshape(lead + x.shape[1:])
 

@@ -43,7 +43,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from deeplocalproteindocking_torch.config import DockConfig
 from deeplocalproteindocking_torch.correlate.fft import (
@@ -52,7 +51,7 @@ from deeplocalproteindocking_torch.data.benchmark import (
     Complex, structure_to_device)
 from deeplocalproteindocking_torch.grids.voxelize import separable_splat
 from deeplocalproteindocking_torch.models.representation import (
-    conv3d_channels_last, shape_channels)
+    conv_layer, shape_channels)
 from deeplocalproteindocking_torch.models.scoring import ScoringModel
 from deeplocalproteindocking_torch.parallel import batch_eval
 from deeplocalproteindocking_torch.parallel.sharded_sweep import (
@@ -340,17 +339,15 @@ class DockingPipeline:
                               proj_learned)
         b_last = None if biases[-1] is None else biases[-1] @ proj_learned
         dt = _DTYPES[cfg.compute_dtype]
-
-        def conv(x, w, b):
-            return conv3d_channels_last(
-                x, w.to(dt), None if b is None else b.to(dt))
+        layers = list(zip(kernels[:-1], biases[:-1])) + [(w_last, b_last)]
 
         def rep_fn(vols):
             lead = vols.shape[:-4]
             x = vols.reshape((-1,) + vols.shape[-4:]).to(dt)
-            for w, b in zip(kernels[:-1], biases[:-1]):
-                x = F.elu(conv(x, w, b))
-            y = conv(x, w_last, b_last).to(torch.float32)    # [..., r]
+            for i, (w, b) in enumerate(layers):
+                x = conv_layer(x, w.to(dt), None if b is None else b.to(dt),
+                               i, i + 1 < len(layers))
+            y = x.to(torch.float32)                          # [..., r]
             y = y.reshape(lead + y.shape[1:])
             if proj_prior is not None:
                 prior = shape_channels(vols)[0]

@@ -75,13 +75,21 @@ class SpanRecord:
 class span:
     """``with span(name):`` -- a phase of the program; ``root=True``
     opens a record of its own (see the module's docstring).  A root
-    inside another root is itself a span of the outer one."""
+    inside another root is itself a span of the outer one.
 
-    __slots__ = ("name", "root", "_range", "_outer", "_rec", "_t0")
+    The range is a user annotation, which the profiler also draws on the
+    device over the kernels launched inside it and no inner annotation.
+    ``annotate=False`` records it as an operator instead: the kernels
+    keep the device annotation of the range around it, and the span's
+    device time is its host event's."""
 
-    def __init__(self, name: str, root: bool = False):
+    __slots__ = ("name", "root", "annotate", "_range", "_outer", "_rec",
+                 "_t0")
+
+    def __init__(self, name: str, root: bool = False, annotate: bool = True):
         self.name = name
         self.root = root
+        self.annotate = annotate
 
     def __enter__(self):
         profiled = _profiling()
@@ -94,8 +102,10 @@ class span:
             args = str(rec.seq)
         self._range = None
         if profiled:
-            self._range = torch.profiler.record_function(
-                PREFIX + self.name, args)
+            self._range = (
+                torch.profiler.record_function(PREFIX + self.name, args)
+                if self.annotate else
+                torch._C._profiler._RecordFunctionFast(PREFIX + self.name))
             self._range.__enter__()
         self._t0 = _clock()
         return self

@@ -154,8 +154,10 @@ def test_train_step_spans_nest_under_the_profiler():
     batch_rec, step_rec = request_log()[-2:]
     assert (batch_rec.name, step_rec.name) == ("train.batch", "train.step")
     assert batch_rec.profiled and step_rec.profiled
+    # The CNN's one convolution runs as a span on each side of each of
+    # the batch's two complexes.
     assert step_rec.count == {"train.forward": 1, "train.backward": 1,
-                              "train.optimizer": 1}
+                              "train.optimizer": 1, "cnn.conv0": 4}
     assert batch_rec.end_ns <= step_rec.start_ns
 
 
