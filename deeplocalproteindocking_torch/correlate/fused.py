@@ -25,14 +25,16 @@ up to 128 (every grid the ``dft_fused`` engine takes):
   :func:`tc_operands`; boxes above 64 run as two x tiles of A
   (:func:`tc_smem_bytes`).
 - ``"tf32"`` (``csrc/fused_correlate_tf32.cu``): float32 on the tensor
-  cores, each real product as three TF32 products of hi/lo splits
-  (3xTF32) -- every float32 config the repository ships.  Its twiddles
-  go in the split layout of :func:`tf32_operands`; boxes above 64 run as
-  2 x 2 tiles of A (:func:`tf32_smem_bytes`).
+  cores (``wgmma``), each real product as three TF32 products of hi/lo
+  splits (3xTF32) -- every float32 config the repository ships.  Its
+  twiddles go in the step images of :func:`tf32_operands`, streamed
+  through a ring in shared memory; boxes above 64 run as 2 x 2 tiles of
+  A (:func:`tf32_plan`, :func:`tf32_smem_bytes`).
 
-Both pad J, I, X' and Y' to a multiple of 16 inside the kernel (grid
-120, say): the twiddles come zero-padded to that size, H is read as 0
-past J and I (never copied), and D is stored only below X' and Y'.
+Both pad J, I, X' and Y' inside the kernel (grid 120, say; tc to a
+multiple of 16, tf32 to 64 or 128): the twiddles come zero-padded to
+that size, H is read as 0 past J and I (never copied), and D is stored
+only below X' and Y'.
 
 A tensor-core route's twiddle layouts (:func:`twiddle_layouts`) are
 made once by a caller that launches often (``DFTCorrelator.k1_layouts``)
@@ -49,7 +51,7 @@ from deeplocalproteindocking_torch.correlate._contract import cmm
 _ROUTES = {torch.bfloat16: "tc", torch.float32: "tf32"}   # by dtype
 _MAX_L = 128                   # also the largest box of every route
 _TILE = 64                     # the tensor-core kernels' A tile edge
-_TF32_NC = 32                  # the tf32 kernel's x' rows per pass (kNC)
+_SLOT = (0, 2, 4, 6, 1, 3, 5, 7)   # slot s of a tf32 step holds k = _SLOT[s]
 SMEM_OPTIN_BYTES = 232_448     # shared memory a Hopper block may opt in to
 
 # Kernel launches since the last reset (the main path's proof of use):
@@ -164,23 +166,82 @@ def tf32_split(x: torch.Tensor):
     return hi, rna(x - hi)
 
 
-def tf32_layout(m: torch.Tensor) -> torch.Tensor:
-    """``[N, K]`` float32 (K even) -> its split layout ``[N, 2K]``: each
-    column pair ``(2q, 2q+1)`` of a row stored as hi(2q), hi(2q+1),
-    lo(2q), lo(2q+1), so one 16-byte load is a thread's hi and lo MMA
-    fragment (``csrc/fused_correlate_tf32.cu``)."""
+def tf32_plan(X, Y, J, I, Xp, Yp):
+    """The tf32 kernel's tile plan (``Plan`` in
+    ``csrc/fused_correlate_tf32.cu``): ``(P, T, kL, kNI, ring)`` -- the
+    padded box P (the larger of X and Y rounded up to 16), A's tile edge
+    T = min(P, 64), the grid edge kL that J, I, X' and Y' are padded to
+    (64, or 128 if any of them or P is above 64), the columns of i per
+    stage-2 chunk and the number of slots in the twiddles' ring."""
+    P = _padded_box(X, Y)
+    T = min(P, _TILE)
+    kL = 64 if max(J, I, Xp, Yp, P) <= 64 else 128
+    kNI = 64 if kL == 128 and T < _TILE else 32
+    ring = 2 if T == 64 else 3 if (T == 48 and kL == 128) else 4
+    return P, T, kL, kNI, ring
+
+
+def tf32_tiles(m: torch.Tensor, slots: bool) -> torch.Tensor:
+    """``[N, K]`` float32 (N, K multiples of 8) -> the tf32 kernel's
+    tiles of its K/8 steps, ``[K/8, 2, N/8, 2, 8, 4]``: per 8-deep step
+    of k, the hi and the lo part (:func:`tf32_split`) of the step's N x
+    8 block, each 8-row group as two 8 x 4 core matrices (k 0-3, k 4-7;
+    the K-major layout ``wgmma`` reads without swizzle).  ``slots``: each
+    step's k in the kernel's slot order (slot s holds k ``_SLOT[s]``),
+    for a product whose other operand's fragments hold k = 2t in slot t
+    and 2t+1 in slot t+4."""
     N, K = m.shape
-    hi, lo = tf32_split(m)
-    return torch.stack([hi.reshape(N, K // 2, 2), lo.reshape(N, K // 2, 2)],
-                       dim=2).reshape(N, 2 * K).contiguous()
+    if slots:
+        m = m.index_select(1, torch.tensor(
+            [8 * (q // 8) + _SLOT[q % 8] for q in range(K)],
+            device=m.device))
+    return torch.stack([
+        p.reshape(N // 8, 8, K // 8, 2, 4).permute(2, 0, 3, 1, 4)
+        for p in tf32_split(m)], dim=1).contiguous()
 
 
 def tf32_operands(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
-    """The tf32 kernel's twiddles: :func:`tc_operands`' ``Wy^T [J16,
-    P]``, ``Wx^T [I16, P]``, ``Ux^T [X'16, I16]`` and ``Uy^T [Y'16,
-    J16]`` (zero-padded), each in :func:`tf32_layout`."""
-    return tuple(tf32_layout(o) for o in tc_operands(
-        WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm))
+    """The tf32 kernel's twiddles as the images of its ring's steps
+    (:func:`tf32_tiles` of the zero-padded transposes; P, kL, kNI from
+    :func:`tf32_plan`): ``Wy^T [kL, P]`` as ``[P/8, 16 kL]`` (one step a
+    row, k = y in natural order), ``Wx^T [kL, P]`` in chunks of kNI rows
+    as ``[kL/kNI * P/8, 16 kNI]`` (chunk-major, k = x in slot order),
+    ``Ux^T [kL, kL]`` and ``Uy^T [kL, kL]`` as ``[kL/8, 16 kL]`` (k = i,
+    j in slot order); all contiguous."""
+    P, _, kL, kNI, _ = tf32_plan(WxRe.shape[0], WyRe.shape[0],
+                                 WyRe.shape[1], WxRe.shape[1],
+                                 UxRe.shape[1], UyRe.shape[1])
+
+    def padded_t(w, rows, cols):
+        """``w^T`` zero-padded to ``[rows, cols]``."""
+        return torch.nn.functional.pad(
+            w.T, (0, cols - w.shape[0], 0, rows - w.shape[1]))
+
+    def wy(w):
+        return tf32_tiles(padded_t(w, kL, P), False).reshape(P // 8, -1)
+
+    def wx(w):
+        chunks = padded_t(w, kL, P).reshape(kL // kNI, kNI, P)
+        return torch.stack([tf32_tiles(c, True) for c in chunks]).reshape(
+            kL // kNI * P // 8, -1)
+
+    def u(w):
+        return tf32_tiles(padded_t(w, kL, kL), True).reshape(kL // 8, -1)
+
+    return (wy(WyRe), wy(WyIm), wx(WxRe), wx(WxIm), u(UxRe), u(UxIm),
+            u(UyRe), u(UyIm))
+
+
+def layout_shapes(route, X, Y, J, I, Xp, Yp):
+    """The shapes of :func:`twiddle_layouts`' eight tensors for
+    ``route``."""
+    if route == "tc":
+        P, J16, I16 = _padded_box(X, Y), _up16(J), _up16(I)
+        return (((J16, P),) * 2 + ((I16, P),) * 2
+                + ((_up16(Xp), I16),) * 2 + ((_up16(Yp), J16),) * 2)
+    P, _, kL, kNI, _ = tf32_plan(X, Y, J, I, Xp, Yp)
+    return (((P // 8, 16 * kL),) * 2 + ((kL // kNI * P // 8, 16 * kNI),) * 2
+            + ((kL // 8, 16 * kL),) * 4)
 
 
 def twiddle_layouts(WyRe, WyIm, WxRe, WxIm, UxRe, UxIm, UyRe, UyIm):
@@ -213,18 +274,14 @@ def tc_smem_bytes(X, Y, J, I, Xp) -> int:
                     + Xp * (J + 8))
 
 
-def tf32_smem_bytes(X, Y, J, I) -> int:
-    """Dynamic shared memory of one tf32-kernel block (``smem_bytes`` in
-    ``csrc/fused_correlate_tf32.cu``): G ``[J16, I16+8]`` float32 (re,
-    im; N16: N rounded up to 16), plus the larger of the split tile of
-    the ligand slab ``[T, 2T+16]`` (T = min(P, 64): boxes above 64 run as
-    2 x 2 tiles) and the split C^T pass ``[kNC, 2 J16+16]`` (re, im),
-    which share their space."""
-    T = min(_padded_box(X, Y), _TILE)
-    J, I = _up16(J), _up16(I)
-    a = 2 * T * (2 * T + 16)
-    c = 2 * _TF32_NC * (2 * J + 16)
-    return 4 * (2 * J * (I + 8) + max(a, c))
+def tf32_smem_bytes(X, Y, J, I, Xp, Yp) -> int:
+    """Dynamic shared memory of one tf32-kernel block (``Plan::kSmem`` in
+    ``csrc/fused_correlate_tf32.cu``; :func:`tf32_plan`): G ``[kL, kL]``
+    float32 (re, im; C^T later in its place), A's tile ``[T, T]`` (re and
+    im, hi and lo), the ring's slots (re and im halves of 16 kL floats)
+    and a full and an empty mbarrier per slot."""
+    _, T, kL, _, ring = tf32_plan(X, Y, J, I, Xp, Yp)
+    return 4 * (2 * kL * kL + 4 * T * T + 2 * ring * 16 * kL) + 16 * ring
 
 
 def _launch_tc(ops, dims, Dre, Dim):
@@ -256,13 +313,13 @@ def _launch_tf32(ops, dims, Dre, Dim):
     would need more shared memory than Hopper gives one, or if H is not
     8-byte aligned (the kernel reads it in pairs)."""
     global launches, launches_tf32
-    b, _, _, X, Y, J, I, _, _ = dims
-    smem = tf32_smem_bytes(X, Y, J, I)
+    b, _, _, X, Y, J, I, Xp, Yp = dims
+    smem = tf32_smem_bytes(X, Y, J, I, Xp, Yp)
     if smem > SMEM_OPTIN_BYTES:
         raise ValueError(
             f"fused_correlate: the tf32 kernel needs {smem} B of shared "
-            f"memory per block at X={X}, Y={Y}, J={J}, I={I}, more than "
-            f"the {SMEM_OPTIN_BYTES} B a block may have")
+            f"memory per block at X={X}, Y={Y}, J={J}, I={I}, X'={Xp}, "
+            f"Y'={Yp}, more than the {SMEM_OPTIN_BYTES} B a block may have")
     for name, h in (("Hre", ops[2]), ("Him", ops[3])):
         if h.data_ptr() % 8:
             raise ValueError(f"fused_correlate: {name} is not 8-byte "
@@ -320,12 +377,9 @@ def fused_correlate(Are, Aim, Hre, Him, WyRe, WyIm, WxRe, WxIm,
     route = k1_route(Are.dtype, X, Y, I, J, Xp, Yp)
     if layouts is None:
         layouts = twiddle_layouts(*args[4:])
-    P, w = _padded_box(X, Y), 1 if route == "tc" else 2
-    J16, I16 = _up16(J), _up16(I)
     _build.check_tensors("fused_correlate", Are.device, Are.dtype, zip(
         ("WyTre", "WyTim", "WxTre", "WxTim", "UxTre", "UxTim", "UyTre",
-         "UyTim"), layouts, ((J16, w * P),) * 2 + ((I16, w * P),) * 2
-        + ((_up16(Xp), w * I16),) * 2 + ((_up16(Yp), w * J16),) * 2))
+         "UyTim"), layouts, layout_shapes(route, X, Y, J, I, Xp, Yp)))
     launch = _launch_tc if route == "tc" else _launch_tf32
     launch(args[:4] + tuple(layouts), dims, Dre, Dim)
     return Dre, Dim

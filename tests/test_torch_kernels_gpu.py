@@ -103,7 +103,10 @@ def _rel(got, want):
     (98, 40, 2, 2, "float32", 1e-4),      # L = 2 mod 4: D rows 8-byte
     (98, 40, 2, 2, "bfloat16", 2e-2),     # aligned
     (72, 71, 2, 2, "bfloat16", 2e-2),     # odd box, padded L
-    (50, 24, 3, 3, "float32", 1e-4)])
+    (50, 24, 3, 3, "float32", 1e-4),
+    (128, 40, 16, 2, "float32", 1e-4),    # the full-sweep chunk's shape
+    (128, 48, 16, 2, "float32", 1e-4),
+    (64, 40, 16, 16, "float32", 1e-4)])   # cell 2's chunk: b = 16
 def test_k1_matches_plain(cuda_device, L, Ls, C, b, dtype_name, tol):
     _, args = _k1_args(cuda_device, L, Ls, C, b, dtype_name)
     route = fused.k1_route(args[0].dtype, Ls, Ls, L, L, L, L)
@@ -139,13 +142,39 @@ def test_k1_takes_the_correlators_layouts(cuda_device, dtype_name):
     assert fused.launches == n0
 
 
+@pytest.mark.parametrize("X,Y,J,I,Xp,Yp,C", [
+    (40, 48, 128, 128, 128, 128, 16),     # box 40 x 48 at the full sweep's L
+    (24, 40, 64, 48, 32, 64, 3),          # every axis its own size
+    (72, 40, 120, 96, 128, 100, 2),       # x tiles of A, kL = 128
+    (16, 16, 32, 30, 64, 18, 1)])
+def test_k1_tf32_takes_distinct_twiddles(cuda_device, X, Y, J, I, Xp, Yp, C):
+    """Wy, Wx, Ux and Uy four different matrices of their own shapes (the
+    correlator passes the same matrix for Wy and Wx, and for Ux and Uy):
+    the kernel against the plain version."""
+    g = torch.Generator().manual_seed(X + J + C)
+    b, K = 3, 5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(cuda_device)
+
+    args = (rnd(b, K, C, X, Y), rnd(b, K, C, X, Y), rnd(K, C, J, I),
+            rnd(K, C, J, I), rnd(Y, J), rnd(Y, J), rnd(X, I), rnd(X, I),
+            rnd(I, Xp), rnd(I, Xp), rnd(J, Yp), rnd(J, Yp))
+    assert fused.k1_route(torch.float32, X, Y, I, J, Xp, Yp) == "tf32"
+    got = fused.fused_correlate(*args)
+    want = fused.fused_correlate_reference(*args)
+    for gt, wt in zip(got, want):
+        assert gt.shape == (b, K, Xp, Yp)
+        assert _rel(gt, wt) <= 1e-4
+
+
 def test_k1_tf32_refuses_a_block_that_does_not_fit(cuda_device,
                                                    monkeypatch):
     """A shape the tf32 route takes, on a card that gave a block less
     shared memory than that shape needs: the wrapper raises before the
     launch (no count moves)."""
     _, args = _k1_args(cuda_device, 128, 64, 3, 1, "float32")
-    need = fused.tf32_smem_bytes(64, 64, 128, 128)
+    need = fused.tf32_smem_bytes(64, 64, 128, 128, 128, 128)
     monkeypatch.setattr(fused, "SMEM_OPTIN_BYTES", need - 1)
     n0, tf0 = fused.launches, fused.launches_tf32
     with pytest.raises(ValueError, match="shared memory"):

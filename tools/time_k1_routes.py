@@ -14,8 +14,10 @@ main path launches it (the correlator's kept twiddle layouts).
 
 ``small``: boxes up to 64, the shapes every shipped config runs: the
 bench shape (b = 128, L = 128, box 32, C = 3) in bf16 (tc) and float32
-(tf32), and the v9p config's (b = 16, L = 64, box 40, C = 16) in float32;
-each timed three times.  ``tiles`` adds boxes 71 (an odd box: the tc
+(tf32), the v9p config's (b = 16, L = 64, box 40, C = 16) in float32,
+and the full-sweep config's chunk (b = 128, L = 128, box 40 and 48,
+C = 16) in float32, each full-sweep box first held against the plain
+version at b = 2; each timed three times.  ``tiles`` adds boxes 71 (an odd box: the tc
 kernel loads A with plain loads), 72, 96 and 128 at b = 128, L = 128,
 C = 3 on both tensor-core routes, each first held against the plain
 version at b = 2 (max |kernel - plain| / max |plain|), then timed twice;
@@ -106,10 +108,20 @@ def main():
         for key, (b, L, box, C, name, reps) in {
                 "tc_bench": (128, 128, 32, 3, "bfloat16", 3),
                 "tf32_bench": (128, 128, 32, 3, "float32", 3),
-                "tf32_v9p": (16, 64, 40, 16, "float32", 20)}.items():
+                "tf32_v9p": (16, 64, 40, 16, "float32", 20),
+                "tf32_fullsweep_box40": (128, 128, 40, 16, "float32", 3),
+                "tf32_fullsweep_box48": (128, 128, 48, 16, "float32", 3),
+        }.items():
+            if "fullsweep" in key:
+                corr, args = inputs(2, L, box, C, name, seed=box)
+                small[key + "_rel_err"] = rel(
+                    fused.fused_correlate(*args),
+                    fused.fused_correlate_reference(*args))
             corr, args = inputs(b, L, box, C, name)
             fn = launcher(corr, args)
             small[key] = [ms(fn, reps) for _ in range(3)]
+            del args, fn
+            torch.cuda.empty_cache()
         out["small"] = small
         if mode == "tiles":
             tiles = {}
